@@ -1,0 +1,19 @@
+"""repro_torch: the two-level concurrent graph engine in PyTorch + CUDA.
+
+A port of the JAX package `repro` (which stays the reference) to one
+NVIDIA Hopper GPU.  It mirrors `repro`'s layout and public names, so one
+parity test can drive both packages:
+
+  repro_torch.graph       - CSR, block-ELL tiles, destination-sorted pairs
+  repro_torch.algorithms  - delta-based accumulative algorithms
+  repro_torch.core        - priority pairs, DO queues, global queue, push,
+                            schedule policies and GraphSession (host backend)
+  repro_torch.kernels     - the fused superstep as hand-written CUDA kernels
+  repro_torch.convert     - carry a reference run's graph/state into the port
+
+Every entry point takes an explicit ``device``: ``None`` means CUDA and
+raises when no CUDA device is present (pass ``device="cpu"`` to run the
+plain PyTorch versions on the CPU).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,21 @@
+from repro_torch.graph.structure import (CSRGraph, BlockedGraph, BlockPairs,
+                                         TileOverlay, build_blocked,
+                                         build_block_pairs, empty_overlay,
+                                         run_starts)
+from repro_torch.graph.generators import (rmat_graph, uniform_graph,
+                                          chain_graph, grid_graph)
+
+__all__ = [
+    "CSRGraph",
+    "BlockedGraph",
+    "BlockPairs",
+    "TileOverlay",
+    "build_blocked",
+    "build_block_pairs",
+    "empty_overlay",
+    "run_starts",
+    "rmat_graph",
+    "uniform_graph",
+    "chain_graph",
+    "grid_graph",
+]

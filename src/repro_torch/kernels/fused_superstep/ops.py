@@ -1,0 +1,84 @@
+"""Wrappers around the fused superstep kernels.
+
+`fused_push` mirrors the engine shared-mode push exactly (consume the
+selected blocks' pending deltas, push for every job, fold values), with
+the push and the priority update in ONE kernel launch over the view's
+destination-sorted `BlockPairs`.  The fold / consume bookkeeping stays in
+plain tensor ops; selection enters the kernel only as identity-masked
+operand rows, so padded selection slots aliasing block 0 cannot re-push it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.fused_superstep.kernel import (
+    fused_superstep_call, smem_bytes)
+
+
+def _pick_job_block(j: int, vb: int, semiring: str) -> int:
+    """Largest job chunk one thread block can hold: one thread per (job,
+    lane) under the 1024-thread limit, and its shared memory (see
+    `kernel.smem_bytes`: the same for both semirings, whose state stays in
+    registers) under `common.SMEM_BUDGET` — falling back through divisors
+    of J (prime J degrades to 1)."""
+    del semiring
+    jb = max(1, min(j, common.MAX_THREADS // vb))
+    while jb > 1 and smem_bytes(jb, vb) > common.SMEM_BUDGET:
+        jb -= 1
+    while j % jb:
+        jb -= 1
+    return jb
+
+
+def block_mask(sel_ids: torch.Tensor, sel_mask: torch.Tensor,
+               num_blocks: int) -> torch.Tensor:
+    """[q] ids + validity mask -> dense [B_N] bool (an integer scatter-max:
+    torch has no bool scatter_reduce).  A padded slot (mask 0) aliasing a
+    selected block leaves it selected."""
+    m = torch.zeros(num_blocks, dtype=torch.int32, device=sel_ids.device)
+    m.scatter_reduce_(0, sel_ids.long(), (sel_mask > 0).to(torch.int32),
+                      reduce="amax")
+    return m > 0
+
+
+def fused_push(values: torch.Tensor, deltas: torch.Tensor, pairs,
+               sel_ids: torch.Tensor, sel_mask: torch.Tensor,
+               push_scale: torch.Tensor, *, semiring: str = "plus_times",
+               tolerance: float = 1e-6, with_pairs: bool = False):
+    """Kernel-backed CAJS push. values/deltas [J, B_N, Vb].
+
+    `pairs` is the view's `graph.structure.BlockPairs`.  Returns updated
+    (values, deltas); with_pairs=True additionally returns the fused
+    priority-pair outputs (node_un, p_sum) [J, B_N] of the POST-push
+    state, zeroed on untouched destination blocks."""
+    j, bn, vb = values.shape
+    jb = _pick_job_block(j, vb, semiring)
+    selb = block_mask(sel_ids, sel_mask, bn)[None, :, None]
+    touched = pairs.dst_touched[None, :, None]
+    meta = dict(run_start=pairs.run_start, semiring=semiring,
+                tolerance=tolerance, job_block=jb)
+    if semiring == "plus_times":
+        raw = torch.where(selb, deltas, 0.0)
+        d = raw * push_scale[:, None, None]
+        base = deltas - raw
+        out, nu, ps = fused_superstep_call(
+            pairs.src, pairs.dst, pairs.first, pairs.last, d, base,
+            pairs.tiles, **meta)
+        values = values + raw
+        deltas = torch.where(touched, out, base)
+    else:
+        pend = torch.where(selb, deltas, float("inf"))
+        base = torch.where(selb, float("inf"), deltas)
+        vout, dout, nu, ps = fused_superstep_call(
+            pairs.src, pairs.dst, pairs.first, pairs.last, pend, base,
+            pairs.tiles, values=values, **meta)
+        values = torch.where(touched, vout, values)
+        deltas = torch.where(touched, dout, base)
+    if with_pairs:
+        tz = pairs.dst_touched[None, :]
+        return (values, deltas, torch.where(tz, nu, 0.0),
+                torch.where(tz, ps, 0.0))
+    return values, deltas
+

@@ -1,0 +1,76 @@
+"""Plain PyTorch version of the fused superstep (what the CUDA kernels
+compute), written as gather / scatter reductions.
+
+The CPU route runs it; on a CUDA device it serves only to check the
+kernels.  Same contract as `kernel.fused_superstep_call`.  Destination
+ids outside [0, B_loc) are dropped, as the reference's ``mode="drop"``
+scatters drop them.  The min-plus form walks the pairs in chunks so its
+[J, chunk, Vb, Vb] temporary stays bounded (the unchunked form would be
+[J, P, Vb, Vb]: 8.7 GB at 2^16 vertices, Vb=64, J=4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: elements of the min-plus [J, chunk, Vb, Vb] temporary (64 MB of f32)
+MIN_PLUS_CHUNK_ELEMS = 2**24
+
+
+def _sink_index(dst: torch.Tensor, bn: int) -> torch.Tensor:
+    """int64 destination ids with out-of-range ids sent to row `bn` (a
+    sink row the caller appends and drops)."""
+    dst = dst.long()
+    return torch.where((dst >= 0) & (dst < bn), dst, bn)
+
+
+def scatter_add_drop(base: torch.Tensor, dst: torch.Tensor,
+                     contrib: torch.Tensor) -> torch.Tensor:
+    """base [J, B, Vb] + contrib [J, M, Vb] added at rows dst [M];
+    out-of-range rows are dropped.  Returns a new tensor."""
+    j, bn, vb = base.shape
+    ext = torch.cat([base, base.new_zeros(j, 1, vb)], dim=1)
+    ext.index_add_(1, _sink_index(dst, bn), contrib)
+    return ext[:, :bn]
+
+
+def _flush_pairs(pr: torch.Tensor):
+    nu = (pr > 0.0).sum(-1).to(torch.float32)
+    return nu, pr.sum(-1)
+
+
+def fused_superstep_ref(src, dst, first, last, d, base, tiles, *,
+                        values=None, run_start=None,
+                        semiring: str = "plus_times",
+                        tolerance: float = 1e-6):
+    del first, last, run_start
+    j, _, vb = d.shape
+    bn = base.shape[1]
+    src = src.long()
+    if semiring == "plus_times":
+        contrib = torch.einsum("jpv,pvw->jpw", d[:, src, :], tiles)
+        out = scatter_add_drop(base, dst, contrib)
+        a = out.abs()
+        pr = torch.where(a >= tolerance, a, 0.0)
+        nu, ps = _flush_pairs(pr)
+        return out, nu, ps
+    if values is None:
+        raise ValueError("the min-plus fused call needs `values`")
+    p = src.shape[0]
+    idx = _sink_index(dst, bn)
+    cand = torch.full((j, bn + 1, vb), float("inf"), dtype=torch.float32,
+                      device=d.device)
+    chunk = max(1, MIN_PLUS_CHUNK_ELEMS // (j * vb * vb))
+    for c0 in range(0, p, chunk):
+        c1 = min(p, c0 + chunk)
+        cand_p = (d[:, src[c0:c1], :, None] + tiles[None, c0:c1]).amin(2)
+        cand.scatter_reduce_(
+            1, idx[c0:c1][None, :, None].expand(j, c1 - c0, vb), cand_p,
+            reduce="amin")
+    cand = cand[:, :bn]
+    v_new = torch.minimum(values, cand)
+    d_new = torch.minimum(base, torch.where(v_new < values, v_new,
+                                            float("inf")))
+    pr = torch.where(torch.isfinite(d_new), 1.0 / (1.0 + d_new), 0.0)
+    nu, ps = _flush_pairs(pr)
+    return v_new, d_new, nu, ps
