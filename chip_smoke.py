@@ -20,15 +20,33 @@ Phases (any failure exits non-zero before the last line is printed):
    counts set to 0 just before and read just after.  SSSP is held
    bit-equal to scipy's Dijkstra, PageRank/PPR to a float64 power
    iteration at rtol 5e-3, atol 1e-4.
+4. The device scheduling backend at full size, on the same session: the
+   four jobs resubmitted and run under Fused() (both scheduling levels
+   and the push on the card, one host read per chunk), checked as in
+   phase 3 with the launch counts set to 0 just before and read just
+   after; then resubmitted under TwoLevel(backend="device",
+   steps_per_sync=8), which must give the same supersteps, tile_loads and
+   tile_pair_loads (chunk invariance); then one chunk of the step
+   function under torch.cuda.set_sync_debug_mode("error").
+5. B3 and B4 at their entry points on the full-size views: mj_spmm
+   (both semirings, J=4 and a prime J=7, q=400 distinct rows of the
+   view's ELL tiles) against its plain version, timed beside
+   torch.matmul for plus-times; push_shared on both views (the jobs'
+   fresh state, the host TwoLevel's first global queue with padded
+   slots) against the port's ELL push; priority_pairs on each view's
+   vertex priorities at submit and after 20 host supersteps against
+   core.priority.block_pairs.  B3's and B4's launch counts are read
+   around their entry-point runs (push_shared, priority_pairs).
 
 Then one JSON line of kernel figures, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --trace
 
-adds a traced rerun of the same four jobs under torch.profiler after the
-checks (the per-layer breakdown: device time by kernel, the device's busy
-share); the untraced main path above gives the end-to-end numbers.
+adds traced reruns of the same four jobs under torch.profiler after the
+checks, one on each backend (the per-layer breakdown: device time by
+kernel, the device's busy share); the untraced runs above give the
+end-to-end numbers.
 """
 
 from __future__ import annotations
@@ -55,6 +73,16 @@ F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 SOURCE = "src/repro_torch/kernels/fused_superstep/csrc/fused_superstep.cu"
 REPLACES = {"plus_times": "src/repro/kernels/fused_superstep/kernel.py:46",
             "min_plus": "src/repro/kernels/fused_superstep/kernel.py:75"}
+B3_SOURCE = "src/repro_torch/kernels/mj_spmm/csrc/mj_spmm.cu"
+B3_REPLACES = {"plus_times": "src/repro/kernels/mj_spmm/kernel.py:29",
+               "min_plus": "src/repro/kernels/mj_spmm/kernel.py:35"}
+B4_SOURCE = ("src/repro_torch/kernels/priority_pairs/csrc/"
+             "priority_pairs.cu")
+B4_REPLACES = "src/repro/kernels/priority_pairs/kernel.py:19"
+SEMIRINGS = ("plus_times", "min_plus")
+Q_B3 = 400                     # selected rows of the mj_spmm entry point
+DEVICE_CADENCE = 8             # steps_per_sync of the chunk-invariance run
+PADDED_SLOTS = 3               # padded slots in push_shared's queue
 
 
 def log(msg: str) -> None:
@@ -230,16 +258,23 @@ def timed_policy(base):
     return Timed()
 
 
+def resubmit(torch, sess, handles):
+    """Detach the jobs and submit them again (fresh state, same slots):
+    the next run starts over from the initial state."""
+    algs = [h.alg for h in handles]
+    for h in handles:
+        sess.detach(h)
+    out = [sess.submit(a) for a in algs]
+    torch.cuda.synchronize()
+    return out
+
+
 def traced_rerun(torch, sess, handles, policy):
     """Resubmit the jobs and rerun them under torch.profiler: device time
     by kernel and the device's busy share of the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    algs = [h.alg for h in handles]
-    for h in handles:
-        sess.detach(h)
-    for a in algs:
-        sess.submit(a)
-    torch.cuda.synchronize()
+    handles = resubmit(torch, sess, handles)
+    sess.scheduler.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -253,11 +288,13 @@ def traced_rerun(torch, sess, handles, policy):
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    log(f"traced rerun: supersteps={m.supersteps} wall {wall:.3f} s, device "
+    log(f"traced rerun ({policy.name}, backend={policy.backend}): "
+        f"supersteps={m.supersteps} wall {wall:.3f} s, device "
         f"busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall:.1f}% "
         f"of wall (idle {100 - 100 * busy_us / 1e6 / wall:.1f}%)")
     for dev_us, count, key in rows[:10]:
         log(f"  {dev_us / 1e3:9.2f} ms  {count:6d} calls  {key[:90]}")
+    return handles
 
 
 def sssp_ref(csr, sources):
@@ -266,6 +303,337 @@ def sssp_ref(csr, sources):
     a = sp.csr_matrix((csr.weights.astype(np.float64), csr.indices,
                        csr.indptr), shape=(csr.n, csr.n))
     return dijkstra(a, directed=True, indices=list(sources))
+
+
+def check_results(sess, handles, csr, refs, label):
+    """Phase 3's checks of a run's results: SSSP bit-equal to scipy's
+    Dijkstra, PageRank/PPR within rtol 5e-3, atol 1e-4 of the float64
+    power iteration."""
+    res = [sess.result(h) for h in handles]
+    for r in res:
+        if r.shape != (csr.n,) or r.dtype != np.float32:
+            raise RuntimeError(f"result shape/dtype {r.shape} {r.dtype}")
+    for r, h, want in zip(res, handles, refs):
+        if h.alg.semiring == "min_plus":
+            np.testing.assert_array_equal(r, want)
+            log(f"{label}: SSSP(source={h.alg.source}) bit-equal to scipy "
+                f"dijkstra ({int(np.isfinite(want).sum())} reachable)")
+        else:
+            if not np.isfinite(r).all():
+                raise RuntimeError(f"{h.alg.name}: non-finite result")
+            np.testing.assert_allclose(r, want, rtol=5e-3, atol=1e-4)
+            log(f"{label}: {h.alg.name} within rtol 5e-3, atol 1e-4 of the "
+                f"float64 power iteration (max |err| "
+                f"{np.abs(r - want).max():.3g})")
+
+
+def drive(torch, sess, policy, fk):
+    """Run `policy` to convergence with the fused kernels' launch counts
+    set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    m = sess.run(policy, MAX_SUPERSTEPS)       # ends in a device sync
+    wall = time.perf_counter() - t0
+    return m, wall, dict(fk.launches), torch.cuda.max_memory_allocated()
+
+
+def report_run(torch, label, m, wall, launches, peak):
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"{label}: converged={m.converged} supersteps={m.supersteps} "
+        f"tile_loads={m.tile_loads} tile_pair_loads={m.tile_pair_loads} "
+        f"job_block_pushes={m.job_block_pushes} host_syncs={m.host_syncs}")
+    log(f"{label}: wall {wall:.3f} s, "
+        f"{1e3 * wall / max(1, m.supersteps):.3f} ms/superstep; "
+        f"launches {launches}; peak device memory {peak / 1e9:.2f} GB "
+        f"({100.0 * peak / total:.1f}% of {total / 1e9:.1f} GB)")
+    if not m.converged:
+        raise RuntimeError(f"{label}: no convergence in {MAX_SUPERSTEPS} "
+                           f"supersteps")
+    for k, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{label}: kernel {k} was not launched")
+
+
+def device_backend(torch, sess, handles, csr, refs, fk, host):
+    """Phase 4: Fused() and TwoLevel(device, K) at full size, then one
+    chunk under the sync-debug mode.  Returns (handles, Fused's launch
+    counts)."""
+    from repro_torch.core import Fused, TwoLevel
+    from repro_torch.core.policy import device_inputs
+
+    handles = resubmit(torch, sess, handles)
+    sess.scheduler.reset()
+    m, wall, launches, peak = drive(torch, sess, Fused(), fk)
+    report_run(torch, "device backend (Fused)", m, wall, launches, peak)
+    check_results(sess, handles, csr, refs, "device backend")
+    hm, hwall = host
+    log(f"host vs device backend: supersteps {hm.supersteps} vs "
+        f"{m.supersteps}, tile_loads {hm.tile_loads} vs {m.tile_loads}, "
+        f"host_syncs {hm.host_syncs} vs {m.host_syncs}, wall {hwall:.3f} vs "
+        f"{wall:.3f} s, ms/superstep "
+        f"{1e3 * hwall / max(1, hm.supersteps):.3f} vs "
+        f"{1e3 * wall / max(1, m.supersteps):.3f}")
+
+    handles = resubmit(torch, sess, handles)
+    sess.scheduler.reset()
+    pol_k = TwoLevel(backend="device", steps_per_sync=DEVICE_CADENCE)
+    mk_, wall_k, launches_k, peak_k = drive(torch, sess, pol_k, fk)
+    report_run(torch, f"device backend (steps_per_sync={DEVICE_CADENCE})",
+               mk_, wall_k, launches_k, peak_k)
+    for f in ("supersteps", "tile_loads", "tile_pair_loads"):
+        if getattr(mk_, f) != getattr(m, f):
+            raise RuntimeError(f"chunk invariance: {f} {getattr(mk_, f)} "
+                               f"at steps_per_sync={DEVICE_CADENCE} != "
+                               f"{getattr(m, f)} under Fused()")
+    log(f"chunk invariance: supersteps, tile_loads and tile_pair_loads "
+        f"identical for Fused() and steps_per_sync={DEVICE_CADENCE}")
+    check_results(sess, handles, csr, refs, "device backend, K=8")
+
+    handles = resubmit(torch, sess, handles)
+    step_fn = sess._device_step_fn(pol_k)
+    state, *args = device_inputs(sess)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, un = step_fn(state, *args, MAX_SUPERSTEPS, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
+    if it_h != step_fn.chunk:
+        raise RuntimeError(f"sync-debug chunk ran {it_h} supersteps")
+    log(f"one chunk ({step_fn.chunk} supersteps) ran under "
+        f"set_sync_debug_mode('error'): no implicit sync; "
+        f"{un_h} vertices unconverged after it")
+    # is a chunk bound by the host's enqueue or by the device?
+    t0 = time.perf_counter()
+    state, un = step_fn(state, *args, MAX_SUPERSTEPS, 0)
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    log(f"next chunk: host enqueue {1e3 * t_enq / step_fn.chunk:.3f} ms "
+        f"per superstep, enqueue + drain {1e3 * t_all / step_fn.chunk:.3f} "
+        f"ms per superstep")
+    return handles, launches
+
+
+def max_err(got, want) -> float:
+    a, b = got.cpu().numpy(), want.cpu().numpy()
+    fin = np.isfinite(a) & np.isfinite(b)
+    if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+        raise AssertionError("kernel and plain version differ in which "
+                             "entries are infinite")
+    return float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
+
+
+def b3_bound(q, k, j, vb):
+    """Least time of one mj_spmm call: each selected tile, d row and
+    output read/written once over the HBM rate vs 2 operations per
+    (row, slot, job, v, w) over the float32 rate."""
+    nbytes = 4 * (q * k * vb * vb + q * j * vb + q * k * j * vb)
+    ops = 2.0 * q * k * j * vb * vb
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def b3_state(torch, rng, q, j, vb, semiring, device):
+    d = rng.random((q, j, vb)).astype(np.float32)
+    if semiring == "min_plus":
+        d = d * 10
+        d[rng.random(d.shape) < 0.5] = np.inf
+    return torch.as_tensor(d, device=device)
+
+
+def check_mj_spmm(torch, groups, device):
+    """Phase 5a: mj_spmm kernel against its plain version on q=400
+    distinct rows of each view's real ELL tiles; timed beside the plain
+    version and (plus-times) one torch.matmul."""
+    from repro_torch.kernels.mj_spmm import mj_spmm
+    from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
+
+    figures = {}
+    rng = np.random.default_rng(23)
+    for semiring, grp in groups.items():
+        tiles = grp.graph.tiles
+        bn, k, vb = tiles.shape[0], tiles.shape[1], tiles.shape[2]
+        rows = rng.choice(bn, Q_B3, replace=False).astype(np.int32)
+        idx = torch.as_tensor(rows, device=device)
+        tiles_sel = tiles[idx.long()]                  # [q, K, Vb, Vb]
+        errs = []
+        for j in (CAPACITY, 7):
+            d = b3_state(torch, rng, Q_B3, j, vb, semiring, device)
+            got = mj_spmm(d, tiles_sel, semiring)
+            got_i = mj_spmm(d, tiles, semiring, tile_index=idx)
+            torch.cuda.synchronize()
+            want = mj_spmm_ref(d, tiles_sel, semiring)
+            if semiring == "min_plus":
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy())
+            else:
+                np.testing.assert_allclose(got.cpu().numpy(),
+                                           want.cpu().numpy(), rtol=1e-5,
+                                           atol=1e-5)
+            if not torch.equal(got, got_i):
+                raise AssertionError("tile_index read differs from the "
+                                     "gathered read")
+            errs.append(max_err(got, want))
+            log(f"  mj_spmm {semiring}: q={Q_B3} K={k} J={j} Vb={vb} "
+                f"matches plain (max |err| {errs[-1]:.3g}); tile_index "
+                f"read bit-equal to the gathered read")
+            if j != CAPACITY:
+                continue
+            del got, got_i, want
+            k_ms = median_ms(torch, lambda: mj_spmm(d, tiles_sel, semiring))
+            ki_ms = median_ms(torch, lambda: mj_spmm(d, tiles, semiring,
+                                                     tile_index=idx))
+            p_ms = median_ms(torch,
+                             lambda: mj_spmm_ref(d, tiles_sel, semiring))
+            lib_ms = None
+            if semiring == "plus_times":
+                lib_ms = median_ms(torch,
+                                   lambda: torch.matmul(d[:, None],
+                                                        tiles_sel))
+            b_ms, b_by = b3_bound(Q_B3, k, j, vb)
+            log(f"  mj_spmm {semiring}: kernel {k_ms:.4f} ms (with "
+                f"tile_index {ki_ms:.4f} ms), plain {p_ms:.4f} ms, "
+                f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
+                f" ms, bound {b_ms:.4f} ms ({b_by}); "
+                f"{k_ms / b_ms:.2f}x the bound")
+            figures[semiring] = dict(ms=k_ms, indexed_ms=ki_ms,
+                                     plain_ms=p_ms, library_ms=lib_ms,
+                                     bound_ms=b_ms, bound_by=b_by)
+        figures[semiring]["max_abs_err"] = max(errs)
+        del tiles_sel, d
+        torch.cuda.empty_cache()
+    return figures
+
+
+def check_push_shared(torch, sess, groups, device):
+    """Phase 5b: push_shared (the kernel-backed engine push through
+    mj_spmm with tile_index) on both views, launch counts around it;
+    then held against the port's ELL push."""
+    from repro_torch.core import TwoLevel
+    from repro_torch.core.policy import _read_pairs
+    from repro_torch.core.push import compute_pairs, shared_push_fn
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.mj_spmm import push_shared
+
+    nus, pms, acts = [], [], []
+    for g in sess.view_groups():
+        nu, pm = _read_pairs(*compute_pairs(g.alg, g.values, g.deltas))
+        nus.append(nu)
+        pms.append(pm)
+        acts.append(nu.sum(-1) > 0)
+    selection = TwoLevel().select(sess, nus, pms, acts)
+    sel = np.asarray(selection.sel, np.int32).copy()
+    msk = np.asarray(selection.msk, np.float32).copy()
+    n = int((msk > 0).sum())
+    sel[n - PADDED_SLOTS:n] = 0          # padded slots alias block 0
+    msk[n - PADDED_SLOTS:n] = 0.0
+    sel_t = torch.as_tensor(sel, device=device)
+    msk_t = torch.as_tensor(msk, device=device)
+    log(f"  push_shared: the host TwoLevel's first global queue, "
+        f"{n - PADDED_SLOTS} blocks + {len(sel) - n + PADDED_SLOTS} padded "
+        f"slots (q={len(sel)})")
+
+    def kern(grp):
+        return push_shared(grp.values, grp.deltas, grp.graph.tiles,
+                           grp.graph.nbr_ids, sel_t, msk_t, grp.push_scale,
+                           semiring=grp.semiring)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    outs = {sr: kern(grp) for sr, grp in groups.items()}
+    torch.cuda.synchronize()
+    launches = dict(mk.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  push_shared on both views: mj_spmm launches {launches}; peak "
+        f"device memory {peak / 1e9:.2f} GB")
+    for sr, n_l in launches.items():
+        if n_l <= 0:
+            raise RuntimeError(f"mj_spmm {sr} was not launched by "
+                               f"push_shared")
+    for sr, grp in groups.items():
+        ell = shared_push_fn(sr, grp.push_one, use_pallas=False)
+        want = ell(grp.values, grp.deltas, grp.graph.tiles,
+                   grp.graph.nbr_ids, sel_t, msk_t, grp.push_scale,
+                   grp.overlay, None)
+        (v_k, d_k), (v_e, d_e) = outs[sr], want
+        if sr == "min_plus":
+            np.testing.assert_array_equal(v_k.cpu().numpy(),
+                                          v_e.cpu().numpy())
+            np.testing.assert_array_equal(d_k.cpu().numpy(),
+                                          d_e.cpu().numpy())
+        else:
+            np.testing.assert_allclose(v_k.cpu().numpy(), v_e.cpu().numpy(),
+                                       rtol=1e-6)
+            np.testing.assert_allclose(d_k.cpu().numpy(), d_e.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        err = max(max_err(v_k, v_e), max_err(d_k, d_e))
+        del want, v_e, d_e
+        k_ms = median_ms(torch, lambda: kern(grp))
+        e_ms = median_ms(torch, lambda: ell(
+            grp.values, grp.deltas, grp.graph.tiles, grp.graph.nbr_ids,
+            sel_t, msk_t, grp.push_scale, grp.overlay, None), reps=3,
+            warmup=0)
+        log(f"  push_shared {sr}: matches the ELL push (max |err| "
+            f"{err:.3g}); {k_ms:.4f} ms per call (ELL push {e_ms:.4f} ms)")
+    del outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def b4_bound(j, bn, vb):
+    nbytes = 4 * (j * bn * vb + 2 * j * bn)
+    ops = 2.0 * j * bn * vb
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_priority_pairs(torch, sess, groups):
+    """Phase 5c: priority_pairs on each view's vertex priorities at
+    submit and after 20 host supersteps (launch counts around those
+    calls), then against core.priority.block_pairs, and timed."""
+    from repro_torch.core import TwoLevel
+    from repro_torch.core.priority import block_pairs
+    from repro_torch.kernels.priority_pairs import kernel as pk
+    from repro_torch.kernels.priority_pairs import priority_pairs
+
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    outs = []
+    for stage in ("at submit", "after 20 host supersteps"):
+        if stage != "at submit":
+            sess.run(TwoLevel(), 20)
+        for sr, grp in groups.items():
+            vp = grp.alg.vertex_priority(grp.values, grp.deltas)
+            outs.append((stage, sr, vp, priority_pairs(vp)))
+    torch.cuda.synchronize()
+    launches = pk.launches["priority_pairs"]
+    if launches <= 0:
+        raise RuntimeError("priority_pairs was not launched")
+    errs = []
+    for stage, sr, vp, (nu, pm) in outs:
+        nu_p, pm_p = block_pairs(vp)
+        np.testing.assert_array_equal(nu.cpu().numpy(), nu_p.cpu().numpy())
+        np.testing.assert_allclose(pm.cpu().numpy(), pm_p.cpu().numpy(),
+                                   rtol=1e-6)
+        errs.append(max(max_err(nu, nu_p), max_err(pm, pm_p)))
+        log(f"  priority_pairs {sr} {stage}: {tuple(vp.shape)}, node_un "
+            f"exact, p_mean within rtol 1e-6 (max |err| {errs[-1]:.3g}; "
+            f"{int(nu.sum().item())} unconverged vertices)")
+    vp = outs[-2][2]
+    k_ms = median_ms(torch, lambda: priority_pairs(vp))
+    p_ms = median_ms(torch, lambda: block_pairs(vp))
+    b_ms, b_by = b4_bound(*vp.shape)
+    log(f"  priority_pairs: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}); launches on its path {launches}")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=max(errs), launches=launches)
 
 
 def main() -> int:
@@ -285,7 +653,7 @@ def main() -> int:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.algorithms import (PageRank, PersonalizedPageRank,
                                         SSSP)
-    from repro_torch.core import GraphSession, TwoLevel
+    from repro_torch.core import Fused, GraphSession, TwoLevel
     from repro_torch.graph import rmat_graph
     from repro_torch.kernels import common
     from repro_torch.kernels.fused_superstep import kernel as fk
@@ -301,9 +669,10 @@ def main() -> int:
     t0 = time.perf_counter()
     common.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
-    for line in common.build_log("fused_superstep").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in common.KERNEL_SOURCES:
+        for line in common.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     # -- the slice's graph and session (two views) -------------------------
     t0 = time.perf_counter()
@@ -337,23 +706,13 @@ def main() -> int:
     # -- phase 2: kernels against their plain versions ---------------------
     figures = check_kernels(torch, sess, groups, sess.device)
 
-    # -- phase 3: the main path --------------------------------------------
-    torch.cuda.reset_peak_memory_stats()
-    fk.reset_launches()
+    # -- phase 3: the main path (host backend) ------------------------------
+    dist = sssp_ref(csr, SSSP_SOURCES).astype(np.float32)
+    refs = [pagerank_ref(csr, a.damping, getattr(a, "source", None))
+            for a in algs[:2]] + list(dist)
     policy = timed_policy(TwoLevel)
-    t0 = time.perf_counter()
-    m = sess.run(policy, MAX_SUPERSTEPS)
-    wall = time.perf_counter() - t0
-    launches = dict(fk.launches)
-    peak = torch.cuda.max_memory_allocated()
-    total = torch.cuda.get_device_properties(0).total_memory
-    log(f"main path: converged={m.converged} supersteps={m.supersteps} "
-        f"tile_loads={m.tile_loads} tile_pair_loads={m.tile_pair_loads} "
-        f"job_block_pushes={m.job_block_pushes} host_syncs={m.host_syncs}")
-    log(f"main path: wall {wall:.3f} s, "
-        f"{1e3 * wall / max(1, m.supersteps):.3f} ms/superstep; "
-        f"launches {launches}; peak device memory {peak / 1e9:.2f} GB "
-        f"({100.0 * peak / total:.1f}% of {total / 1e9:.1f} GB)")
+    m, wall, launches, peak = drive(torch, sess, policy, fk)
+    report_run(torch, "main path", m, wall, launches, peak)
     steps = max(1, m.supersteps)
     kern_ms = sum(launches[k] * figures[k]["ms"] for k in launches)
     log(f"main path per superstep: host scheduling (select) "
@@ -361,43 +720,51 @@ def main() -> int:
         f"{kern_ms / steps:.3f} ms (launches x median call time); the rest "
         f"{1e3 * wall / steps - 1e3 * policy.select_s / steps - kern_ms / steps:.3f}"
         f" ms (pair reduction and its read, state ops, Python)")
-    if not m.converged:
-        raise RuntimeError(f"no convergence in {MAX_SUPERSTEPS} supersteps")
-    for k, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"kernel {k} was not launched on the main path")
+    check_results(sess, handles, csr, refs, "main path")
 
-    res = [sess.result(h) for h in handles]
-    for r in res:
-        if r.shape != (csr.n,) or r.dtype != np.float32:
-            raise RuntimeError(f"result shape/dtype {r.shape} {r.dtype}")
-    dist = sssp_ref(csr, SSSP_SOURCES).astype(np.float32)
-    for k, (h, want) in enumerate(zip(handles[2:], dist)):
-        np.testing.assert_array_equal(res[2 + k], want)
-        log(f"SSSP(source={h.alg.source}) bit-equal to scipy dijkstra "
-            f"({int(np.isfinite(want).sum())} reachable)")
-    for r, alg in zip(res[:2], algs[:2]):
-        src = getattr(alg, "source", None)
-        want = pagerank_ref(csr, alg.damping, src)
-        if not np.isfinite(r).all():
-            raise RuntimeError(f"{alg.name}: non-finite result")
-        np.testing.assert_allclose(r, want, rtol=5e-3, atol=1e-4)
-        log(f"{alg.name}: within rtol 5e-3, atol 1e-4 of the float64 power "
-            f"iteration (max |err| {np.abs(r - want).max():.3g})")
+    # -- phase 4: the device scheduling backend ----------------------------
+    handles, dev_launches = device_backend(
+        torch, sess, handles, csr, refs, fk, (m, wall))
+
+    # -- phase 5: B3 and B4 at their entry points ---------------------------
+    handles = resubmit(torch, sess, handles)
+    b3 = check_mj_spmm(torch, groups, sess.device)
+    b3_launches = check_push_shared(torch, sess, groups, sess.device)
+    b4 = check_priority_pairs(torch, sess, groups)
 
     if args.trace:
-        traced_rerun(torch, sess, handles, TwoLevel())
+        handles = traced_rerun(torch, sess, handles, TwoLevel())
+        handles = traced_rerun(torch, sess, handles, Fused())
 
     kernels = []
-    for sr in ("plus_times", "min_plus"):
+    for sr in SEMIRINGS:
         f = figures[sr]
         kernels.append({
             "name": f"fused_superstep_{sr}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES[sr],
-            "launches": launches[sr], "max_abs_err": f["max_abs_err"],
+            "launches": launches[sr] + dev_launches[sr],
+            "launches_by_path": {"host_two_level": launches[sr],
+                                 "device_fused": dev_launches[sr]},
+            "max_abs_err": f["max_abs_err"],
             "ms": f["ms"], "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": None})
+    for sr in SEMIRINGS:
+        f = b3[sr]
+        kernels.append({
+            "name": f"mj_spmm_{sr}", "route": "cuda", "source": B3_SOURCE,
+            "replaces": B3_REPLACES[sr], "launches": b3_launches[sr],
+            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"]})
+    kernels.append({
+        "name": "priority_pairs", "route": "cuda", "source": B4_SOURCE,
+        "replaces": B4_REPLACES, "launches": b4["launches"],
+        "max_abs_err": b4["max_abs_err"], "ms": b4["ms"],
+        "kernel_ms": b4["ms"], "plain_ms": b4["plain_ms"],
+        "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ parity test can drive both packages:
   repro_torch.graph       - CSR, block-ELL tiles, destination-sorted pairs
   repro_torch.algorithms  - delta-based accumulative algorithms
   repro_torch.core        - priority pairs, DO queues, global queue, push,
-                            schedule policies and GraphSession (host backend)
-  repro_torch.kernels     - the fused superstep as hand-written CUDA kernels
+                            schedule policies (host and device backends),
+                            GraphSession, the engine shim and paper API
+  repro_torch.kernels     - hand-written CUDA kernels: the fused superstep,
+                            the multi-job block SpMM, the pair reduction
   repro_torch.convert     - carry a reference run's graph/state into the port
 
 Every entry point takes an explicit ``device``: ``None`` means CUDA and
@@ -16,4 +18,4 @@ raises when no CUDA device is present (pass ``device="cpu"`` to run the
 plain PyTorch versions on the CPU).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,4 +1,4 @@
-"""Pluggable schedule policies over a GraphSession (host backend).
+"""Pluggable schedule policies over a GraphSession.
 
 A policy decides, per superstep, WHICH blocks are staged and WHO processes
 them; the driver owns everything else (convergence test, metrics, the push
@@ -10,12 +10,34 @@ only in schedule and therefore in tile_loads / supersteps:
   Independent - redundancy baseline: each job selects and stages its own
                 queue (paper Fig. 3 "current mode").
   AllBlocks   - non-prioritized baseline: every block, every superstep.
+  Fused       - TwoLevel(backend="device", steps_per_sync=inf).
 
-The host driver `_run_host` schedules on the host (numpy + exact CBP) and
-pushes on the session's device.  Each superstep reads the device exactly
-once per view group (its <Node_un, P_mean> pairs, `_read_pairs`);
-`RunMetrics.host_syncs` counts the supersteps that did.  The device
-backend (`backend="device"`, `Fused`) is the next slice of the port.
+Every policy runs on either BACKEND:
+
+  backend="host"   - scheduling on the host (numpy + exact CBP), push on
+                     the session's device; `_run_host` reads the device
+                     once per view group per superstep (`_read_pairs`).
+  backend="device" - both scheduling levels run on the session's device
+                     beside the push (`build_device_step`): the DO
+                     queues (`do_select_device`, the port's counter-based
+                     draw), the global synthesis (`accumulate_priority`,
+                     `synthesize_topq`) and the push, with no host read
+                     inside a chunk.  `steps_per_sync=K` runs K gated
+                     supersteps back to back, then reads (it,
+                     unconverged_total) once; a gated superstep (all
+                     converged, or the budget spent) leaves the state
+                     bit-identical and counts nothing.
+
+Known difference from the reference: torch runs eagerly and has no
+device-side while loop, so `steps_per_sync=math.inf` runs repeated chunks
+of `INF_CHUNK` supersteps and `host_syncs` is ceil(supersteps / chunk)
+where the reference's while_loop reports 1.  The schedule itself does not
+depend on the cadence: superstep t of a run draws the same numbers
+whatever the chunk length.
+
+`RunMetrics.host_syncs` counts scheduling round-trips (host backend: one
+per superstep including the final all-converged poll; device backend: one
+per chunk).
 """
 
 from __future__ import annotations
@@ -29,12 +51,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import priority as prio
+from repro_torch.core.do_select import (do_select_device, fold_in, seed_key,
+                                        uniform_noise)
+from repro_torch.core.global_q import accumulate_priority, synthesize_topq
 from repro_torch.core.push import compute_pairs, indep_push_fn, shared_push_fn
 
 HOST, DEVICE = "host", "device"
 
-_NEXT_SLICE = ("the device scheduling backend (backend='device', Fused) is "
-               "not ported yet: ROADMAP A5/A6, the next slice")
+#: supersteps per host read under steps_per_sync=math.inf (the device
+#: driver has no device-side while loop, so "until the fixpoint" is
+#: repeated chunks of this length)
+INF_CHUNK = 16
 
 
 @dataclasses.dataclass
@@ -89,24 +116,29 @@ class Selection:
 
 
 class SchedulePolicy:
-    """Base policy: subclasses implement `select` (host).
+    """Base policy: subclasses implement `select` (host) / `device_select`.
 
-    It receives per-view-group lists (creation order): node_un[g] and
-    p_mean[g] are [J_g, B_N] numpy arrays, active[g] is [J_g] bool."""
+    Both receive per-view-group lists (creation order): node_un[g] and
+    p_mean[g] are [J_g, B_N] (numpy arrays on the host, tensors on the
+    device), active[g] is [J_g] bool."""
 
     name = "abstract"
     needs_pairs = True  # driver computes <Node_un, P_mean> before select()
 
     def __init__(self, *, backend: str = HOST,
                  steps_per_sync: Union[int, float] = 1):
-        if backend == DEVICE:
-            raise NotImplementedError(_NEXT_SLICE)
-        if backend != HOST:
+        if backend not in (HOST, DEVICE):
             raise ValueError(f"backend must be 'host' or 'device': {backend}")
-        if steps_per_sync != 1:
+        if backend == HOST:
+            if steps_per_sync != 1:
+                raise ValueError(
+                    "host scheduling decides every superstep — "
+                    "steps_per_sync requires backend='device'")
+        elif steps_per_sync != math.inf and (
+                steps_per_sync != int(steps_per_sync) or steps_per_sync < 1):
             raise ValueError(
-                "host scheduling decides every superstep — "
-                "steps_per_sync requires backend='device'")
+                f"steps_per_sync must be a positive int or math.inf: "
+                f"{steps_per_sync}")
         self.backend = backend
         self.steps_per_sync = steps_per_sync
 
@@ -117,9 +149,20 @@ class SchedulePolicy:
         (the driver then declares convergence)."""
         raise NotImplementedError
 
+    def device_select(self, node_uns, p_means, actives, key, *, q: int,
+                      alpha: float, samples: int,
+                      num_blocks: int) -> Selection:
+        """Staging decision on the device, inside the superstep.  `key` is
+        this superstep's draw key (an int64 0-dim tensor, already folded
+        with the superstep index)."""
+        raise NotImplementedError
+
     def run(self, sess, max_supersteps: int = 100000) -> RunMetrics:
         t0 = time.perf_counter()
-        m = _run_host(self, sess, max_supersteps)
+        if self.backend == DEVICE:
+            m = _run_device(self, sess, max_supersteps)
+        else:
+            m = _run_host(self, sess, max_supersteps)
         if sess.device.type == "cuda":
             torch.cuda.synchronize(sess.device)
         m.wall_time_s = time.perf_counter() - t0
@@ -239,6 +282,197 @@ def _run_host(policy: SchedulePolicy, sess,
     return m
 
 
+# ---------------------------------------------------------------------------
+# device driver: gated supersteps on the device, one host read per chunk
+# ---------------------------------------------------------------------------
+
+
+def build_device_step(policy: SchedulePolicy, sess):
+    """The session's superstep for `policy` as one chunk function:
+
+        step_fn(state, scales, tiles, nbrs, overlays, pairs, max_steps,
+                key) -> (state, unconverged_total)
+
+    where state = (it, values_tuple, deltas_tuple, loads, pushes,
+    pair_loads, iters_tuple, boost), `pairs` is the per-group `BlockPairs`
+    tuple and `key` the run's draw key (a python int).  One call runs a
+    chunk of supersteps back to back on the device — steps_per_sync of
+    them, or `INF_CHUNK` for math.inf — each GATED: where all jobs have
+    converged or `it` has reached max_steps, the superstep leaves every
+    carry entry bit-identical, counts nothing and does not advance `it`
+    (`torch.where` on a 0-dim device bool; counters add live x count).
+    Nothing in a chunk reads the device from the host: no `.item()`, no
+    data-dependent shape (`nonzero`, boolean masks), no host branch on a
+    device value.  Superstep t draws from fold_in(key, t), so the
+    schedule does not depend on the chunk length.
+
+    The kernels still launch in a gated superstep (its results are then
+    discarded), so the kernels' launch counters count chunk slots, not
+    live supersteps.  Cache via session._device_step_fn."""
+    groups = sess.view_groups()
+    n_groups = len(groups)
+    algs = [g.alg for g in groups]
+    q = int(sess.q)
+    alpha = float(sess.alpha)
+    samples = int(sess.samples)
+    bn = int(sess.scheduler.num_blocks)
+    chunk = (INF_CHUNK if policy.steps_per_sync == math.inf
+             else int(policy.steps_per_sync))
+    needs_pairs = policy.needs_pairs
+
+    shared_push = [shared_push_fn(g.semiring, g.push_one, sess.use_pallas)
+                   for g in groups]
+    indep_push = [indep_push_fn(g.push_one) for g in groups]
+
+    def unconverged_total(vs, ds):
+        tot = 0
+        for gi in range(n_groups):
+            tot = tot + algs[gi].unconverged(vs[gi], ds[gi]).sum()
+        return tot
+
+    def superstep(carry, scales, tiles, nbrs, ovs, prs, max_steps, key):
+        it, vs, ds, loads, pushes, pair_loads, iters, boost = carry
+        live = (unconverged_total(vs, ds) > 0) & (it < max_steps)
+        node_uns, p_means, actives = [], [], []
+        for gi in range(n_groups):
+            if needs_pairs:
+                nu, pm = compute_pairs(algs[gi], vs[gi], ds[gi])
+                pm = pm + boost[None, :] * (nu > 0)
+            else:   # Node_un alone suffices (AllBlocks): cheaper reduce
+                un = algs[gi].unconverged(vs[gi], ds[gi])
+                nu = un.sum(-1).to(torch.float32)
+                pm = None
+            node_uns.append(nu)
+            p_means.append(pm)
+            actives.append(prio.counts_from_pairs(nu) > 0)
+        selection = policy.device_select(
+            node_uns, p_means, actives, fold_in(key, it),
+            q=q, alpha=alpha, samples=samples, num_blocks=bn)
+        new_vs, new_ds, new_iters = [], [], []
+        pair_step = torch.zeros((), dtype=torch.float32, device=it.device)
+        for gi in range(n_groups):
+            if selection.shared:
+                v2, d2 = shared_push[gi](
+                    vs[gi], ds[gi], tiles[gi], nbrs[gi],
+                    selection.sel, selection.msk, scales[gi], ovs[gi],
+                    prs[gi])
+                pair_cnt = (prs[gi].src_nnz[selection.sel.long()]
+                            * (selection.msk > 0)).sum()
+            else:
+                v2, d2 = indep_push[gi](
+                    vs[gi], ds[gi], tiles[gi], nbrs[gi],
+                    selection.sel[gi], selection.msk[gi], scales[gi],
+                    ovs[gi])
+                pair_cnt = (prs[gi].src_nnz[selection.sel[gi].long()]
+                            * (selection.msk[gi] > 0)).sum()
+            # a fully-converged group is never pushed, exactly as in the
+            # host driver: freezing it keeps sub-tolerance plus-times
+            # residual mass where convergence left it
+            keep = actives[gi].any()
+            upd = live & keep
+            new_vs.append(torch.where(upd, v2, vs[gi]))
+            new_ds.append(torch.where(upd, d2, ds[gi]))
+            new_iters.append(iters[gi]
+                             + (live & actives[gi]).to(torch.int32))
+            pair_step = pair_step + (keep.to(torch.float32)
+                                     * pair_cnt.to(torch.float32))
+        lf = live.to(torch.float32)
+        # the counters accumulate in float32, as the reference's carry does
+        # (exact up to 2^24, rounded beyond)
+        return (it + live.to(it.dtype), tuple(new_vs), tuple(new_ds),
+                loads + lf * selection.tile_loads.to(torch.float32),
+                pushes + lf * selection.job_block_pushes.to(torch.float32),
+                pair_loads + lf * pair_step,
+                tuple(new_iters),
+                torch.where(live, torch.zeros_like(boost), boost))
+
+    def step_fn(state, scales, tiles, nbrs, ovs, prs, max_steps, key):
+        for _ in range(chunk):
+            state = superstep(state, scales, tiles, nbrs, ovs, prs,
+                              max_steps, key)
+        return state, unconverged_total(state[1], state[2])
+
+    step_fn.chunk = chunk
+    return step_fn
+
+
+def device_inputs(sess):
+    """(state, scales, tiles, nbrs, overlays, pairs): the device driver's
+    initial carry over the session's current job state, and the per-group
+    graph arguments of its step function."""
+    groups = sess.view_groups()
+    dev = sess.device
+    boost = sess._consume_dirty_boost()
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    state = (torch.zeros((), dtype=torch.int64, device=dev),
+             tuple(g.values for g in groups),
+             tuple(g.deltas for g in groups),
+             zero, zero.clone(), zero.clone(),
+             tuple(torch.zeros(g.capacity, dtype=torch.int32, device=dev)
+                   for g in groups),
+             torch.zeros(sess.scheduler.num_blocks, dtype=torch.float32,
+                         device=dev) if boost is None
+             else torch.as_tensor(boost, dtype=torch.float32, device=dev))
+    return (state,
+            tuple(g.push_scale for g in groups),
+            tuple(g.graph.tiles for g in groups),
+            tuple(g.graph.nbr_ids for g in groups),
+            tuple(g.overlay for g in groups),
+            tuple(sess._pair_data(g) for g in groups))
+
+
+def _run_device(policy: SchedulePolicy, sess,
+                max_supersteps: int) -> RunMetrics:
+    """Device driver: call the cached chunk function, read once per chunk.
+
+    The draw mirrors the host scheduler RNG's semantics: the run's key is
+    fold_in(seed_key(seed), stream_pos), where stream_pos is the
+    scheduler's persistent position — advanced here by the supersteps
+    consumed — so repeated run()/step() calls keep drawing fresh samples
+    (and `reset()` restores the stream).  Within a run the trajectory does
+    not depend on steps_per_sync, so supersteps / tile_loads are identical
+    across cadences."""
+    groups = sess.view_groups()
+    step_fn = sess._device_step_fn(policy)
+    state, *args = device_inputs(sess)
+    budget = int(min(max_supersteps, np.iinfo(np.int32).max))
+    key = fold_in(seed_key(sess.seed), sess.scheduler._step)
+    m = RunMetrics()
+    while True:
+        state, un = step_fn(state, *args, budget, key)
+        # the ONE host read of the chunk: (it, unconverged_total) together
+        it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
+        m.host_syncs += 1
+        if un_h == 0 or it_h >= budget:
+            break
+    sess.scheduler._step += it_h
+    for gi, g in enumerate(groups):
+        g.values, g.deltas = state[1][gi], state[2][gi]
+    m.supersteps = it_h
+    loads_h, pushes_h, pair_loads_h = torch.stack(
+        [state[3], state[4], state[5]]).tolist()
+    m.tile_loads = int(loads_h)
+    m.job_block_pushes = int(pushes_h)
+    m.tile_pair_loads = int(pair_loads_h)
+    m.converged = un_h == 0
+    m.iterations_per_job = np.concatenate(
+        [x.cpu().numpy().astype(np.int64) for x in state[6]])
+    return m
+
+
+# ---------------------------------------------------------------------------
+# policies
+# ---------------------------------------------------------------------------
+
+
+def _group_queues_device(nu, pm, key, gi, q, samples):
+    """One view group's DO queues on the device: the noise of every job
+    is drawn from (key, group index, job, block), so every (group, job,
+    step) draws from one reproducible stream."""
+    noise = uniform_noise(key, gi, tuple(nu.shape), nu.device)
+    return do_select_device(nu, pm, q, noise, samples)
+
+
 class TwoLevel(SchedulePolicy):
     """The paper's schedule: MPDS (DO queues + global queue) + CAJS push.
 
@@ -267,6 +501,22 @@ class TwoLevel(SchedulePolicy):
         return Selection(sel, msk, shared=True, tile_loads=int(len(gq)),
                          job_block_pushes=pushes)
 
+    def device_select(self, node_uns, p_means, actives, key, *, q, alpha,
+                      samples, num_blocks):
+        dev = node_uns[0].device
+        pri = torch.zeros(num_blocks, dtype=torch.float32, device=dev)
+        heads = torch.zeros(num_blocks, dtype=torch.bool, device=dev)
+        for gi, (nu, pm) in enumerate(zip(node_uns, p_means)):
+            sel, msk = _group_queues_device(nu, pm, key, gi, q, samples)
+            pri, heads = accumulate_priority(pri, heads, sel, msk, q)
+        gsel, gmsk = synthesize_topq(pri, heads, q, alpha)
+        gl = gsel.long()
+        pushes = sum(((nu[:, gl] > 0) & (gmsk > 0)[None, :]).sum()
+                     for nu in node_uns)
+        return Selection(gsel, gmsk, shared=True,
+                         tile_loads=(gmsk > 0).sum().to(torch.int32),
+                         job_block_pushes=pushes.to(torch.int32))
+
 
 class Independent(SchedulePolicy):
     """Per-job queues processed separately (paper Fig. 3 'current mode')."""
@@ -293,6 +543,19 @@ class Independent(SchedulePolicy):
         return Selection(sels, msks, shared=False, tile_loads=loads,
                          job_block_pushes=pushes)
 
+    def device_select(self, node_uns, p_means, actives, key, *, q, alpha,
+                      samples, num_blocks):
+        sels, msks = [], []
+        loads = 0
+        for gi, (nu, pm) in enumerate(zip(node_uns, p_means)):
+            sel, msk = _group_queues_device(nu, pm, key, gi, q, samples)
+            sels.append(sel)
+            msks.append(msk)
+            loads = loads + (msk > 0).sum()
+        loads = loads.to(torch.int32)
+        return Selection(sels, msks, shared=False, tile_loads=loads,
+                         job_block_pushes=loads)
+
 
 class AllBlocks(SchedulePolicy):
     """Non-prioritized synchronous baseline: all blocks, shared staging."""
@@ -308,15 +571,30 @@ class AllBlocks(SchedulePolicy):
         return Selection(sel, msk, shared=True, tile_loads=bn,
                          job_block_pushes=bn * n_active)
 
+    def device_select(self, node_uns, p_means, actives, key, *, q, alpha,
+                      samples, num_blocks):
+        dev = node_uns[0].device
+        n_active = sum(act.sum() for act in actives).to(torch.int32)
+        return Selection(
+            torch.arange(num_blocks, dtype=torch.int32, device=dev),
+            torch.ones(num_blocks, dtype=torch.float32, device=dev),
+            shared=True,
+            tile_loads=torch.full((), num_blocks, dtype=torch.int32,
+                                  device=dev),
+            job_block_pushes=n_active * num_blocks)
+
 
 class Fused(TwoLevel):
-    """TwoLevel(backend="device", steps_per_sync=inf) in the reference;
-    the port's device backend is the next slice, so this raises."""
+    """TwoLevel(backend="device", steps_per_sync=inf): the whole two-level
+    loop — pairs, DO sampling, global synthesis, push, convergence test —
+    on the device, read by the host once per `INF_CHUNK` supersteps.  It
+    only pins the backend; pass a finite steps_per_sync to trade
+    convergence latency for submit/detach opportunities."""
 
     name = "fused"
 
     def __init__(self, *, steps_per_sync: Union[int, float] = math.inf):
-        raise NotImplementedError(_NEXT_SLICE)
+        super().__init__(backend=DEVICE, steps_per_sync=steps_per_sync)
 
 
 POLICIES = {p.name: p for p in (TwoLevel, Fused, Independent, AllBlocks)}

@@ -1,9 +1,21 @@
-"""TwoLevelScheduler: the paper's scheduling core (host backend).
+"""TwoLevelScheduler: the paper's scheduling core.
 
 Priority pairs -> per-job DO queues (Function 2) -> global-queue synthesis
-(Fig. 7), in numpy with the exact CBP comparator, sampling from the
-scheduler-owned `np.random.default_rng(seed)` — the same stream as the
-reference's, so identical pairs give identical queues.
+(Fig. 7).  Both levels are backend-pluggable:
+
+  backend="host"   - numpy + the exact CBP comparator, sampling from the
+                     scheduler-owned `np.random.default_rng(seed)` — the
+                     same stream as the reference's, so identical pairs
+                     give identical queues;
+  backend="device" - the tensor analogues (`do_select_device`,
+                     `global_queue_device`), drawing from the port's
+                     counter-based stream at position `_step`, which each
+                     call advances (`_next_key`).  The list in/out
+                     interface is unchanged; these calls run on the CPU.
+
+The device drivers (`core.policy`) inline the same device functions in
+their superstep rather than calling through this object; it stays the one
+home for q, alpha, samples, seed and the stream position either way.
 """
 
 from __future__ import annotations
@@ -12,13 +24,17 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.do_select import do_select, DEFAULT_SAMPLES
-from repro_torch.core.global_q import global_queue, DEFAULT_ALPHA
+from repro_torch.core.do_select import (do_select, do_select_device,
+                                        fold_in, seed_key, uniform_noise,
+                                        DEFAULT_SAMPLES)
+from repro_torch.core.global_q import (global_queue, global_queue_device,
+                                       DEFAULT_ALPHA)
 
 PRITER_C = 100.0  # paper §5.1: q = C * B_N / sqrt(V_N), C = 100
 
-BACKENDS = ("host",)
+BACKENDS = ("host", "device")
 
 
 def optimal_queue_length(num_blocks: int, n_vertices: int,
@@ -35,10 +51,6 @@ class TwoLevelScheduler:
                  samples: int = DEFAULT_SAMPLES,
                  seed: int = 0,
                  backend: str = "host"):
-        if backend == "device":
-            raise NotImplementedError(
-                "the device scheduler backend is not ported yet (ROADMAP "
-                "A5/A6, the next slice)")
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}: {backend}")
         self.num_blocks = num_blocks
@@ -48,13 +60,22 @@ class TwoLevelScheduler:
         self.seed = seed
         self.backend = backend
         self.rng = np.random.default_rng(seed)
+        self._step = 0        # device-backend stream position
         self.last_occupancy = 0  # |global queue| at the latest synthesize()
 
     def reset(self, seed: Optional[int] = None) -> None:
-        """Restore the RNG stream (optionally re-seeding)."""
+        """Restore the RNG stream (optionally re-seeding), both backends."""
         if seed is not None:
             self.seed = seed
         self.rng = np.random.default_rng(self.seed)
+        self._step = 0
+
+    def _next_key(self) -> int:
+        """Next device draw key, fold_in(seed_key(seed), position): one
+        reproducible stream, advanced once per call as the host RNG is."""
+        key = fold_in(seed_key(self.seed), self._step)
+        self._step += 1
+        return key
 
     # -- level 1: per-job DO queues (paper §4.2.2, Function 2) ---------------
 
@@ -67,23 +88,55 @@ class TwoLevelScheduler:
         RNG draws (converged jobs / free session slots).
         """
         q = self.q if q is None else q
+        if self.backend == "device":
+            return self._job_queues_device(node_un, p_mean, active, q)
         return [do_select(node_un[j], p_mean[j], q, self.rng, self.samples)
                 if active is None or active[j]
                 else np.empty(0, dtype=np.int64)
                 for j in range(node_un.shape[0])]
+
+    def _job_queues_device(self, node_un, p_mean, active, q):
+        j = node_un.shape[0]
+        nu = torch.as_tensor(np.asarray(node_un, dtype=np.float32))
+        pm = torch.as_tensor(np.asarray(p_mean, dtype=np.float32))
+        noise = uniform_noise(self._next_key(), 0,
+                              tuple(nu.shape), nu.device)
+        sel, msk = do_select_device(nu, pm, q, noise, self.samples)
+        sel, msk = sel.numpy(), msk.numpy()
+        return [sel[i][msk[i] > 0].astype(np.int64)
+                if active is None or active[i]
+                else np.empty(0, dtype=np.int64)
+                for i in range(j)]
 
     # -- level 2: global queue (paper §4.2.3, Fig. 7) ------------------------
 
     def synthesize(self, queues: Sequence[np.ndarray],
                    q: Optional[int] = None) -> np.ndarray:
         q = self.q if q is None else q
-        gq = global_queue(queues, self.num_blocks, q, self.alpha)
+        if self.backend == "device":
+            gq = self._synthesize_device(queues, q)
+        else:
+            gq = global_queue(queues, self.num_blocks, q, self.alpha)
         # callers stage (and count) exactly len(gq) blocks
         if len(gq) > max(1, q):
             raise AssertionError(
                 f"global queue overflows its budget: {len(gq)} > {q}")
         self.last_occupancy = int(len(gq))
         return gq
+
+    def _synthesize_device(self, queues, q):
+        j = max(1, len(queues))
+        sel = np.zeros((j, q), dtype=np.int32)
+        msk = np.zeros((j, q), dtype=np.float32)
+        for i, jq in enumerate(queues):
+            n = min(len(jq), q)
+            sel[i, :n] = jq[:n]
+            msk[i, :n] = 1.0
+        gsel, gmsk = global_queue_device(torch.as_tensor(sel),
+                                         torch.as_tensor(msk),
+                                         self.num_blocks, q, self.alpha)
+        gsel, gmsk = gsel.numpy(), gmsk.numpy()
+        return gsel[gmsk > 0].astype(np.int64)
 
     def select(self, node_un: np.ndarray, p_mean: np.ndarray,
                active: Optional[np.ndarray] = None,

@@ -131,6 +131,11 @@ class GraphSession:
         self.groups: Dict[tuple, ViewGroup] = {}
         self.scheduler: Optional[TwoLevelScheduler] = None
         self.q = 0
+        # device-backend step functions, keyed on what shapes the program
+        self._jit_cache: Dict[tuple, Callable] = {}
+        # [B_N] pending priority injection for update-affected blocks;
+        # always None until live graph updates are ported (ROADMAP A8)
+        self._dirty_boost: Optional[np.ndarray] = None
 
     # alpha/samples/seed live canonically on the scheduler once it exists
 
@@ -206,6 +211,32 @@ class GraphSession:
     @property
     def push_scale(self):
         return self._sole_group().push_scale
+
+    # -- construction from a legacy ConcurrentRun ---------------------------
+
+    @classmethod
+    def from_run(cls, run, *, c: float = PRITER_C,
+                 alpha: float = DEFAULT_ALPHA,
+                 samples: int = DEFAULT_SAMPLES, seed: int = 0,
+                 use_pallas: Optional[bool] = None) -> "GraphSession":
+        """Adopt a pre-built ConcurrentRun on its graph's device: one view,
+        capacity == J, no padding, so the legacy engine shim drives exactly
+        what a static session batch would."""
+        sess = cls(None, run.graph.block_size, capacity=run.num_jobs,
+                   c=c, alpha=alpha, samples=samples, seed=seed,
+                   use_pallas=use_pallas, device=run.graph.device)
+        a0 = run.algs[0]
+        sess._install_scheduler(run.graph)
+        sess.groups[_view_key(a0)] = ViewGroup(
+            key=_view_key(a0), alg=a0, graph=run.graph,
+            push_one=(push_plus_one if a0.semiring == PLUS_TIMES
+                      else push_min_one),
+            values=run.values, deltas=run.deltas, push_scale=run.push_scale,
+            algs=list(run.algs),
+            active=np.ones(run.num_jobs, dtype=bool),
+            gens=[0] * run.num_jobs,
+            overlay=empty_overlay(run.graph.num_blocks, device=sess.device))
+        return sess
 
     # -- graph / scheduler initialisation ------------------------------------
 
@@ -343,6 +374,38 @@ class GraphSession:
         grp.active[slot] = False
         grp.gens[slot] += 1
         return res
+
+    def _consume_dirty_boost(self) -> Optional[np.ndarray]:
+        """[B_N] pending priority injection for update-affected blocks, or
+        None; consumed by the first superstep of the next run."""
+        boost, self._dirty_boost = self._dirty_boost, None
+        return boost
+
+    def _device_step_fn(self, policy):
+        """The device-backend chunk function for `policy`, cached on the
+        session.
+
+        Keyed on everything that shapes the program: the policy's
+        selection code (the `device_select` function itself plus
+        needs_pairs, so `Fused()` and the literal
+        `TwoLevel(backend="device", steps_per_sync=inf)` share one entry
+        while a subclass overriding `device_select` gets its own),
+        steps_per_sync, the view keys, per-view capacities, overlay
+        capacities, q, alpha, samples and the kernel toggle.  Repeated
+        run() calls and submit/detach cycles at unchanged capacity reuse
+        the entry."""
+        from repro_torch.core.policy import build_device_step
+        groups = self.view_groups()
+        key = ("superstep", type(policy).device_select, policy.needs_pairs,
+               policy.steps_per_sync,
+               tuple(g.key for g in groups),
+               tuple(g.capacity for g in groups),
+               tuple(g.overlay.capacity for g in groups),
+               self.q, float(self.alpha), int(self.samples),
+               self.use_pallas)
+        if key not in self._jit_cache:
+            self._jit_cache[key] = build_device_step(policy, self)
+        return self._jit_cache[key]
 
     def _pair_data(self, grp: ViewGroup) -> BlockPairs:
         """The view's destination-sorted `BlockPairs`, built lazily from

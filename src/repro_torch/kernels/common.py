@@ -28,7 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -43,8 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _PKG = Path(__file__).resolve().parent
 #: kernel name -> its CUDA sources (one nvcc invocation, one library each)
 KERNEL_SOURCES: Dict[str, Sequence[Path]] = {
-    "fused_superstep": (_PKG / "fused_superstep" / "csrc"
-                        / "fused_superstep.cu",),
+    name: (_PKG / name / "csrc" / f"{name}.cu",)
+    for name in ("fused_superstep", "mj_spmm", "priority_pairs")
 }
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 
@@ -71,6 +71,58 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"kernel inputs on mixed devices: {sorted(kinds)}")
+
+
+def threads(jb: int, vb: int) -> int:
+    """Threads of one thread block that owns one (job, lane) each, for a
+    job chunk of `jb` jobs: warp-rounded."""
+    return -(-jb * vb // 32) * 32
+
+
+def check_job_chunk(kernel: str, j: int, vb: int, jb: int,
+                    supported_vb: Sequence[int],
+                    smem_bytes: Callable[[int, int], int]) -> None:
+    """Raise for a (J, Vb, job chunk) that `kernel` does not take: a Vb
+    it is not instantiated for, a chunk that does not divide J, more
+    than `MAX_THREADS` threads or more than `SMEM_BUDGET` bytes of
+    shared memory (`smem_bytes(jb, vb)`) per thread block."""
+    if vb not in supported_vb:
+        raise ValueError(f"the {kernel} kernel takes Vb in "
+                         f"{tuple(supported_vb)}, not {vb}")
+    if jb < 1 or j % jb:
+        raise ValueError(f"job_block={jb} must divide J={j}")
+    if threads(jb, vb) > MAX_THREADS:
+        raise ValueError(f"job_block={jb} x Vb={vb} exceeds {MAX_THREADS} "
+                         f"threads per block")
+    if smem_bytes(jb, vb) > SMEM_BUDGET:
+        raise ValueError(f"job_block={jb} x Vb={vb} needs "
+                         f"{smem_bytes(jb, vb)} B of shared memory > "
+                         f"{SMEM_BUDGET}")
+
+
+def pick_job_block(j: int, vb: int,
+                   smem_bytes: Callable[[int, int], int]) -> int:
+    """Largest job chunk one thread block can hold: one thread per (job,
+    lane) under `MAX_THREADS`, `smem_bytes(jb, vb)` under `SMEM_BUDGET`,
+    falling back through divisors of J (a prime J degrades to 1)."""
+    jb = max(1, min(j, MAX_THREADS // vb))
+    while jb > 1 and smem_bytes(jb, vb) > SMEM_BUDGET:
+        jb -= 1
+    while j % jb:
+        jb -= 1
+    return jb
+
+
+def checked(name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t` if it has `dtype`, is contiguous and 16-byte aligned (what a
+    kernel reads through a raw pointer), else raise."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return t
 
 
 def _nvcc() -> str:

@@ -26,7 +26,11 @@ from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
 #: Vb values the kernels are instantiated for
 SUPPORTED_VB = (16, 32, 64, 128)
 
-#: kernel launches per semiring since the last reset (plain runs excluded)
+#: kernel launches per semiring since the last reset (plain runs excluded):
+#: a plain host count.  Under the device backend every superstep slot of
+#: a chunk launches for every view group, gated ones and converged groups
+#: included (their results are discarded on the device), so there it
+#: counts chunk slots x groups, not pushes.
 launches = {"plus_times": 0, "min_plus": 0}
 
 
@@ -41,11 +45,6 @@ def smem_bytes(jb: int, vb: int) -> int:
     per-warp partial sums (mirrors `smem_bytes` in the .cu file)."""
     nw = vb // 32 if vb >= 32 else 1
     return 4 * (2 * vb * vb + 2 * jb * vb + 2 * jb * nw)
-
-
-def threads(jb: int, vb: int) -> int:
-    """Threads of one thread block: one per (job, lane), warp-rounded."""
-    return -(-jb * vb // 32) * 32
 
 
 _P = ctypes.c_void_p
@@ -71,28 +70,8 @@ def _lib() -> ctypes.CDLL:
 
 def check_shape(j: int, vb: int, jb: int) -> None:
     """Raise for a (J, Vb, job chunk) the kernels do not take."""
-    if vb not in SUPPORTED_VB:
-        raise ValueError(f"fused_superstep kernels take Vb in "
-                         f"{SUPPORTED_VB}, not {vb}")
-    if jb < 1 or j % jb:
-        raise ValueError(f"job_block={jb} must divide J={j}")
-    if threads(jb, vb) > common.MAX_THREADS:
-        raise ValueError(f"job_block={jb} x Vb={vb} exceeds "
-                         f"{common.MAX_THREADS} threads per block")
-    if smem_bytes(jb, vb) > common.SMEM_BUDGET:
-        raise ValueError(f"job_block={jb} x Vb={vb} needs "
-                         f"{smem_bytes(jb, vb)} B of shared memory > "
-                         f"{common.SMEM_BUDGET}")
-
-
-def _checked(name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-    return t
+    common.check_job_chunk("fused_superstep", j, vb, jb, SUPPORTED_VB,
+                           smem_bytes)
 
 
 def fused_superstep_call(src, dst, first, last, d, base, tiles, *,
@@ -138,12 +117,12 @@ def fused_superstep_call(src, dst, first, last, d, base, tiles, *,
             torch.tensor([first_l.numel()], device=first.device)]
         ).to(torch.int32)
     num_runs = run_start.numel() - 1
-    src = _checked("src", src, torch.int32)
-    dst = _checked("dst", dst, torch.int32)
-    run_start = _checked("run_start", run_start, torch.int32)
-    d = _checked("d", d, torch.float32)
-    base = _checked("base", base, torch.float32)
-    tiles = _checked("tiles", tiles, torch.float32)
+    src = common.checked("src", src, torch.int32)
+    dst = common.checked("dst", dst, torch.int32)
+    run_start = common.checked("run_start", run_start, torch.int32)
+    d = common.checked("d", d, torch.float32)
+    base = common.checked("base", base, torch.float32)
+    tiles = common.checked("tiles", tiles, torch.float32)
     if tiles.shape[1:] != (vb, vb) or tiles.shape[0] != src.shape[0]:
         raise ValueError(f"tiles {tuple(tiles.shape)} do not match "
                          f"P={src.shape[0]}, Vb={vb}")
@@ -158,7 +137,7 @@ def fused_superstep_call(src, dst, first, last, d, base, tiles, *,
         result = (torch.empty(state, **kw),) + pair_out
         scalars = (j, jb, bn_src, bn_loc, vb, float(tolerance))
     else:
-        values = _checked("values", values, torch.float32)
+        values = common.checked("values", values, torch.float32)
         if values.shape != base.shape:
             raise ValueError(f"values {tuple(values.shape)} != "
                              f"base {tuple(base.shape)}")

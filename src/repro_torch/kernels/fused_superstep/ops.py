@@ -18,18 +18,10 @@ from repro_torch.kernels.fused_superstep.kernel import (
 
 
 def _pick_job_block(j: int, vb: int, semiring: str) -> int:
-    """Largest job chunk one thread block can hold: one thread per (job,
-    lane) under the 1024-thread limit, and its shared memory (see
-    `kernel.smem_bytes`: the same for both semirings, whose state stays in
-    registers) under `common.SMEM_BUDGET` — falling back through divisors
-    of J (prime J degrades to 1)."""
+    """Largest job chunk one thread block can hold (`kernel.smem_bytes`
+    is the same for both semirings, whose state stays in registers)."""
     del semiring
-    jb = max(1, min(j, common.MAX_THREADS // vb))
-    while jb > 1 and smem_bytes(jb, vb) > common.SMEM_BUDGET:
-        jb -= 1
-    while j % jb:
-        jb -= 1
-    return jb
+    return common.pick_job_block(j, vb, smem_bytes)
 
 
 def block_mask(sel_ids: torch.Tensor, sel_mask: torch.Tensor,

@@ -161,3 +161,204 @@ def test_session_on_cuda_goes_through_kernels(cuda):
     np.testing.assert_array_equal(res[None][1], res["cpu"][1])
     np.testing.assert_allclose(res[None][0], res["cpu"][0], rtol=1e-4,
                                atol=1e-6)
+
+
+# --- B3 (mj_spmm) and B4 (priority_pairs) -----------------------------------
+
+
+def _mj_state(rng, q, k, j, vb, semiring, device, num_tiles=None):
+    nt = q if num_tiles is None else num_tiles
+    d = rng.random((q, j, vb)).astype(np.float32)
+    t = rng.random((nt, k, vb, vb)).astype(np.float32)
+    if semiring == "min_plus":
+        d = d * 10
+        d[rng.random(d.shape) < 0.5] = np.inf
+        t = np.where(rng.random(t.shape) < 0.9, np.inf, t * 5)
+    return (torch.as_tensor(d, device=device),
+            torch.as_tensor(np.asarray(t, np.float32), device=device))
+
+
+def _mj_compare(semiring, got, want):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if semiring == "min_plus":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("j", [1, 4, 7])
+@pytest.mark.parametrize("vb", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_mj_spmm_kernel_matches_plain(cuda, semiring, vb, j):
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.mj_spmm import mj_spmm
+    from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
+    rng = np.random.default_rng(vb * 10 + j)
+    q, k, bn = 9, 5, 13
+    d, t = _mj_state(rng, q, k, j, vb, semiring, cuda)
+    before = mk.launches[semiring]
+    got = mj_spmm(d, t, semiring)
+    torch.cuda.synchronize()
+    assert mk.launches[semiring] == before + 1
+    _mj_compare(semiring, got, mj_spmm_ref(d, t, semiring))
+    # tile_index reads selected rows of a whole [B_N, K, Vb, Vb] array
+    _, tiles = _mj_state(rng, q, k, j, vb, semiring, cuda, num_tiles=bn)
+    idx = torch.as_tensor(rng.permutation(bn)[:q].astype(np.int32),
+                          device=cuda)
+    got = mj_spmm(d, tiles, semiring, tile_index=idx)
+    _mj_compare(semiring, got, mj_spmm_ref(d, tiles[idx.long()], semiring))
+    # explicit job chunks give the same result
+    for jb in {1, j}:
+        got = mk.mj_spmm_call(d, t, semiring=semiring, job_block=jb)
+        _mj_compare(semiring, got, mj_spmm_ref(d, t, semiring))
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_push_shared_kernel_matches_ell_push(cuda, semiring):
+    """The kernel-backed push on the card against the port's ELL push:
+    min-plus bit-equal; plus-times values rtol 1e-6, deltas rtol 1e-5,
+    atol 1e-6.  A padded slot aliases a selected block 0 and one
+    neighbour id is the out-of-range sentinel B_N."""
+    from repro_torch.core.push import shared_push_fn
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.mj_spmm import push_shared
+    g, _ = _pairs(semiring, 32, cuda, n=700)
+    bn, vb = g.num_blocks, g.block_size
+    rng = np.random.default_rng(2)
+    nbr = g.nbr_ids.clone()
+    nbr[1, 0] = bn
+    sel = torch.as_tensor([0, 3, 5, 1, 0], dtype=torch.int32, device=cuda)
+    msk = torch.as_tensor([1, 1, 1, 1, 0], dtype=torch.float32, device=cuda)
+    j = 4
+    if semiring == "plus_times":
+        v0 = torch.as_tensor(rng.random((j, bn, vb)), dtype=torch.float32,
+                             device=cuda)
+        d0 = torch.as_tensor(rng.random((j, bn, vb)), dtype=torch.float32,
+                             device=cuda)
+    else:
+        v0 = torch.as_tensor(rng.random((j, bn, vb)) * 10,
+                             dtype=torch.float32, device=cuda)
+        d0 = torch.where(torch.as_tensor(rng.random((j, bn, vb)) < 0.5,
+                                         device=cuda), v0, float("inf"))
+    scale = torch.as_tensor(rng.random(j), dtype=torch.float32, device=cuda)
+    before = mk.launches[semiring]
+    v_k, d_k = push_shared(v0, d0, g.tiles, nbr, sel, msk, scale,
+                           semiring=semiring)
+    torch.cuda.synchronize()
+    assert mk.launches[semiring] == before + 1
+    ell = shared_push_fn(semiring, None, use_pallas=False)
+    v_e, d_e = ell(v0, d0, g.tiles, nbr, sel, msk, scale, None, None)
+    v_k, d_k, v_e, d_e = (x.cpu().numpy() for x in (v_k, d_k, v_e, d_e))
+    if semiring == "min_plus":
+        np.testing.assert_array_equal(v_k, v_e)
+        np.testing.assert_array_equal(d_k, d_e)
+    else:
+        np.testing.assert_allclose(v_k, v_e, rtol=1e-6)
+        np.testing.assert_allclose(d_k, d_e, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("j,bn,vb", [(1, 7, 8), (4, 1024, 64), (7, 33, 128),
+                                     (4, 50, 16), (3, 9, 40)])
+def test_priority_pairs_kernel_matches_plain(cuda, j, bn, vb):
+    from repro_torch.core.priority import block_pairs
+    from repro_torch.kernels.priority_pairs import kernel as pk
+    from repro_torch.kernels.priority_pairs import priority_pairs
+    rng = np.random.default_rng(j + bn + vb)
+    p = rng.random((j, bn, vb)).astype(np.float32)
+    p[rng.random(p.shape) < 0.5] = 0.0
+    p = torch.as_tensor(p, device=cuda)
+    before = pk.launches["priority_pairs"]
+    n_k, m_k = priority_pairs(p)
+    torch.cuda.synchronize()
+    assert pk.launches["priority_pairs"] == before + 1
+    n_p, m_p = block_pairs(p)
+    np.testing.assert_array_equal(n_k.cpu().numpy(), n_p.cpu().numpy())
+    np.testing.assert_allclose(m_k.cpu().numpy(), m_p.cpu().numpy(),
+                               rtol=1e-6)
+
+
+def test_b3_b4_cuda_tensors_never_reach_plain_versions(cuda, monkeypatch):
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.priority_pairs import kernel as pk
+
+    def boom(*a, **kw):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(mk, "mj_spmm_ref", boom)
+    monkeypatch.setattr(pk, "priority_pairs_ref", boom)
+    rng = np.random.default_rng(0)
+    d, t = _mj_state(rng, 3, 2, 4, 16, "plus_times", cuda)
+    mk.mj_spmm_call(d, t)
+    pk.priority_pairs_call(torch.zeros((2, 5, 16), device=cuda))
+    torch.cuda.synchronize()
+    for jb, vb in [(1, 8), (4, 64), (7, 128)]:
+        assert mk._lib().ms_smem_bytes(jb, vb) == mk.smem_bytes(jb, vb)
+    with pytest.raises(ValueError):      # Vb the kernel does not take
+        mk.mj_spmm_call(d[..., :12].contiguous(),
+                        t[..., :12, :12].contiguous())
+    with pytest.raises(ValueError):      # more than 1024 threads
+        big = torch.zeros((3, 32, 64), device=cuda)
+        mk.mj_spmm_call(big, torch.zeros((3, 2, 64, 64), device=cuda))
+
+
+# --- the device scheduling backend on the card ------------------------------
+
+
+def _device_session(device, csr):
+    from repro_torch.algorithms import SSSP, PageRank, PersonalizedPageRank
+    from repro_torch.core import GraphSession
+    sess = GraphSession(csr, 16, capacity=2, seed=5, device=device)
+    hs = [sess.submit(a) for a in (PageRank(), PersonalizedPageRank(source=3),
+                                   SSSP(source=3), SSSP(source=40))]
+    return sess, hs
+
+
+def test_device_chunk_runs_without_an_implicit_sync(cuda):
+    """One chunk of the device driver (pairs, DO sampling, global
+    synthesis, both kernels, gating, counters) forces no host sync; the
+    driver's one explicit read comes after it."""
+    from repro_torch.core import TwoLevel
+    from repro_torch.core.policy import device_inputs
+    sess, _ = _device_session(None, rmat_graph(400, 4, seed=13))
+    policy = TwoLevel(backend="device", steps_per_sync=4)
+    step_fn = sess._device_step_fn(policy)
+    state, *args = device_inputs(sess)
+    state, un = step_fn(state, *args, 1000, 7)      # warm-up
+    torch.cuda.synchronize()
+    launched = dict(fk.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, un = step_fn(state, *args, 1000, 7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
+    assert it_h == 8 and un_h > 0
+    assert fk.launches["plus_times"] == launched["plus_times"] + 4
+    assert fk.launches["min_plus"] == launched["min_plus"] + 4
+
+
+def test_fused_on_cuda_reaches_the_cpu_fixpoint(cuda):
+    """Fused() on the card through the kernels against the same run on
+    the CPU: SSSP bit-equal, PageRank/PPR within rtol 1e-4, atol 1e-6."""
+    from repro_torch.core import Fused, TwoLevel
+    csr = rmat_graph(400, 4, seed=13)
+    res, ms = {}, {}
+    for dev in ("cpu", None):
+        sess, hs = _device_session(dev, csr)
+        fk.reset_launches()
+        ms[dev] = sess.run(Fused(), 20000)
+        assert ms[dev].converged
+        res[dev] = [sess.result(h) for h in hs]
+        if dev is None:
+            assert fk.launches["plus_times"] > 0
+            assert fk.launches["min_plus"] > 0
+            sess2, _ = _device_session(dev, csr)
+            m8 = sess2.run(TwoLevel(backend="device", steps_per_sync=8),
+                           20000)
+            assert (m8.supersteps, m8.tile_loads, m8.tile_pair_loads) == (
+                ms[dev].supersteps, ms[dev].tile_loads,
+                ms[dev].tile_pair_loads)
+    for k in (2, 3):
+        np.testing.assert_array_equal(res[None][k], res["cpu"][k])
+    for k in (0, 1):
+        np.testing.assert_allclose(res[None][k], res["cpu"][k], rtol=1e-4,
+                                   atol=1e-6)
