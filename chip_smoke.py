@@ -26,8 +26,12 @@ Phases (any failure exits non-zero before the last line is printed):
    phase 3 with the launch counts set to 0 just before and read just
    after; then resubmitted under TwoLevel(backend="device",
    steps_per_sync=8), which must give the same supersteps, tile_loads and
-   tile_pair_loads (chunk invariance); then one chunk of the step
-   function under torch.cuda.set_sync_debug_mode("error").
+   tile_pair_loads (chunk invariance); then a cadence sweep, K = 4, 8,
+   16 (INF_CHUNK), 32 and back, each run held to the same schedule and
+   results (ms per superstep, host_syncs and B1/B2 launches against K;
+   the two passes show the drift of the host's speed within the run);
+   then one chunk of the step function under
+   torch.cuda.set_sync_debug_mode("error").
 5. B3 and B4 at their entry points on the full-size views: mj_spmm
    (both semirings, J=4 and a prime J=7, q=400 distinct rows of the
    view's ELL tiles) against its plain version, timed beside
@@ -82,6 +86,7 @@ B4_REPLACES = "src/repro/kernels/priority_pairs/kernel.py:19"
 SEMIRINGS = ("plus_times", "min_plus")
 Q_B3 = 400                     # selected rows of the mj_spmm entry point
 DEVICE_CADENCE = 8             # steps_per_sync of the chunk-invariance run
+CADENCE_SWEEP = (4, 8, 16, 32)  # run in this order, then in reverse
 PADDED_SLOTS = 3               # padded slots in push_shared's queue
 
 
@@ -361,7 +366,7 @@ def device_backend(torch, sess, handles, csr, refs, fk, host):
     chunk under the sync-debug mode.  Returns (handles, Fused's launch
     counts)."""
     from repro_torch.core import Fused, TwoLevel
-    from repro_torch.core.policy import device_inputs
+    from repro_torch.core.policy import INF_CHUNK, device_inputs
 
     handles = resubmit(torch, sess, handles)
     sess.scheduler.reset()
@@ -391,13 +396,35 @@ def device_backend(torch, sess, handles, csr, refs, fk, host):
         f"identical for Fused() and steps_per_sync={DEVICE_CADENCE}")
     check_results(sess, handles, csr, refs, "device backend, K=8")
 
+    # the cadence against what it costs: host reads, gated launches, time;
+    # each K runs once on the way up and once on the way down
+    sweep = {k: [] for k in CADENCE_SWEEP}
+    for k in CADENCE_SWEEP + CADENCE_SWEEP[::-1]:
+        handles = resubmit(torch, sess, handles)
+        sess.scheduler.reset()
+        m_s, wall_s, launches_s, _ = drive(
+            torch, sess, TwoLevel(backend="device", steps_per_sync=k), fk)
+        for f in ("supersteps", "tile_loads", "tile_pair_loads"):
+            if getattr(m_s, f) != getattr(m, f):
+                raise RuntimeError(f"chunk invariance: {f} at "
+                                   f"steps_per_sync={k} differs")
+        check_results(sess, handles, csr, refs, f"device backend, K={k}")
+        sweep[k].append((m_s, wall_s, launches_s))
+    for k, runs in sweep.items():
+        m_s, _, launches_s = runs[0]
+        ms = [f"{1e3 * w / m_s.supersteps:.6f}" for _, w, _ in runs]
+        log(f"cadence K={k}{' (INF_CHUNK)' if k == INF_CHUNK else ''}: "
+            f"host_syncs {m_s.host_syncs}, launches {launches_s} for "
+            f"{m_s.supersteps} supersteps, ms/superstep up, down: "
+            f"{', '.join(ms)}")
+
     handles = resubmit(torch, sess, handles)
     step_fn = sess._device_step_fn(pol_k)
     state, *args = device_inputs(sess)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, un = step_fn(state, *args, MAX_SUPERSTEPS, 0)
+        state, un = step_fn(state, *args, MAX_SUPERSTEPS, sess.seed, 0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
@@ -408,7 +435,7 @@ def device_backend(torch, sess, handles, csr, refs, fk, host):
         f"{un_h} vertices unconverged after it")
     # is a chunk bound by the host's enqueue or by the device?
     t0 = time.perf_counter()
-    state, un = step_fn(state, *args, MAX_SUPERSTEPS, 0)
+    state, un = step_fn(state, *args, MAX_SUPERSTEPS, sess.seed, 0)
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0

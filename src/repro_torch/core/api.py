@@ -7,7 +7,9 @@
   De_Gl_Priority - global priority queue (Fig. 7 synthesis;
                    `TwoLevelScheduler.synthesize`)
   Con_processing - schedule all jobs over the global queue (the CAJS push
-                   one `TwoLevel.select` + shared push performs per step)
+                   one `TwoLevel.select` + shared push performs per step),
+                   through `kernels.mj_spmm.push_shared`: the mj_spmm
+                   kernel on CUDA tensors, its plain version on the CPU
 
 Thin, composable wrappers, so a traditional engine can adopt the two
 strategies one at a time, as the paper prescribes.  The session/policy
@@ -26,8 +28,9 @@ from repro_torch.algorithms.base import Algorithm
 from repro_torch.core.do_select import DEFAULT_SAMPLES
 from repro_torch.core.engine import ConcurrentRun
 from repro_torch.core.global_q import DEFAULT_ALPHA
-from repro_torch.core.push import compute_pairs, shared_push_fn
+from repro_torch.core.push import compute_pairs
 from repro_torch.core.scheduler import TwoLevelScheduler
+from repro_torch.kernels.mj_spmm import push_shared
 
 
 def initPtable(alg: Algorithm, graph) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,7 +65,7 @@ def Con_processing(run: ConcurrentRun, gq: np.ndarray, q: int):
     msk = np.zeros(q, dtype=np.float32)
     sel[:len(gq)] = gq[:q]
     msk[:len(gq)] = 1.0
-    push = shared_push_fn(run.algs[0].semiring, None, use_pallas=False)
-    return push(run.values, run.deltas, g.tiles, g.nbr_ids,
-                torch.as_tensor(sel, device=dev),
-                torch.as_tensor(msk, device=dev), run.push_scale, None, None)
+    return push_shared(run.values, run.deltas, g.tiles, g.nbr_ids,
+                       torch.as_tensor(sel, device=dev),
+                       torch.as_tensor(msk, device=dev), run.push_scale,
+                       semiring=run.algs[0].semiring)

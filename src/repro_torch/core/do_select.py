@@ -19,12 +19,12 @@ Two implementations share the structure:
                      reference's own Gumbel draw it returns the
                      reference's queue exactly.
 
-The port's draw (`seed_key`, `fold_in`, `uniform_noise`) is a counter-
-based integer hash of (seed, stream position, superstep, group, job,
-block): the same bits on the CPU and on CUDA, no generator state, and no
-host sync.  `jax.random`'s bits are not reproduced; what the reference
-promises of its draw holds (a superstep draws the same numbers whatever
-the sync cadence, and each run draws fresh ones).
+The port's draw (`step_key`, `uniform_noise`) is a counter-based integer
+hash of (seed, stream position, group, job, block): the same bits on the
+CPU and on CUDA, no generator state, and no host sync.  `jax.random`'s
+bits are not reproduced; what the reference promises of its draw holds
+(a superstep draws the same numbers whatever the sync cadence, and each
+run draws fresh ones).
 """
 
 from __future__ import annotations
@@ -101,6 +101,14 @@ def fold_in(key, data):
     return _mix32(key ^ _mix32((data + _GOLDEN) & _M32))
 
 
+def step_key(seed: int, position):
+    """The draw key of the superstep at stream `position` (an int, or an
+    int64 tensor inside a device chunk).  The device driver and the
+    scheduler's list interface both draw from it, so the stream depends
+    on the position alone: not on run boundaries or the sync cadence."""
+    return fold_in(seed_key(seed), position)
+
+
 def uniform_noise(key, group: int, shape, device) -> torch.Tensor:
     """[J, B_N] float32 noise for one view group's DO sampling at one
     superstep: uniform on the integers [0, 2^24), exact in float32,
@@ -166,3 +174,13 @@ def do_select_device(node_un: torch.Tensor, p_mean: torch.Tensor, q: int,
         sel = torch.nn.functional.pad(sel, pad)
         msk = torch.nn.functional.pad(msk, pad)
     return sel, msk
+
+
+def group_queues_device(node_un: torch.Tensor, p_mean: torch.Tensor, key,
+                        group: int, q: int, s: int = DEFAULT_SAMPLES):
+    """One view group's DO queues at one superstep: [J, B_N] pairs ->
+    (sel, msk) [J, q], each job's noise drawn from (key, group, job,
+    block).  The one device Function 2 of the port: the device driver
+    calls it per group, the scheduler's list interface as group 0."""
+    noise = uniform_noise(key, group, tuple(node_un.shape), node_un.device)
+    return do_select_device(node_un, p_mean, q, noise, s)

@@ -26,14 +26,16 @@ Every policy runs on either BACKEND:
                      supersteps back to back, then reads (it,
                      unconverged_total) once; a gated superstep (all
                      converged, or the budget spent) leaves the state
-                     bit-identical and counts nothing.
+                     bit-identical and counts nothing.  The superstep at
+                     stream position p draws `step_key(seed, p)`, as the
+                     scheduler's list interface does at p.
 
 Known difference from the reference: torch runs eagerly and has no
 device-side while loop, so `steps_per_sync=math.inf` runs repeated chunks
 of `INF_CHUNK` supersteps and `host_syncs` is ceil(supersteps / chunk)
 where the reference's while_loop reports 1.  The schedule itself does not
-depend on the cadence: superstep t of a run draws the same numbers
-whatever the chunk length.
+depend on the cadence: the superstep at stream position p draws the same
+numbers whatever the chunk length and wherever runs begin and end.
 
 `RunMetrics.host_syncs` counts scheduling round-trips (host backend: one
 per superstep including the final all-converged poll; device backend: one
@@ -51,8 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import priority as prio
-from repro_torch.core.do_select import (do_select_device, fold_in, seed_key,
-                                        uniform_noise)
+from repro_torch.core.do_select import group_queues_device, step_key
 from repro_torch.core.global_q import accumulate_priority, synthesize_topq
 from repro_torch.core.push import compute_pairs, indep_push_fn, shared_push_fn
 
@@ -153,8 +154,8 @@ class SchedulePolicy:
                       alpha: float, samples: int,
                       num_blocks: int) -> Selection:
         """Staging decision on the device, inside the superstep.  `key` is
-        this superstep's draw key (an int64 0-dim tensor, already folded
-        with the superstep index)."""
+        this superstep's draw key, `step_key(seed, position)` (an int64
+        0-dim tensor)."""
         raise NotImplementedError
 
     def run(self, sess, max_supersteps: int = 100000) -> RunMetrics:
@@ -291,20 +292,22 @@ def build_device_step(policy: SchedulePolicy, sess):
     """The session's superstep for `policy` as one chunk function:
 
         step_fn(state, scales, tiles, nbrs, overlays, pairs, max_steps,
-                key) -> (state, unconverged_total)
+                seed, stream_pos) -> (state, unconverged_total)
 
     where state = (it, values_tuple, deltas_tuple, loads, pushes,
     pair_loads, iters_tuple, boost), `pairs` is the per-group `BlockPairs`
-    tuple and `key` the run's draw key (a python int).  One call runs a
-    chunk of supersteps back to back on the device — steps_per_sync of
-    them, or `INF_CHUNK` for math.inf — each GATED: where all jobs have
-    converged or `it` has reached max_steps, the superstep leaves every
-    carry entry bit-identical, counts nothing and does not advance `it`
+    tuple and `stream_pos` the stream position at the run's start.  One
+    call runs a chunk of supersteps back to back on the device —
+    steps_per_sync of them, or `INF_CHUNK` for math.inf — each GATED:
+    where all jobs have converged or `it` has reached max_steps, the
+    superstep leaves every carry entry bit-identical, counts nothing and
+    does not advance `it`
     (`torch.where` on a 0-dim device bool; counters add live x count).
     Nothing in a chunk reads the device from the host: no `.item()`, no
     data-dependent shape (`nonzero`, boolean masks), no host branch on a
-    device value.  Superstep t draws from fold_in(key, t), so the
-    schedule does not depend on the chunk length.
+    device value.  Superstep t of the run draws from
+    step_key(seed, stream_pos + t), so the schedule does not depend on the
+    chunk length.
 
     The kernels still launch in a gated superstep (its results are then
     discarded), so the kernels' launch counters count chunk slots, not
@@ -330,7 +333,8 @@ def build_device_step(policy: SchedulePolicy, sess):
             tot = tot + algs[gi].unconverged(vs[gi], ds[gi]).sum()
         return tot
 
-    def superstep(carry, scales, tiles, nbrs, ovs, prs, max_steps, key):
+    def superstep(carry, scales, tiles, nbrs, ovs, prs, max_steps, seed,
+                  stream_pos):
         it, vs, ds, loads, pushes, pair_loads, iters, boost = carry
         live = (unconverged_total(vs, ds) > 0) & (it < max_steps)
         node_uns, p_means, actives = [], [], []
@@ -346,7 +350,7 @@ def build_device_step(policy: SchedulePolicy, sess):
             p_means.append(pm)
             actives.append(prio.counts_from_pairs(nu) > 0)
         selection = policy.device_select(
-            node_uns, p_means, actives, fold_in(key, it),
+            node_uns, p_means, actives, step_key(seed, stream_pos + it),
             q=q, alpha=alpha, samples=samples, num_blocks=bn)
         new_vs, new_ds, new_iters = [], [], []
         pair_step = torch.zeros((), dtype=torch.float32, device=it.device)
@@ -386,10 +390,11 @@ def build_device_step(policy: SchedulePolicy, sess):
                 tuple(new_iters),
                 torch.where(live, torch.zeros_like(boost), boost))
 
-    def step_fn(state, scales, tiles, nbrs, ovs, prs, max_steps, key):
+    def step_fn(state, scales, tiles, nbrs, ovs, prs, max_steps, seed,
+                stream_pos):
         for _ in range(chunk):
             state = superstep(state, scales, tiles, nbrs, ovs, prs,
-                              max_steps, key)
+                              max_steps, seed, stream_pos)
         return state, unconverged_total(state[1], state[2])
 
     step_fn.chunk = chunk
@@ -425,21 +430,21 @@ def _run_device(policy: SchedulePolicy, sess,
                 max_supersteps: int) -> RunMetrics:
     """Device driver: call the cached chunk function, read once per chunk.
 
-    The draw mirrors the host scheduler RNG's semantics: the run's key is
-    fold_in(seed_key(seed), stream_pos), where stream_pos is the
+    The draw mirrors the host scheduler RNG's semantics: superstep t of
+    the run draws step_key(seed, stream_pos + t), where stream_pos is the
     scheduler's persistent position — advanced here by the supersteps
     consumed — so repeated run()/step() calls keep drawing fresh samples
-    (and `reset()` restores the stream).  Within a run the trajectory does
-    not depend on steps_per_sync, so supersteps / tile_loads are identical
-    across cadences."""
+    (and `reset()` restores the stream).  The trajectory does not depend
+    on steps_per_sync, so supersteps / tile_loads are identical across
+    cadences."""
     groups = sess.view_groups()
     step_fn = sess._device_step_fn(policy)
     state, *args = device_inputs(sess)
     budget = int(min(max_supersteps, np.iinfo(np.int32).max))
-    key = fold_in(seed_key(sess.seed), sess.scheduler._step)
+    seed, pos = sess.seed, sess.scheduler._step
     m = RunMetrics()
     while True:
-        state, un = step_fn(state, *args, budget, key)
+        state, un = step_fn(state, *args, budget, seed, pos)
         # the ONE host read of the chunk: (it, unconverged_total) together
         it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
         m.host_syncs += 1
@@ -463,14 +468,6 @@ def _run_device(policy: SchedulePolicy, sess,
 # ---------------------------------------------------------------------------
 # policies
 # ---------------------------------------------------------------------------
-
-
-def _group_queues_device(nu, pm, key, gi, q, samples):
-    """One view group's DO queues on the device: the noise of every job
-    is drawn from (key, group index, job, block), so every (group, job,
-    step) draws from one reproducible stream."""
-    noise = uniform_noise(key, gi, tuple(nu.shape), nu.device)
-    return do_select_device(nu, pm, q, noise, samples)
 
 
 class TwoLevel(SchedulePolicy):
@@ -507,7 +504,7 @@ class TwoLevel(SchedulePolicy):
         pri = torch.zeros(num_blocks, dtype=torch.float32, device=dev)
         heads = torch.zeros(num_blocks, dtype=torch.bool, device=dev)
         for gi, (nu, pm) in enumerate(zip(node_uns, p_means)):
-            sel, msk = _group_queues_device(nu, pm, key, gi, q, samples)
+            sel, msk = group_queues_device(nu, pm, key, gi, q, samples)
             pri, heads = accumulate_priority(pri, heads, sel, msk, q)
         gsel, gmsk = synthesize_topq(pri, heads, q, alpha)
         gl = gsel.long()
@@ -548,7 +545,7 @@ class Independent(SchedulePolicy):
         sels, msks = [], []
         loads = 0
         for gi, (nu, pm) in enumerate(zip(node_uns, p_means)):
-            sel, msk = _group_queues_device(nu, pm, key, gi, q, samples)
+            sel, msk = group_queues_device(nu, pm, key, gi, q, samples)
             sels.append(sel)
             msks.append(msk)
             loads = loads + (msk > 0).sum()

@@ -7,15 +7,21 @@ Priority pairs -> per-job DO queues (Function 2) -> global-queue synthesis
                      scheduler-owned `np.random.default_rng(seed)` — the
                      same stream as the reference's, so identical pairs
                      give identical queues;
-  backend="device" - the tensor analogues (`do_select_device`,
-                     `global_queue_device`), drawing from the port's
-                     counter-based stream at position `_step`, which each
-                     call advances (`_next_key`).  The list in/out
-                     interface is unchanged; these calls run on the CPU.
+  backend="device" - the tensor analogues (`group_queues_device`,
+                     `global_queue_device`) on the scheduler's device
+                     (``device=None`` means CUDA and raises without it;
+                     pass ``device="cpu"``), drawing the key of stream
+                     position `_step`, which each call advances
+                     (`_next_key`).  The list in/out interface is
+                     unchanged.
 
-The device drivers (`core.policy`) inline the same device functions in
-their superstep rather than calling through this object; it stays the one
-home for q, alpha, samples, seed and the stream position either way.
+The device driver (`core.policy`) calls the same functions inside its
+superstep rather than through this object, and draws the same stream:
+superstep p draws `step_key(seed, p)` in both.  A list-interface call
+stands for view group 0, so on a one-view session `select` at position p
+stages what a `TwoLevel(backend="device")` run stages at superstep p.
+This object stays the one home for q, alpha, samples, seed and the
+stream position either way.
 """
 
 from __future__ import annotations
@@ -26,11 +32,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.do_select import (do_select, do_select_device,
-                                        fold_in, seed_key, uniform_noise,
-                                        DEFAULT_SAMPLES)
+from repro_torch.core.do_select import (do_select, group_queues_device,
+                                        step_key, DEFAULT_SAMPLES)
 from repro_torch.core.global_q import (global_queue, global_queue_device,
                                        DEFAULT_ALPHA)
+from repro_torch.kernels.common import resolve_device
 
 PRITER_C = 100.0  # paper §5.1: q = C * B_N / sqrt(V_N), C = 100
 
@@ -50,9 +56,12 @@ class TwoLevelScheduler:
                  alpha: float = DEFAULT_ALPHA,
                  samples: int = DEFAULT_SAMPLES,
                  seed: int = 0,
-                 backend: str = "host"):
+                 backend: str = "host",
+                 device=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}: {backend}")
+        # where the device backend's tensors live; the host backend has none
+        self.device = resolve_device(device) if backend == "device" else None
         self.num_blocks = num_blocks
         self.q = q
         self.alpha = alpha
@@ -71,9 +80,10 @@ class TwoLevelScheduler:
         self._step = 0
 
     def _next_key(self) -> int:
-        """Next device draw key, fold_in(seed_key(seed), position): one
-        reproducible stream, advanced once per call as the host RNG is."""
-        key = fold_in(seed_key(self.seed), self._step)
+        """The draw key of stream position `_step` (the one the device
+        driver draws at that superstep), advanced once per call as the
+        host RNG is."""
+        key = step_key(self.seed, self._step)
         self._step += 1
         return key
 
@@ -97,12 +107,12 @@ class TwoLevelScheduler:
 
     def _job_queues_device(self, node_un, p_mean, active, q):
         j = node_un.shape[0]
-        nu = torch.as_tensor(np.asarray(node_un, dtype=np.float32))
-        pm = torch.as_tensor(np.asarray(p_mean, dtype=np.float32))
-        noise = uniform_noise(self._next_key(), 0,
-                              tuple(nu.shape), nu.device)
-        sel, msk = do_select_device(nu, pm, q, noise, self.samples)
-        sel, msk = sel.numpy(), msk.numpy()
+        nu, pm = (torch.as_tensor(np.asarray(x, dtype=np.float32),
+                                  device=self.device)
+                  for x in (node_un, p_mean))
+        sel, msk = group_queues_device(nu, pm, self._next_key(), 0, q,
+                                       self.samples)
+        sel, msk = sel.cpu().numpy(), msk.cpu().numpy()
         return [sel[i][msk[i] > 0].astype(np.int64)
                 if active is None or active[i]
                 else np.empty(0, dtype=np.int64)
@@ -132,10 +142,11 @@ class TwoLevelScheduler:
             n = min(len(jq), q)
             sel[i, :n] = jq[:n]
             msk[i, :n] = 1.0
-        gsel, gmsk = global_queue_device(torch.as_tensor(sel),
-                                         torch.as_tensor(msk),
-                                         self.num_blocks, q, self.alpha)
-        gsel, gmsk = gsel.numpy(), gmsk.numpy()
+        gsel, gmsk = global_queue_device(
+            torch.as_tensor(sel, device=self.device),
+            torch.as_tensor(msk, device=self.device),
+            self.num_blocks, q, self.alpha)
+        gsel, gmsk = gsel.cpu().numpy(), gmsk.cpu().numpy()
         return gsel[gmsk > 0].astype(np.int64)
 
     def select(self, node_un: np.ndarray, p_mean: np.ndarray,

@@ -1,4 +1,4 @@
-"""CUDA tests of the port's fused superstep kernels (marker `cuda`).
+"""CUDA tests of the port's kernels and device paths (marker `cuda`).
 
 They need a CUDA device and skip without one; on the GPU machine run
 `python -m pytest -q -m cuda tests/test_torch_cuda.py`.  Each kernel is
@@ -322,12 +322,12 @@ def test_device_chunk_runs_without_an_implicit_sync(cuda):
     policy = TwoLevel(backend="device", steps_per_sync=4)
     step_fn = sess._device_step_fn(policy)
     state, *args = device_inputs(sess)
-    state, un = step_fn(state, *args, 1000, 7)      # warm-up
+    state, un = step_fn(state, *args, 1000, 5, 0)      # warm-up
     torch.cuda.synchronize()
     launched = dict(fk.launches)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, un = step_fn(state, *args, 1000, 7)
+        state, un = step_fn(state, *args, 1000, 5, 0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
@@ -362,3 +362,69 @@ def test_fused_on_cuda_reaches_the_cpu_fixpoint(cuda):
     for k in (0, 1):
         np.testing.assert_allclose(res[None][k], res["cpu"][k], rtol=1e-4,
                                    atol=1e-6)
+
+
+def test_scheduler_device_backend_runs_on_the_card(cuda, monkeypatch):
+    """TwoLevelScheduler(backend="device") with device=None schedules on
+    the card, and its queues equal a CPU scheduler's at each position."""
+    from repro_torch.core import TwoLevelScheduler
+    from repro_torch.core import scheduler as sch
+    seen = []
+    real = sch.group_queues_device
+
+    def spy(nu, *a, **kw):
+        seen.append(nu.device.type)
+        return real(nu, *a, **kw)
+    monkeypatch.setattr(sch, "group_queues_device", spy)
+    rng = np.random.default_rng(6)
+    nu = rng.integers(0, 10, (3, 300)).astype(np.float32)
+    pm = rng.random((3, 300)).astype(np.float32)
+    on_card = TwoLevelScheduler(300, 25, seed=4, samples=40,
+                                backend="device")
+    on_cpu = TwoLevelScheduler(300, 25, seed=4, samples=40,
+                               backend="device", device="cpu")
+    assert on_card.device.type == "cuda"
+    for _ in range(3):
+        (qa, ga), (qb, gb) = (s.select(nu, pm) for s in (on_card, on_cpu))
+        for a, b in zip(qa, qb):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(ga, gb)
+    assert seen == ["cuda", "cpu"] * 3
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_con_processing_on_the_card_goes_through_mj_spmm(cuda, semiring):
+    """The paper API's push on CUDA tensors launches the mj_spmm kernel
+    (push_shared) and matches the CPU's over three supersteps: min-plus
+    bit-equal, plus-times rtol 1e-5 (deltas with atol 1e-6)."""
+    from repro_torch.algorithms import SSSP, PageRank
+    from repro_torch.core import (Con_processing, De_Gl_Priority,
+                                  De_In_Priority, make_run,
+                                  optimal_queue_length)
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    if semiring == "plus_times":
+        csr, algs = rmat_graph(600, 4, seed=3), [PageRank(),
+                                               PageRank(damping=0.7)]
+    else:
+        csr = uniform_graph(600, 4, seed=3, weighted=True, w_max=7.0)
+        algs = [SSSP(source=0), SSSP(source=300)]
+    runs = {dev: make_run(algs, csr, 32, device=dev) for dev in ("cpu", None)}
+    g = runs["cpu"].graph
+    q = optimal_queue_length(g.num_blocks, g.n_real)
+    for _ in range(3):
+        jq = De_In_Priority(algs[0], runs["cpu"].values, runs["cpu"].deltas,
+                            q, np.random.default_rng(1))
+        gq = De_Gl_Priority(jq, g.num_blocks, q)
+        before = mk.launches[semiring]
+        for run in runs.values():
+            run.values, run.deltas = Con_processing(run, gq, q)
+        torch.cuda.synchronize()
+        assert mk.launches[semiring] == before + 1
+    got = [x.cpu().numpy() for x in (runs[None].values, runs[None].deltas)]
+    want = [x.numpy() for x in (runs["cpu"].values, runs["cpu"].deltas)]
+    if semiring == "min_plus":
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-6)

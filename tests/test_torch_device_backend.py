@@ -404,3 +404,35 @@ def test_paper_api_loop_reaches_reference_min_plus_fixpoint():
                                   np.asarray(run_r.values))
     np.testing.assert_array_equal(run_t.deltas.numpy(),
                                   np.asarray(run_r.deltas))
+
+
+@pytest.mark.parametrize("splits", [(6,), (2, 1, 3)], ids=["one_run",
+                                                          "three_runs"])
+def test_list_interface_loop_stages_what_the_device_driver_stages(splits):
+    """One device scheduling stream: a paper-API loop whose queues come
+    from `TwoLevelScheduler(backend="device")` (pairs -> select ->
+    Con_processing) and a one-view session driven by
+    `TwoLevel(backend="device")` over the same supersteps, in one run or
+    several, reach the same min-plus state bit for bit."""
+    csr = tg.uniform_graph(320, 4, seed=8, weighted=True, w_max=7.0)
+    specs = [("SSSP", dict(source=0)), ("SSSP", dict(source=171))]
+    run_l = tc.make_run(_algs(ta, specs), csr, BLOCK, device="cpu")
+    run_d = tc.make_run(_algs(ta, specs), csr, BLOCK, device="cpu")
+    # a short queue and a small sample, so the draw decides the schedule
+    sess = tc.GraphSession.from_run(run_d, c=5.0, samples=6, seed=6)
+    assert sess.q < sess.scheduler.num_blocks
+    for n in splits:
+        assert sess.run(tc.TwoLevel(backend="device"), n).supersteps == n
+    sched = tc.TwoLevelScheduler(sess.scheduler.num_blocks, sess.q,
+                                 samples=6, seed=6,
+                                 backend="device", device="cpu")
+    alg = run_l.algs[0]
+    for _ in range(sum(splits)):
+        nu, pm = (x.numpy() for x in tc.compute_pairs(alg, run_l.values,
+                                                      run_l.deltas))
+        _, gq = sched.select(nu, pm)
+        run_l.values, run_l.deltas = tc.Con_processing(run_l, gq, sess.q)
+    assert sched._step == sess.scheduler._step == sum(splits)
+    grp = sess.view_groups()[0]
+    assert torch.equal(run_l.values, grp.values)
+    assert torch.equal(run_l.deltas, grp.deltas)

@@ -10,7 +10,8 @@
   included, and on every edge case of tests/test_device_scheduler.py
   :108-187;
 * `TwoLevelScheduler(backend="device")` keeps the list interface,
-  validation and `reset` (:189-216).
+  validation and `reset` (:189-216); its tensors live on its device,
+  which `device=None` makes CUDA (raising without it).
 """
 
 import importlib
@@ -262,7 +263,9 @@ def test_scheduler_backend_device_keeps_the_list_interface():
     out = {}
     for pkg in (rc, tc):
         for backend in ("host", "device"):
-            sched = pkg.TwoLevelScheduler(16, 4, seed=0, backend=backend)
+            kw = {"device": "cpu"} if pkg is tc else {}
+            sched = pkg.TwoLevelScheduler(16, 4, seed=0, backend=backend,
+                                          **kw)
             queues, gq = sched.select(node_un, p_mean)
             assert len(queues) == 2
             assert all(len(set(jq.tolist())) == len(jq) for jq in queues)
@@ -281,7 +284,7 @@ def test_scheduler_device_inactive_jobs_and_stream():
     nu = rng.integers(0, 10, (3, 200)).astype(np.float32)
     pm = rng.random((3, 200)).astype(np.float32)
     sched = tc.TwoLevelScheduler(200, 20, seed=4, samples=30,
-                                 backend="device")
+                                 backend="device", device="cpu")
     first = sched.job_queues(nu, pm, np.array([True, False, True]))
     assert len(first[1]) == 0 and len(first[0]) > 0
     assert sched._step == 1
@@ -298,7 +301,8 @@ def test_scheduler_device_inactive_jobs_and_stream():
 def test_scheduler_backend_validation_and_reset():
     with pytest.raises(ValueError):
         tc.TwoLevelScheduler(8, 2, backend="gpu")
-    sched = tc.TwoLevelScheduler(8, 2, seed=3, backend="device")
+    sched = tc.TwoLevelScheduler(8, 2, seed=3, backend="device",
+                                 device="cpu")
     k0 = sched._next_key()
     assert sched._step == 1
     assert sched._next_key() != k0
@@ -307,3 +311,41 @@ def test_scheduler_backend_validation_and_reset():
     sched.reset(9)
     assert sched.seed == 9 and sched._step == 0
     assert sched._next_key() != k0
+
+
+def test_scheduler_device_backend_resolves_its_device(monkeypatch):
+    """`device=None` is CUDA, as for a session: without a card the device
+    backend raises and names the CPU escape; the host backend holds no
+    device and constructs anywhere."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tc.TwoLevelScheduler(8, 2, backend="device")
+    assert tc.TwoLevelScheduler(8, 2).device is None
+    sched = tc.TwoLevelScheduler(8, 2, backend="device", device="cpu")
+    assert sched.device.type == "cpu"
+
+
+def test_scheduler_list_interface_draws_the_driver_stream():
+    """At stream position p the list interface draws the key the device
+    driver draws at superstep p, through the same group-0 queue function:
+    the per-job queues and the global queue equal `TwoLevel`'s
+    device_select there."""
+    rng = np.random.default_rng(6)
+    nu = rng.integers(0, 10, (3, 200)).astype(np.float32)
+    pm = rng.random((3, 200)).astype(np.float32)
+    sched = tc.TwoLevelScheduler(200, 20, seed=4, samples=30,
+                                 backend="device", device="cpu")
+    for p in range(3):
+        queues, gq = sched.select(nu, pm)
+        sel, msk = tds.group_queues_device(
+            torch.as_tensor(nu), torch.as_tensor(pm),
+            tds.step_key(4, torch.tensor(p)), 0, 20, 30)
+        for jq, s_, m_ in zip(queues, sel.numpy(), msk.numpy()):
+            np.testing.assert_array_equal(jq, s_[m_ > 0])
+        selection = tc.TwoLevel(backend="device").device_select(
+            [torch.as_tensor(nu)], [torch.as_tensor(pm)],
+            [torch.ones(3, dtype=torch.bool)],
+            tds.step_key(4, torch.tensor(p)),
+            q=20, alpha=sched.alpha, samples=30, num_blocks=200)
+        gmsk = selection.msk.numpy()
+        np.testing.assert_array_equal(gq, selection.sel.numpy()[gmsk > 0])

@@ -164,7 +164,8 @@ def test_scheduler_device_backend_not_ported():
     """The device backend constructs (tests/test_torch_device_scheduler.py
     holds it to the reference); an unknown backend and a host cadence
     other than 1 still raise, as in the reference."""
-    assert tc.TwoLevelScheduler(10, 3, backend="device").backend == "device"
+    assert tc.TwoLevelScheduler(10, 3, backend="device",
+                                device="cpu").backend == "device"
     assert tc.TwoLevel(backend="device").backend == "device"
     assert tc.Fused().backend == "device"
     with pytest.raises(ValueError):
