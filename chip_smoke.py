@@ -6,20 +6,28 @@
 Phases (any failure exits non-zero before the last line is printed):
 
 1. Device and settings: the card's name and power limit, TF32 off, and
-   the CUDA kernels built from the sources in this checkout.
+   the CUDA kernels built from the sources in this checkout; B1/B2's
+   ptxas registers and spills at Vb=64 and their thread blocks per SM.
 2. Each kernel against its plain PyTorch version on the card, on the
    slice's real block pairs (rmat_graph(2**16, 8), Vb=64) with
-   numpy-seeded random state: J=4 (the main path's job axis), a prime J,
-   and a width-contract case (d at B_N, outputs at B_loc < B_N).  Bars:
-   plus-times rtol = atol = 1e-5 with node_un exact; min-plus values,
-   deltas and node_un bit-equal, p_sum rtol 1e-6.  Each kernel and its
-   plain version are timed with CUDA events (median of 10 after warm-up).
+   numpy-seeded random state and every source live: J=4 (the main
+   path's job axis), a prime J, and a width-contract case (d at B_N,
+   outputs at B_loc < B_N).  Bars: plus-times rtol = atol = 1e-5 with
+   node_un exact; min-plus values, deltas and node_un bit-equal, p_sum
+   rtol 1e-6.  Each kernel and its plain version are timed with CUDA
+   events (median of 10 after warm-up) beside the all-pairs bound.
 3. The main path at full size: GraphSession(rmat_graph(2**16, 8), 64,
    capacity=4) on CUDA with PageRank, PPR(3), SSSP(0), SSSP(4097) — two
    graph views — run under TwoLevel() to convergence with the launch
-   counts set to 0 just before and read just after.  SSSP is held
-   bit-equal to scipy's Dijkstra, PageRank/PPR to a float64 power
-   iteration at rtol 5e-3, atol 1e-4.
+   counts set to 0 just before and read just after, keeping each
+   push's selection mask.  SSSP is held bit-equal to scipy's Dijkstra,
+   PageRank/PPR to a float64 power iteration at rtol 5e-3, atol 1e-4.
+2b. B1/B2 on the main path's own selections: the masks of an early, a
+   middle and a late push of phase 3, d masked by them, against the
+   plain version at phase 2's bars, a repeat call bit-identical, timed
+   beside the bound of the live pairs alone; then the work-item size
+   sweep (CHUNK_SWEEP pairs, None = whole runs) on these inputs and
+   all-live ones, each held to the plain outputs.
 4. The device scheduling backend at full size, on the same session: the
    four jobs resubmitted and run under Fused() (both scheduling levels
    and the push on the card, one host read per chunk), checked as in
@@ -88,6 +96,8 @@ Q_B3 = 400                     # selected rows of the mj_spmm entry point
 DEVICE_CADENCE = 8             # steps_per_sync of the chunk-invariance run
 CADENCE_SWEEP = (4, 8, 16, 32)  # run in this order, then in reverse
 PADDED_SLOTS = 3               # padded slots in push_shared's queue
+CHUNK_SWEEP = (32, 64, 128, None)   # pairs per work item; None: whole run
+SELECTION_POINTS = (("early", 0.1), ("middle", 0.5), ("late", 0.9))
 
 
 def log(msg: str) -> None:
@@ -156,9 +166,9 @@ def compare(semiring, got, want, rows) -> float:
 
 
 def bound(semiring, j, bn_src, bn_loc, vb, p, runs):
-    """Least time for one call: bytes each read/written once over HBM
-    rate vs flops over the float32 rate.  Every call sweeps all P tiles
-    (selection is encoded by masking d rows)."""
+    """Least time for one call with every source live: bytes each
+    read/written once over HBM rate vs flops over the float32 rate, over
+    all P tiles."""
     states_in = 1 if semiring == "plus_times" else 2       # base (+values)
     states_out = 1 if semiring == "plus_times" else 2      # out (+values)
     nbytes = (4 * p * vb * vb                              # tiles
@@ -170,6 +180,170 @@ def bound(semiring, j, bn_src, bn_loc, vb, p, runs):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_bound(semiring, j, bn_loc, vb, src_np, live_np, runs, chunks):
+    """Least time for one call on a selection: the tiles of the live pairs
+    (source selected) and the d rows of their distinct sources, src for
+    all P, the run and chunk tables, the [B_N] mask and the state, each
+    read or written once, over the HBM rate vs 2*J*Vb^2 flops per live
+    pair over the float32 rate.  Returns (ms, by, live pairs)."""
+    on = live_np[src_np]
+    n_live = int(on.sum())
+    n_src = int(np.unique(src_np[on]).size)
+    states = 2 if semiring == "plus_times" else 4   # base, out (+values, dout)
+    nbytes = (4 * n_live * vb * vb + 4 * j * n_src * vb
+              + 4 * (len(src_np) + runs + 1 + 2 * chunks + 1)
+              + live_np.size
+              + 4 * j * bn_loc * vb * states + 4 * 2 * j * bn_loc)
+    flops = 2.0 * j * n_live * vb * vb
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", n_live)
+
+
+def masked_state(torch, rng, j, bn, vb, semiring, live, device):
+    """random_state with the rows of d outside `live` set to the semiring
+    identity (what fused_push hands the kernel)."""
+    d, base, vals = random_state(torch, rng, j, bn, bn, vb, semiring, device)
+    ident = 0.0 if semiring == "plus_times" else float("inf")
+    return torch.where(live[None, :, None], d, ident), base, vals
+
+
+def record_selections(fops):
+    """Wrap fused_superstep_call in kernels.fused_superstep.ops so each
+    push's `src_live` mask is kept per semiring (a reference only: no
+    device work, no sync).  Returns (masks, restore)."""
+    real = fops.fused_superstep_call
+    masks = {"plus_times": [], "min_plus": []}
+
+    def spy(*a, **kw):
+        masks[kw["semiring"]].append(kw["src_live"])
+        return real(*a, **kw)
+    fops.fused_superstep_call = spy
+
+    def restore():
+        fops.fused_superstep_call = real
+    return masks, restore
+
+
+def check_selections(torch, sess, groups, device, masks):
+    """Phase 2b: B1/B2 on the main path's own selections (the src_live
+    masks of an early, a middle and a late push of the phase-3 run), d
+    masked by them, against the plain version; timed beside the plain
+    version and the live-pair bound.  Then the chunk-size sweep over
+    CHUNK_SWEEP at all-live inputs and at these selections.  Returns
+    {semiring: [selection figures]}, {semiring: {C: [ms per input]}}."""
+    from repro_torch.graph import chunk_table
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
+    from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
+
+    figures, sweep = {}, {}
+    for semiring, grp in groups.items():
+        bp = sess._pair_data(grp)
+        bn, vb = grp.graph.num_blocks, grp.graph.block_size
+        jb = _pick_job_block(CAPACITY, vb, semiring)
+        rows = bp.dst_touched.cpu().numpy()
+        src_np = bp.src.cpu().numpy()
+        rs_np = bp.run_start.cpu().numpy()
+        rec = masks[semiring]
+        rng = np.random.default_rng(17)
+        inputs = [("all live", None,
+                   random_state(torch, rng, CAPACITY, bn, bn, vb, semiring,
+                                device))]
+        for label, frac in SELECTION_POINTS:
+            k = min(len(rec) - 1, int(frac * len(rec)))
+            live = rec[k]
+            inputs.append((f"{label} (push {k} of {len(rec)})", live,
+                           masked_state(torch, rng, CAPACITY, bn, vb,
+                                        semiring, live, device)))
+        figures[semiring] = []
+        wants = []
+        for label, live, (d, base, vals) in inputs:
+            def kern():
+                return fk.fused_superstep_call(
+                    bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+                    values=vals, run_start=bp.run_start,
+                    chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
+                    arrivals=bp.arrivals(CAPACITY // jb), src_live=live,
+                    semiring=semiring, job_block=jb)
+
+            def plain():
+                return fused_superstep_ref(
+                    bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+                    values=vals, src_live=live, semiring=semiring)
+            want = plain()
+            got = kern()
+            got2 = kern()
+            torch.cuda.synchronize()
+            err = compare(semiring, got, want, rows)
+            for a, b in zip(got, got2):
+                if not torch.equal(a[:, bp.dst_touched],
+                                   b[:, bp.dst_touched]):
+                    raise AssertionError(f"{semiring} {label}: two calls "
+                                         f"on the same inputs differ")
+            wants.append(want)
+            if live is None:
+                continue
+            live_np = live.cpu().numpy()
+            k_ms = median_ms(torch, kern)
+            p_ms = median_ms(torch, plain)
+            b_ms, b_by, n_live = live_bound(
+                semiring, CAPACITY, bn, vb, src_np, live_np, bp.num_runs,
+                bp.chunk_run.numel())
+            log(f"  {semiring} main-path selection {label}: "
+                f"{int(live_np.sum())} of {bn} sources live, {n_live} of "
+                f"{bp.num_pairs} pairs; matches plain (max |err| {err:.3g}),"
+                f" repeat call bit-identical; kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, live-pair bound {b_ms:.4f} ms ({b_by}); "
+                f"{100 * b_ms / k_ms:.1f}% of the bound")
+            figures[semiring].append(dict(
+                selection=label, live_sources=int(live_np.sum()),
+                live_pairs=n_live, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err))
+        # the chunk-size sweep, checked against the plain outputs above
+        sweep[semiring] = {}
+        for c in CHUNK_SWEEP:
+            cs, cr = (torch.as_tensor(a, device=device)
+                      for a in chunk_table(rs_np, c))
+            row = []
+            for (label, live, (d, base, vals)), want in zip(inputs, wants):
+                def kern():
+                    return fk.fused_superstep_call(
+                        bp.src, bp.dst, bp.first, bp.last, d, base,
+                        bp.tiles, values=vals, run_start=bp.run_start,
+                        chunk_start=cs, chunk_run=cr,
+                        arrivals=bp.arrivals(CAPACITY // jb), src_live=live,
+                        semiring=semiring, job_block=jb)
+                compare(semiring, kern(), want, rows)
+                row.append(median_ms(torch, kern))
+            sweep[semiring][c] = row
+            log(f"  chunk sweep {semiring} C={c or 'whole run'} "
+                f"({cr.numel()} work items): ms "
+                f"{', '.join(f'{x:.4f}' for x in row)} "
+                f"(all live, {', '.join(lb for lb, _ in SELECTION_POINTS)})")
+        del inputs, wants
+        torch.cuda.empty_cache()
+    return figures, sweep
+
+
+def ptxas_report(common, fk):
+    """The fused superstep kernels' ptxas lines at Vb=64 (registers,
+    spills), their shared memory and thread blocks per SM at J=4."""
+    name = None
+    info = {}
+    for line in common.build_log("fused_superstep").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            info.setdefault(name, []).append(line.strip())
+    for sr, tag in (("plus_times", "ILi64ELb0E"), ("min_plus", "ILi64ELb1E")):
+        for fn, lines in info.items():
+            if tag in fn:
+                log(f"  ptxas {sr} Vb=64: {' | '.join(lines)}")
+        log(f"  {sr} Vb=64 jb=4: {fk.smem_bytes(4, 64)} B shared memory, "
+            f"{fk.blocks_per_sm(4, 64, sr)} thread blocks per SM")
 
 
 def check_kernels(torch, sess, groups, device):
@@ -195,7 +369,9 @@ def check_kernels(torch, sess, groups, device):
             def kern():
                 return fk.fused_superstep_call(
                     bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
-                    values=vals, run_start=bp.run_start, semiring=semiring,
+                    values=vals, run_start=bp.run_start,
+                    chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
+                    arrivals=bp.arrivals(j // jb), semiring=semiring,
                     job_block=jb)
 
             def plain():
@@ -684,6 +860,7 @@ def main() -> int:
     from repro_torch.graph import rmat_graph
     from repro_torch.kernels import common
     from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.fused_superstep import ops as fops
 
     # -- phase 1: device and settings ------------------------------------
     card = card_line()
@@ -700,6 +877,7 @@ def main() -> int:
         for line in common.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
+    ptxas_report(common, fk)
 
     # -- the slice's graph and session (two views) -------------------------
     t0 = time.perf_counter()
@@ -738,16 +916,29 @@ def main() -> int:
     refs = [pagerank_ref(csr, a.damping, getattr(a, "source", None))
             for a in algs[:2]] + list(dist)
     policy = timed_policy(TwoLevel)
-    m, wall, launches, peak = drive(torch, sess, policy, fk)
+    masks, restore = record_selections(fops)
+    try:
+        m, wall, launches, peak = drive(torch, sess, policy, fk)
+    finally:
+        restore()
     report_run(torch, "main path", m, wall, launches, peak)
-    steps = max(1, m.supersteps)
-    kern_ms = sum(launches[k] * figures[k]["ms"] for k in launches)
-    log(f"main path per superstep: host scheduling (select) "
-        f"{1e3 * policy.select_s / steps:.3f} ms; kernels "
-        f"{kern_ms / steps:.3f} ms (launches x median call time); the rest "
-        f"{1e3 * wall / steps - 1e3 * policy.select_s / steps - kern_ms / steps:.3f}"
-        f" ms (pair reduction and its read, state ops, Python)")
     check_results(sess, handles, csr, refs, "main path")
+
+    # -- phase 2b: B1/B2 on the main path's selections; the chunk sweep ----
+    sel_figures, sweep = check_selections(torch, sess, groups, sess.device,
+                                          masks)
+    del masks
+    steps = max(1, m.supersteps)
+    select_ms = 1e3 * policy.select_s / steps
+    kern_all = sum(launches[k] * figures[k]["ms"] for k in launches)
+    kern_sel = sum(launches[k] * statistics.mean(
+        f["ms"] for f in sel_figures[k]) for k in launches)
+    log(f"main path per superstep: host scheduling (select) "
+        f"{select_ms:.3f} ms; kernels {kern_sel / steps:.3f} ms (launches x "
+        f"mean time on the three main-path selections; "
+        f"{kern_all / steps:.3f} ms at the all-live time); the rest "
+        f"{1e3 * wall / steps - select_ms - kern_sel / steps:.3f}"
+        f" ms (pair reduction and its read, state ops, Python)")
 
     # -- phase 4: the device scheduling backend ----------------------------
     handles, dev_launches = device_backend(
@@ -772,10 +963,14 @@ def main() -> int:
             "launches": launches[sr] + dev_launches[sr],
             "launches_by_path": {"host_two_level": launches[sr],
                                  "device_fused": dev_launches[sr]},
-            "max_abs_err": f["max_abs_err"],
+            "max_abs_err": max([f["max_abs_err"]] + [
+                x["max_abs_err"] for x in sel_figures[sr]]),
             "ms": f["ms"], "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "main_path_selections": sel_figures[sr],
+            "chunk_sweep_ms": {str(c or "whole_run"): v
+                               for c, v in sweep[sr].items()}})
     for sr in SEMIRINGS:
         f = b3[sr]
         kernels.append({

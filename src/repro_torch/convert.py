@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.session import GraphSession, ViewGroup
 from repro_torch.graph.structure import (BlockedGraph, BlockPairs, CSRGraph,
-                                         run_starts)
+                                         chunk_table, run_starts)
 from repro_torch.kernels.common import resolve_device
 
 
@@ -51,19 +51,23 @@ def pairs_from_arrays(num_pairs: int, block_size: int, num_blocks: int,
                       src, dst, slot, first, last, src_nnz, dst_touched,
                       tiles, dense_op=None, *, device=None) -> BlockPairs:
     """A BlockPairs from the reference's fields (numpy arrays); the port's
-    extra `run_start` is derived from `first`."""
+    extra `run_start` is derived from `first`, and its chunk table from
+    `run_start`."""
     dev = resolve_device(device)
 
     def t(a, dtype=np.int32):
         return _tensor(a, dtype, dev)
 
+    rs = run_starts(first)
+    chunk_start, chunk_run = chunk_table(rs)
     return BlockPairs(
         num_pairs=int(num_pairs), block_size=int(block_size),
         num_blocks=int(num_blocks), src=t(src), dst=t(dst), slot=t(slot),
         first=t(first), last=t(last), src_nnz=t(src_nnz),
         dst_touched=t(dst_touched, bool), tiles=t(tiles, np.float32),
-        run_start=t(run_starts(first)),
-        dense_op=None if dense_op is None else t(dense_op, np.float32))
+        run_start=t(rs),
+        dense_op=None if dense_op is None else t(dense_op, np.float32),
+        chunk_start=t(chunk_start), chunk_run=t(chunk_run))
 
 
 def load_group_state(sess: GraphSession, view_key: tuple, values, deltas,

@@ -309,9 +309,11 @@ def build_device_step(policy: SchedulePolicy, sess):
     step_key(seed, stream_pos + t), so the schedule does not depend on the
     chunk length.
 
-    The kernels still launch in a gated superstep (its results are then
-    discarded), so the kernels' launch counters count chunk slots, not
-    live supersteps.  Cache via session._device_step_fn."""
+    The kernels still launch in a gated superstep and for a converged
+    group, but read that gate (`live & group active`) on the device at
+    entry and return before any load; their results are discarded.  So
+    the kernels' launch counters count chunk slots, not live supersteps.
+    Cache via session._device_step_fn."""
     groups = sess.view_groups()
     n_groups = len(groups)
     algs = [g.alg for g in groups]
@@ -355,11 +357,18 @@ def build_device_step(policy: SchedulePolicy, sess):
         new_vs, new_ds, new_iters = [], [], []
         pair_step = torch.zeros((), dtype=torch.float32, device=it.device)
         for gi in range(n_groups):
+            # a fully-converged group is never pushed, exactly as in the
+            # host driver: freezing it keeps sub-tolerance plus-times
+            # residual mass where convergence left it
+            keep = actives[gi].any()
+            upd = live & keep
             if selection.shared:
+                # the kernel reads `upd` at entry: a gated slot or a
+                # converged group loads nothing (its result is discarded)
                 v2, d2 = shared_push[gi](
                     vs[gi], ds[gi], tiles[gi], nbrs[gi],
                     selection.sel, selection.msk, scales[gi], ovs[gi],
-                    prs[gi])
+                    prs[gi], gate=upd)
                 pair_cnt = (prs[gi].src_nnz[selection.sel.long()]
                             * (selection.msk > 0)).sum()
             else:
@@ -369,11 +378,6 @@ def build_device_step(policy: SchedulePolicy, sess):
                     ovs[gi])
                 pair_cnt = (prs[gi].src_nnz[selection.sel[gi].long()]
                             * (selection.msk[gi] > 0)).sum()
-            # a fully-converged group is never pushed, exactly as in the
-            # host driver: freezing it keeps sub-tolerance plus-times
-            # residual mass where convergence left it
-            keep = actives[gi].any()
-            upd = live & keep
             new_vs.append(torch.where(upd, v2, vs[gi]))
             new_ds.append(torch.where(upd, d2, ds[gi]))
             new_iters.append(iters[gi]

@@ -145,11 +145,16 @@ def shared_push_fn(semiring: str, push_one, use_pallas: bool):
     kernel-vs-plain route choice lives.
 
     Returns fn(values, deltas, tiles, nbr_ids, sel, msk, scales, overlay,
-    pairs) with `pairs` the view's `graph.BlockPairs`:
+    pairs, gate=None) with `pairs` the view's `graph.BlockPairs`:
 
       use_pallas=True   the fused superstep kernel sweeps the destination-
                         sorted pairs (push + priority in one launch; on CPU
-                        tensors its plain version).
+                        tensors its plain version).  `gate`, a 0-dim
+                        device bool, reaches the kernel: a closed gate
+                        skips its work and leaves the result undefined,
+                        for a caller that discards it (the device
+                        driver's gated supersteps).  The other routes
+                        ignore it.
       use_pallas=False  plus-times sweeps the same pairs with a per-(job,
                         pair) einsum + scatter-add; min-plus keeps the
                         per-job ELL push with its sequential slot loop.
@@ -166,26 +171,26 @@ def shared_push_fn(semiring: str, push_one, use_pallas: bool):
 
     if use_pallas:
         def fn(values, deltas, tiles, nbr_ids, sel, msk, scales, overlay,
-               pairs):
+               pairs, gate=None):
             if pairs is None:
                 return ell(values, deltas, tiles, nbr_ids, sel, msk, scales,
                            overlay)
             _no_overlay(overlay)
             return fused_ops.fused_push(values, deltas, pairs, sel, msk,
-                                        scales, semiring=semiring)
+                                        scales, semiring=semiring, gate=gate)
 
         return fn
 
     if semiring != "plus_times":
         def fn(values, deltas, tiles, nbr_ids, sel, msk, scales, overlay,
-               pairs):
+               pairs, gate=None):
             return ell(values, deltas, tiles, nbr_ids, sel, msk, scales,
                        overlay)
 
         return fn
 
     def fn(values, deltas, tiles, nbr_ids, sel, msk, scales, overlay,
-           pairs):
+           pairs, gate=None):
         if pairs is None:
             return ell(values, deltas, tiles, nbr_ids, sel, msk, scales,
                        overlay)

@@ -130,7 +130,13 @@ class BlockPairs:
       last  [P] int32    1 at the last pair of each dst run
       run_start [R+1] int32  pair offset of each dst run (R runs), then P;
                              run r covers pairs run_start[r]:run_start[r+1]
-                             (what the CUDA kernel hands one thread block)
+      chunk_start [n_chunks+1] int32, chunk_run [n_chunks] int32
+                             the runs cut into work items of at most
+                             `PAIR_CHUNK` consecutive pairs (`chunk_table`):
+                             chunk c covers pairs
+                             chunk_start[c]:chunk_start[c+1] of run
+                             chunk_run[c] (what the CUDA kernels hand one
+                             thread block)
       src_nnz [B_N] int32   real pairs per SOURCE block (tile_pair_loads)
       dst_touched [B_N] bool  blocks that appear as a destination
       tiles [P, Vb, Vb] f32   contiguous dst-sorted copy of the pair tiles
@@ -154,11 +160,28 @@ class BlockPairs:
     dst_touched: torch.Tensor
     tiles: torch.Tensor
     run_start: torch.Tensor
+    chunk_start: torch.Tensor
+    chunk_run: torch.Tensor
     dense_op: Optional[torch.Tensor] = None
+    _arrivals: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @property
     def num_runs(self) -> int:
         return int(self.run_start.shape[0]) - 1
+
+    def arrivals(self, job_chunks: int) -> torch.Tensor:
+        """The CUDA kernels' per-(run, job chunk) arrival counters,
+        [R * job_chunks] int32, zeroed once on first use.  Each kernel
+        call leaves them at zero again (the last thread block of a run
+        resets its counter), so the view keeps one array per job-chunk
+        count for all its calls."""
+        t = self._arrivals.get(job_chunks)
+        if t is None:
+            t = torch.zeros(self.num_runs * job_chunks, dtype=torch.int32,
+                            device=self.run_start.device)
+            self._arrivals[job_chunks] = t
+        return t
 
 
 #: build_block_pairs materializes `dense_op` only when the block graph is
@@ -167,11 +190,46 @@ DENSE_OP_MIN_DENSITY = 0.25
 DENSE_OP_MAX_BYTES = 64 * 2**20
 
 
+#: pairs per work item of the fused superstep kernels (`chunk_table`);
+#: chosen on the H100 from {32, 64, 128, whole run} (PERF.md, PR 13)
+PAIR_CHUNK = 64
+
+
 def run_starts(first: np.ndarray) -> np.ndarray:
     """[P] first-of-run flags -> [R+1] int32 run offsets (last entry P)."""
     first = np.asarray(first)
     return np.append(np.flatnonzero(first),
                      len(first)).astype(np.int32)
+
+
+def chunk_table(run_start, chunk: Optional[int] = PAIR_CHUNK,
+                run_dst=None, num_dst: Optional[int] = None):
+    """Cut destination runs into work items of at most `chunk` consecutive
+    pairs (None: one item per run).
+
+    run_start [R+1] run offsets -> (chunk_start [n_chunks+1] int32,
+    chunk_run [n_chunks] int32), numpy: chunk c covers pairs
+    chunk_start[c]:chunk_start[c+1] of run chunk_run[c]; the chunks of a
+    run are consecutive and in pair order.  With `run_dst` [R] (each
+    run's destination) and `num_dst`, runs whose destination lies outside
+    [0, num_dst) are left out; dst-sorted pairs put them at the two ends,
+    so the chunks kept still cover one contiguous range of pairs."""
+    rs = np.asarray(run_start, dtype=np.int64)
+    runs = np.arange(len(rs) - 1)
+    if run_dst is not None and num_dst is not None:
+        rd = np.asarray(run_dst)
+        runs = runs[(rd >= 0) & (rd < num_dst)]
+    lens = rs[runs + 1] - rs[runs]
+    per = (np.ones_like(lens) if chunk is None
+           else np.maximum(1, -(-lens // int(chunk))))
+    chunk_run = np.repeat(runs, per)
+    first_chunk = np.cumsum(per) - per              # per kept run
+    k = np.arange(len(chunk_run)) - np.repeat(first_chunk, per)
+    step = lens if chunk is None else np.full_like(lens, int(chunk))
+    starts = rs[chunk_run] + k * np.repeat(step, per)
+    end = rs[runs[-1] + 1] if len(runs) else 0
+    chunk_start = np.append(starts, end).astype(np.int32)
+    return chunk_start, chunk_run.astype(np.int32)
 
 
 def build_block_pairs(g: BlockedGraph, *,
@@ -202,7 +260,7 @@ def build_block_pairs(g: BlockedGraph, *,
             dst_touched=torch.zeros(bn, dtype=torch.bool, device=dev),
             tiles=torch.full((1, vb, vb), g.fill, dtype=torch.float32,
                              device=dev),
-            run_start=t([0, 1]))
+            run_start=t([0, 1]), chunk_start=t([0, 1]), chunk_run=t([0]))
     order = np.lexsort((sb, db))          # dst-major, src ascending within
     sb, db, slot = sb[order], db[order], slot[order]
     first = np.ones(len(sb), np.int32)
@@ -219,11 +277,14 @@ def build_block_pairs(g: BlockedGraph, *,
         op = torch.zeros((bn, vb, bn, vb), dtype=torch.float32, device=dev)
         op[t(sb, torch.int64), :, t(db, torch.int64), :] = tiles
         dense_op = op.reshape(bn * vb, bn * vb)
+    rs = run_starts(first)
+    chunk_start, chunk_run = chunk_table(rs)
     return BlockPairs(
         num_pairs=len(sb), block_size=vb, num_blocks=bn,
         src=t(sb), dst=t(db), slot=t(slot), first=t(first), last=t(last),
         src_nnz=t(src_nnz), dst_touched=t(touched, torch.bool),
-        tiles=tiles, run_start=t(run_starts(first)), dense_op=dense_op)
+        tiles=tiles, run_start=t(rs), dense_op=dense_op,
+        chunk_start=t(chunk_start), chunk_run=t(chunk_run))
 
 
 @dataclasses.dataclass

@@ -4,8 +4,10 @@
 selected blocks' pending deltas, push for every job, fold values), with
 the push and the priority update in ONE kernel launch over the view's
 destination-sorted `BlockPairs`.  The fold / consume bookkeeping stays in
-plain tensor ops; selection enters the kernel only as identity-masked
-operand rows, so padded selection slots aliasing block 0 cannot re-push it.
+plain tensor ops; selection enters the kernel as identity-masked operand
+rows (so padded selection slots aliasing block 0 cannot re-push it) and
+as the `src_live` mask of the same blocks, whose pairs alone the kernel
+stages.
 """
 
 from __future__ import annotations
@@ -38,18 +40,24 @@ def block_mask(sel_ids: torch.Tensor, sel_mask: torch.Tensor,
 def fused_push(values: torch.Tensor, deltas: torch.Tensor, pairs,
                sel_ids: torch.Tensor, sel_mask: torch.Tensor,
                push_scale: torch.Tensor, *, semiring: str = "plus_times",
-               tolerance: float = 1e-6, with_pairs: bool = False):
+               tolerance: float = 1e-6, with_pairs: bool = False,
+               gate: torch.Tensor | None = None):
     """Kernel-backed CAJS push. values/deltas [J, B_N, Vb].
 
     `pairs` is the view's `graph.structure.BlockPairs`.  Returns updated
     (values, deltas); with_pairs=True additionally returns the fused
     priority-pair outputs (node_un, p_sum) [J, B_N] of the POST-push
-    state, zeroed on untouched destination blocks."""
+    state, zeroed on untouched destination blocks.  `gate` (a 0-dim
+    device bool, None: open) reaches the kernel: a closed gate leaves
+    the returned state undefined, for a caller that discards it."""
     j, bn, vb = values.shape
     jb = _pick_job_block(j, vb, semiring)
-    selb = block_mask(sel_ids, sel_mask, bn)[None, :, None]
+    live = block_mask(sel_ids, sel_mask, bn)
+    selb = live[None, :, None]
     touched = pairs.dst_touched[None, :, None]
-    meta = dict(run_start=pairs.run_start, semiring=semiring,
+    meta = dict(run_start=pairs.run_start, chunk_start=pairs.chunk_start,
+                chunk_run=pairs.chunk_run, src_live=live, gate=gate,
+                arrivals=pairs.arrivals(j // jb), semiring=semiring,
                 tolerance=tolerance, job_block=jb)
     if semiring == "plus_times":
         raw = torch.where(selb, deltas, 0.0)

@@ -40,12 +40,20 @@ def _flush_pairs(pr: torch.Tensor):
 
 
 def fused_superstep_ref(src, dst, first, last, d, base, tiles, *,
-                        values=None, run_start=None,
-                        semiring: str = "plus_times",
+                        values=None, run_start=None, chunk_start=None,
+                        chunk_run=None, arrivals=None, src_live=None,
+                        gate=None, semiring: str = "plus_times",
                         tolerance: float = 1e-6):
-    del first, last, run_start
+    """The kernels' function.  The work-item arguments (run_start, the
+    chunk table, arrivals) and `gate` do not change it and are ignored;
+    `src_live` masks the rows of `d` of other sources to the semiring
+    identity (a no-op under the kernels' precondition)."""
+    del first, last, run_start, chunk_start, chunk_run, arrivals, gate
     j, _, vb = d.shape
     bn = base.shape[1]
+    if src_live is not None:
+        ident = 0.0 if semiring == "plus_times" else float("inf")
+        d = torch.where(src_live.bool()[None, :, None], d, ident)
     src = src.long()
     if semiring == "plus_times":
         contrib = torch.einsum("jpv,pvw->jpw", d[:, src, :], tiles)

@@ -163,6 +163,159 @@ def test_session_on_cuda_goes_through_kernels(cuda):
                                atol=1e-6)
 
 
+# --- B1/B2 redesign: split runs, live pairs, repeat calls, the gate ---------
+
+
+def _split_pairs(semiring, device):
+    """rmat_graph(2**14, 8) at Vb=32: 512 destination runs, the longest
+    over 400 pairs, so it spans several chunks of `PAIR_CHUNK` = 64 and,
+    taken whole, two passes of the kernel's 256-pair live list."""
+    csr = rmat_graph(2**14, 8, seed=13, weighted=semiring == "min_plus",
+                     w_max=7.0)
+    if semiring == "plus_times":
+        g = build_blocked(csr, 32, fill=0.0, normalize="out_degree",
+                          device=device)
+    else:
+        g = build_blocked(csr, 32, fill=float(np.inf), device=device)
+    return g, build_block_pairs(g)
+
+
+def _masked_state(rng, j, bn, bn_loc, vb, semiring, device, frac):
+    """Random state with the rows of d outside a random `frac` of the
+    source blocks set to the semiring identity; returns (d, base, vals,
+    live [bn] bool)."""
+    d, base, vals = _state(rng, j, bn, bn_loc, vb, semiring, device)
+    live = torch.as_tensor(rng.random(bn) < frac, device=device)
+    ident = 0.0 if semiring == "plus_times" else float("inf")
+    return torch.where(live[None, :, None], d, ident), base, vals, live
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("case", ["J4", "J7_jb1", "J4_Bloc_half"])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_kernel_live_fraction_matches_plain(cuda, semiring, case, frac):
+    """The kernel with `src_live` at live fractions 0, 0.3 and 1.0, on a
+    graph whose longest run spans several chunks, against the plain
+    version: J=4 (the main path's job axis), J=7 with jb=1 and
+    B_loc = B_N/2.  Plus-times rtol = atol = 1e-5 with node_un exact;
+    min-plus values, deltas and node_un bit-equal, p_sum rtol 1e-6."""
+    g, bp = _split_pairs(semiring, cuda)
+    assert int(np.diff(bp.run_start.cpu().numpy()).max()) > max(3 * 64, 256)
+    bn, vb = g.num_blocks, g.block_size
+    j, jb, bn_loc = {"J4": (4, None, bn), "J7_jb1": (7, 1, bn),
+                     "J4_Bloc_half": (4, None, bn // 2)}[case]
+    jb = jb or _pick_job_block(j, vb, semiring)
+    rng = np.random.default_rng(int(frac * 10) + j)
+    d, base, vals, live = _masked_state(rng, j, bn, bn_loc, vb, semiring,
+                                        cuda, frac)
+    before = fk.launches[semiring]
+    got = fk.fused_superstep_call(
+        bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles, values=vals,
+        run_start=bp.run_start, chunk_start=bp.chunk_start,
+        chunk_run=bp.chunk_run, arrivals=bp.arrivals(j // jb),
+        src_live=live, semiring=semiring, job_block=jb)
+    torch.cuda.synchronize()
+    assert fk.launches[semiring] == before + 1
+    want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
+                               bp.tiles, values=vals, semiring=semiring)
+    _compare(semiring, got, want, bp.dst_touched.cpu().numpy()[:bn_loc])
+    assert int(bp.arrivals(j // jb).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 64, None])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_kernel_repeated_calls_are_bit_identical(cuda, semiring, chunk):
+    """Two consecutive calls on the same inputs give the same bits, at
+    every chunk size (1 pair, 5, PAIR_CHUNK, whole runs): the arrival
+    counters reset themselves and the last block's combine does not
+    depend on which block arrives last."""
+    from repro_torch.graph import chunk_table
+    g, bp = _split_pairs(semiring, cuda)
+    bn, vb = g.num_blocks, g.block_size
+    cs, cr = (torch.as_tensor(a, device=cuda) for a in
+              chunk_table(bp.run_start.cpu().numpy(), chunk))
+    rng = np.random.default_rng(3)
+    d, base, vals, live = _masked_state(rng, 4, bn, bn, vb, semiring, cuda,
+                                        0.5)
+
+    def call():
+        return fk.fused_superstep_call(
+            bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+            values=vals, run_start=bp.run_start, chunk_start=cs,
+            chunk_run=cr, arrivals=bp.arrivals(1), src_live=live,
+            semiring=semiring)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    rows = bp.dst_touched
+    for a, b in zip(first, second):
+        assert torch.equal(a[:, rows], b[:, rows])
+    assert int(bp.arrivals(1).abs().sum()) == 0
+    want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
+                               bp.tiles, values=vals, semiring=semiring)
+    _compare(semiring, first, want, rows.cpu().numpy())
+
+
+def test_closed_gate_keeps_the_device_chunk_carry(cuda, monkeypatch):
+    """A device chunk whose last slots are gated (the budget ends inside
+    it) and whose converged group still launches: the carry equals, bit
+    for bit, the same chunk with no gate passed to the kernels (every
+    slot computed, then discarded, as before the gate existed)."""
+    from repro_torch.core import TwoLevel
+    from repro_torch.core.policy import device_inputs
+    from repro_torch.kernels.fused_superstep import ops as fops
+    real = fops.fused_superstep_call
+    seen = []
+
+    def no_gate(*a, gate=None, **kw):
+        seen.append(gate)
+        return real(*a, **kw)
+
+    carries = []
+    for strip in (False, True):
+        sess, _ = _device_session(None, rmat_graph(400, 4, seed=13))
+        policy = TwoLevel(backend="device", steps_per_sync=8)
+        step_fn = sess._device_step_fn(policy)
+        state, *args = device_inputs(sess)
+        if strip:
+            monkeypatch.setattr(fops, "fused_superstep_call", no_gate)
+        state, _ = step_fn(state, *args, 5, 5, 0)     # 3 gated slots
+        torch.cuda.synchronize()
+        carries.append(state)
+    assert len(seen) == 16 and all(isinstance(g, torch.Tensor) for g in seen)
+    assert not bool(seen[-1])                       # the last slot is gated
+    a, b = carries
+    assert int(a[0]) == int(b[0]) == 5
+    for x, y in zip(a, b):
+        for u, v in zip(x if isinstance(x, tuple) else (x,),
+                        y if isinstance(y, tuple) else (y,)):
+            assert torch.equal(u, v)
+
+
+def test_fused_on_cuda_with_split_runs_reaches_the_cpu_fixpoint(cuda):
+    """Fused() on the card with every destination run cut into chunks of
+    3 pairs (so most runs combine partials across thread blocks) against
+    the CPU run: SSSP bit-equal, PageRank/PPR within rtol 1e-4, atol
+    1e-6."""
+    from repro_torch.core import Fused
+    from repro_torch.graph import chunk_table
+    csr = rmat_graph(400, 4, seed=13)
+    res = {}
+    for dev in ("cpu", None):
+        sess, hs = _device_session(dev, csr)
+        for g in sess.view_groups():
+            bp = sess._pair_data(g)
+            cs, cr = chunk_table(bp.run_start.cpu().numpy(), 3)
+            bp.chunk_start = torch.as_tensor(cs, device=bp.src.device)
+            bp.chunk_run = torch.as_tensor(cr, device=bp.src.device)
+        assert sess.run(Fused(), 20000).converged
+        res[dev] = [sess.result(h) for h in hs]
+    for k in (2, 3):
+        np.testing.assert_array_equal(res[None][k], res["cpu"][k])
+    for k in (0, 1):
+        np.testing.assert_allclose(res[None][k], res["cpu"][k], rtol=1e-4,
+                                   atol=1e-6)
+
+
 # --- B3 (mj_spmm) and B4 (priority_pairs) -----------------------------------
 
 

@@ -30,6 +30,7 @@ from repro.kernels.fused_superstep.ref import (  # noqa: E402
     fused_superstep_ref as r_ref)
 
 import repro_torch.graph as tg  # noqa: E402
+from repro_torch.core import Fused  # noqa: E402
 from repro_torch.core.push import (indep_push_fn, push_min_one,  # noqa: E402
                                    push_plus_one, shared_push_fn)
 from repro_torch.kernels import common  # noqa: E402
@@ -380,3 +381,171 @@ def test_resolve_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         common.resolve_device(None)
     assert common.resolve_device("cpu").type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' work items, live-source mask and gate (CPU side)
+# ---------------------------------------------------------------------------
+
+def _check_chunk_table(run_start, chunk, cs, cr, kept):
+    """Every kept run is covered exactly once, in order, by consecutive
+    chunks of at most `chunk` pairs; nothing else is covered."""
+    rs = np.asarray(run_start)
+    assert len(cs) == len(cr) + 1
+    assert list(np.unique(cr)) == list(kept)
+    assert np.all(np.diff(cr) >= 0)                  # runs in order
+    for r in kept:
+        idx = np.flatnonzero(cr == r)
+        assert np.all(np.diff(idx) == 1)             # consecutive chunks
+        starts, ends = cs[idx], cs[idx + 1]
+        assert starts[0] == rs[r] and ends[-1] == rs[r + 1]
+        assert np.all(starts[1:] == ends[:-1])       # no gap, no overlap
+        assert np.all(ends > starts)
+        if chunk is not None:
+            assert np.all(ends - starts <= chunk)
+        else:
+            assert len(idx) == 1
+
+
+@pytest.mark.parametrize("dropped", [False, True])
+@pytest.mark.parametrize("chunk", [1, 3, 4, None])
+def test_chunk_table_covers_every_run_once_in_order(chunk, dropped):
+    """Synthetic runs, one of them (14 pairs) longer than 3*C for C <= 4;
+    with destinations, runs outside [0, num_dst) are left out."""
+    lens = np.array([2, 14, 1, 5, 3])
+    run_start = np.concatenate([[0], np.cumsum(lens)])
+    run_dst = np.array([-1, 0, 2, 3, 7])
+    kw = dict(run_dst=run_dst, num_dst=4) if dropped else {}
+    cs, cr = tg.chunk_table(run_start, chunk, **kw)
+    assert cs.dtype == cr.dtype == np.int32
+    kept = [1, 2, 3] if dropped else [0, 1, 2, 3, 4]
+    _check_chunk_table(run_start, chunk, cs, cr, kept)
+    if chunk is not None and chunk <= 4:
+        assert lens[1] > 3 * chunk
+        assert int((cr == 1).sum()) == -(-14 // chunk)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_block_pairs_carry_the_chunk_table(semiring):
+    """build_block_pairs stores the table of its runs at PAIR_CHUNK, and
+    the derivation from run_start in the kernel wrapper agrees."""
+    from repro_torch.graph.structure import PAIR_CHUNK
+    _, _, _, tbp = _graphs(semiring)
+    rs = N(tbp.run_start)
+    cs, cr = tg.chunk_table(rs, PAIR_CHUNK)
+    np.testing.assert_array_equal(N(tbp.chunk_start), cs)
+    np.testing.assert_array_equal(N(tbp.chunk_run), cr)
+    _check_chunk_table(rs, PAIR_CHUNK, cs, cr, range(tbp.num_runs))
+    dcs, dcr = fk._chunks(tbp.run_start, tbp.dst, tbp.num_blocks)
+    np.testing.assert_array_equal(N(dcs), cs)
+    np.testing.assert_array_equal(N(dcr), cr)
+    counters = tbp.arrivals(3)
+    assert counters.shape == (3 * tbp.num_runs,) and not counters.any()
+    assert tbp.arrivals(3) is counters
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_src_live_on_masked_d_matches_reference(semiring, frac):
+    """fused_superstep_call with `src_live` on identity-masked d equals
+    the call without it and the reference's Pallas kernel in interpret
+    mode (which has no such argument)."""
+    rg_g, rbp, _, tbp = _graphs(semiring)
+    bn, vb = rg_g.num_blocks, rg_g.block_size
+    rng = np.random.default_rng(int(10 * frac) + 40)
+    d, base, vals = _rand_state(rng, 4, bn, bn, vb, semiring)
+    live = rng.random(bn) < frac
+    d = np.where(live[None, :, None], d,
+                 0.0 if semiring == "plus_times" else np.inf
+                 ).astype(np.float32)
+    jv = None if vals is None else jnp.asarray(vals)
+    want = r_call(rbp.src, rbp.dst, rbp.first, rbp.last, jnp.asarray(d),
+                  jnp.asarray(base), rbp.tiles, values=jv, semiring=semiring,
+                  interpret=True)
+    kw = dict(values=None if vals is None else T(vals), semiring=semiring)
+    args = (tbp.src, tbp.dst, tbp.first, tbp.last, T(d), T(base), tbp.tiles)
+    got = fk.fused_superstep_call(*args, src_live=T(live), **kw)
+    rows = N(tbp.dst_touched)
+    _check(semiring, got, [np.asarray(x) for x in want], rows)
+    _check(semiring, got, fk.fused_superstep_call(*args, **kw), rows)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_fused_push_passes_selection_as_src_live(monkeypatch, semiring):
+    """fused_push hands the kernel its selection mask `selb` as
+    `src_live`, the view's chunk table and counters, and the gate."""
+    from repro_torch.kernels.fused_superstep import ops
+    _, _, _, tbp = _graphs(semiring)
+    bn = tbp.num_blocks
+    real = ops.fused_superstep_call
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(kw)
+        return real(*a, **kw)
+    monkeypatch.setattr(ops, "fused_superstep_call", spy)
+    rng = np.random.default_rng(5)
+    vals, dels = _push_state(rng, 4, bn, 16, semiring)
+    sel, msk = [0, 3, 0, 6], [1, 1, 0, 1]
+    gate = torch.tensor(True)
+    fused_push(T(vals), T(dels), tbp, T(sel, torch.int32),
+               T(msk, torch.float32), torch.ones(4), semiring=semiring,
+               gate=gate)
+    (kw,) = seen
+    want = np.zeros(bn, bool)
+    want[[0, 3, 6]] = True
+    assert kw["src_live"].dtype == torch.bool
+    np.testing.assert_array_equal(N(kw["src_live"]), want)
+    assert kw["gate"] is gate
+    assert kw["chunk_start"] is tbp.chunk_start
+    assert kw["chunk_run"] is tbp.chunk_run
+    assert kw["arrivals"] is tbp.arrivals(4 // kw["job_block"])
+
+
+def _kernel_route_session(csr):
+    """A CPU session on the kernel route (use_pallas=True: fused_push and
+    the plain version) with a plus-times and a min-plus job."""
+    from repro_torch.algorithms import SSSP, PageRank
+    from repro_torch.core import GraphSession
+    sess = GraphSession(csr, 16, capacity=2, seed=5, device="cpu",
+                        use_pallas=True)
+    sess.submit(PageRank())
+    sess.submit(SSSP(source=3))
+    return sess
+
+
+def test_device_run_with_gate_equals_run_without(monkeypatch):
+    """A CPU device-backend run with the gate plumbed through to the
+    kernel wrapper equals, bit for bit, the run in which the wrapper gets
+    no gate: same values, deltas, supersteps and counters.  Every push
+    gets a 0-dim bool gate, closed on the gated slots."""
+    from repro_torch.kernels.fused_superstep import ops
+    real = ops.fused_superstep_call
+    gates = []
+
+    def record(*a, **kw):
+        gates.append(kw["gate"])
+        return real(*a, **kw)
+
+    def strip(*a, gate=None, **kw):
+        return real(*a, **kw)
+
+    csr = tg.rmat_graph(300, 4, seed=13)
+    out = []
+    for fn in (record, strip):
+        monkeypatch.setattr(ops, "fused_superstep_call", fn)
+        sess = _kernel_route_session(csr)
+        m = sess.run(Fused(steps_per_sync=4), 20000)
+        assert m.converged
+        out.append((m, [(g.values.clone(), g.deltas.clone())
+                        for g in sess.view_groups()]))
+    (m1, s1), (m2, s2) = out
+    assert m1.to_dict() | {"wall_time_s": 0} == m2.to_dict() | {
+        "wall_time_s": 0}
+    np.testing.assert_array_equal(m1.iterations_per_job,
+                                  m2.iterations_per_job)
+    for (v1, d1), (v2, d2) in zip(s1, s2):
+        assert torch.equal(v1, v2) and torch.equal(d1, d2)
+    assert gates and all(g.shape == () and g.dtype == torch.bool
+                         for g in gates)
+    assert not all(bool(g) for g in gates)      # some slots were gated
