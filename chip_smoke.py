@@ -25,9 +25,7 @@ Phases (any failure exits non-zero before the last line is printed):
 2b. B1/B2 on the main path's own selections: the masks of an early, a
    middle and a late push of phase 3, d masked by them, against the
    plain version at phase 2's bars, a repeat call bit-identical, timed
-   beside the bound of the live pairs alone; then the work-item size
-   sweep (CHUNK_SWEEP pairs, None = whole runs) on these inputs and
-   all-live ones, each held to the plain outputs.
+   beside the bound of the live pairs alone.
 4. The device scheduling backend at full size, on the same session: the
    four jobs resubmitted and run under Fused() (both scheduling levels
    and the push on the card, one host read per chunk), checked as in
@@ -96,7 +94,6 @@ Q_B3 = 400                     # selected rows of the mj_spmm entry point
 DEVICE_CADENCE = 8             # steps_per_sync of the chunk-invariance run
 CADENCE_SWEEP = (4, 8, 16, 32)  # run in this order, then in reverse
 PADDED_SLOTS = 3               # padded slots in push_shared's queue
-CHUNK_SWEEP = (32, 64, 128, None)   # pairs per work item; None: whole run
 SELECTION_POINTS = (("early", 0.1), ("middle", 0.5), ("late", 0.9))
 
 
@@ -231,22 +228,19 @@ def check_selections(torch, sess, groups, device, masks):
     """Phase 2b: B1/B2 on the main path's own selections (the src_live
     masks of an early, a middle and a late push of the phase-3 run), d
     masked by them, against the plain version; timed beside the plain
-    version and the live-pair bound.  Then the chunk-size sweep over
-    CHUNK_SWEEP at all-live inputs and at these selections.  Returns
-    {semiring: [selection figures]}, {semiring: {C: [ms per input]}}."""
-    from repro_torch.graph import chunk_table
+    version and the live-pair bound.  Returns {semiring: [selection
+    figures]}."""
     from repro_torch.kernels.fused_superstep import kernel as fk
     from repro_torch.kernels.fused_superstep.ops import _pick_job_block
     from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
 
-    figures, sweep = {}, {}
+    figures = {}
     for semiring, grp in groups.items():
         bp = sess._pair_data(grp)
         bn, vb = grp.graph.num_blocks, grp.graph.block_size
         jb = _pick_job_block(CAPACITY, vb, semiring)
         rows = bp.dst_touched.cpu().numpy()
         src_np = bp.src.cpu().numpy()
-        rs_np = bp.run_start.cpu().numpy()
         rec = masks[semiring]
         rng = np.random.default_rng(17)
         inputs = [("all live", None,
@@ -259,7 +253,6 @@ def check_selections(torch, sess, groups, device, masks):
                            masked_state(torch, rng, CAPACITY, bn, vb,
                                         semiring, live, device)))
         figures[semiring] = []
-        wants = []
         for label, live, (d, base, vals) in inputs:
             def kern():
                 return fk.fused_superstep_call(
@@ -283,7 +276,6 @@ def check_selections(torch, sess, groups, device, masks):
                                    b[:, bp.dst_touched]):
                     raise AssertionError(f"{semiring} {label}: two calls "
                                          f"on the same inputs differ")
-            wants.append(want)
             if live is None:
                 continue
             live_np = live.cpu().numpy()
@@ -302,30 +294,9 @@ def check_selections(torch, sess, groups, device, masks):
                 selection=label, live_sources=int(live_np.sum()),
                 live_pairs=n_live, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err))
-        # the chunk-size sweep, checked against the plain outputs above
-        sweep[semiring] = {}
-        for c in CHUNK_SWEEP:
-            cs, cr = (torch.as_tensor(a, device=device)
-                      for a in chunk_table(rs_np, c))
-            row = []
-            for (label, live, (d, base, vals)), want in zip(inputs, wants):
-                def kern():
-                    return fk.fused_superstep_call(
-                        bp.src, bp.dst, bp.first, bp.last, d, base,
-                        bp.tiles, values=vals, run_start=bp.run_start,
-                        chunk_start=cs, chunk_run=cr,
-                        arrivals=bp.arrivals(CAPACITY // jb), src_live=live,
-                        semiring=semiring, job_block=jb)
-                compare(semiring, kern(), want, rows)
-                row.append(median_ms(torch, kern))
-            sweep[semiring][c] = row
-            log(f"  chunk sweep {semiring} C={c or 'whole run'} "
-                f"({cr.numel()} work items): ms "
-                f"{', '.join(f'{x:.4f}' for x in row)} "
-                f"(all live, {', '.join(lb for lb, _ in SELECTION_POINTS)})")
-        del inputs, wants
+        del inputs
         torch.cuda.empty_cache()
-    return figures, sweep
+    return figures
 
 
 def ptxas_report(common, fk):
@@ -924,9 +895,8 @@ def main() -> int:
     report_run(torch, "main path", m, wall, launches, peak)
     check_results(sess, handles, csr, refs, "main path")
 
-    # -- phase 2b: B1/B2 on the main path's selections; the chunk sweep ----
-    sel_figures, sweep = check_selections(torch, sess, groups, sess.device,
-                                          masks)
+    # -- phase 2b: B1/B2 on the main path's selections ---------------------
+    sel_figures = check_selections(torch, sess, groups, sess.device, masks)
     del masks
     steps = max(1, m.supersteps)
     select_ms = 1e3 * policy.select_s / steps
@@ -968,9 +938,7 @@ def main() -> int:
             "ms": f["ms"], "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": None,
-            "main_path_selections": sel_figures[sr],
-            "chunk_sweep_ms": {str(c or "whole_run"): v
-                               for c, v in sweep[sr].items()}})
+            "main_path_selections": sel_figures[sr]})
     for sr in SEMIRINGS:
         f = b3[sr]
         kernels.append({

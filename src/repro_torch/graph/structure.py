@@ -202,33 +202,26 @@ def run_starts(first: np.ndarray) -> np.ndarray:
                      len(first)).astype(np.int32)
 
 
-def chunk_table(run_start, chunk: Optional[int] = PAIR_CHUNK,
-                run_dst=None, num_dst: Optional[int] = None):
+def chunk_table(run_start, chunk: Optional[int] = PAIR_CHUNK):
     """Cut destination runs into work items of at most `chunk` consecutive
     pairs (None: one item per run).
 
     run_start [R+1] run offsets -> (chunk_start [n_chunks+1] int32,
     chunk_run [n_chunks] int32), numpy: chunk c covers pairs
     chunk_start[c]:chunk_start[c+1] of run chunk_run[c]; the chunks of a
-    run are consecutive and in pair order.  With `run_dst` [R] (each
-    run's destination) and `num_dst`, runs whose destination lies outside
-    [0, num_dst) are left out; dst-sorted pairs put them at the two ends,
-    so the chunks kept still cover one contiguous range of pairs."""
+    run are consecutive and in pair order.  Runs the kernels drop (a
+    destination outside [0, B_loc)) keep their chunks: those blocks
+    return at entry."""
     rs = np.asarray(run_start, dtype=np.int64)
-    runs = np.arange(len(rs) - 1)
-    if run_dst is not None and num_dst is not None:
-        rd = np.asarray(run_dst)
-        runs = runs[(rd >= 0) & (rd < num_dst)]
-    lens = rs[runs + 1] - rs[runs]
+    lens = np.diff(rs)
     per = (np.ones_like(lens) if chunk is None
            else np.maximum(1, -(-lens // int(chunk))))
-    chunk_run = np.repeat(runs, per)
-    first_chunk = np.cumsum(per) - per              # per kept run
+    chunk_run = np.repeat(np.arange(len(lens)), per)
+    first_chunk = np.cumsum(per) - per              # per run
     k = np.arange(len(chunk_run)) - np.repeat(first_chunk, per)
     step = lens if chunk is None else np.full_like(lens, int(chunk))
     starts = rs[chunk_run] + k * np.repeat(step, per)
-    end = rs[runs[-1] + 1] if len(runs) else 0
-    chunk_start = np.append(starts, end).astype(np.int32)
+    chunk_start = np.append(starts, rs[-1]).astype(np.int32)
     return chunk_start, chunk_run.astype(np.int32)
 
 

@@ -68,13 +68,8 @@ namespace {
 constexpr int WINDOW = 256;
 
 // Ring depth: 3 thread blocks per SM at Vb = 64 (4 x 17 KB stages each).
-// FS_STAGES_64 overrides the Vb = 64 depth for a build that measures it
-// (scripts/fused_superstep_ring.py).
-#ifndef FS_STAGES_64
-#define FS_STAGES_64 4
-#endif
 __host__ __device__ constexpr int stages(int vb) {
-  return vb >= 128 ? 3 : (vb >= 64 ? FS_STAGES_64 : 6);
+  return vb >= 128 ? 3 : (vb >= 64 ? 4 : 6);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -68,11 +68,7 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
-    return bind(common.load_library("fused_superstep"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signatures of a fused superstep library."""
+    lib = common.load_library("fused_superstep")
     head = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P]
     lib.fs_plus_times.argtypes = head + [_P] * 6 + [_I] * 5 + [
         ctypes.c_float, _P]
@@ -109,12 +105,9 @@ def _run_start(first: torch.Tensor) -> torch.Tensor:
     ).to(torch.int32)
 
 
-def _chunks(run_start: torch.Tensor, dst: torch.Tensor, bn_loc: int):
-    """The chunk table of `run_start` at `PAIR_CHUNK`, dropped runs left
-    out (a host read)."""
-    rs = run_start.cpu().numpy()
-    run_dst = dst.cpu().numpy()[rs[:-1]] if len(rs) > 1 else rs[:0]
-    cs, cr = chunk_table(rs, PAIR_CHUNK, run_dst, bn_loc)
+def _chunks(run_start: torch.Tensor):
+    """The chunk table of `run_start` at `PAIR_CHUNK` (a host read)."""
+    cs, cr = chunk_table(run_start.cpu().numpy(), PAIR_CHUNK)
     dev = run_start.device
     return (torch.as_tensor(cs, device=dev),
             torch.as_tensor(cr, device=dev))
@@ -198,7 +191,7 @@ def fused_superstep_call(src, dst, first, last, d, base, tiles, *,
     if run_start is None:
         run_start = _run_start(first)
     if chunk_start is None:
-        chunk_start, chunk_run = _chunks(run_start, dst, bn_loc)
+        chunk_start, chunk_run = _chunks(run_start)
     num_runs = run_start.numel() - 1
     n_chunks = chunk_run.numel()
     src = common.checked("src", src, torch.int32)

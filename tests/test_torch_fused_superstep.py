@@ -407,22 +407,22 @@ def _check_chunk_table(run_start, chunk, cs, cr, kept):
             assert len(idx) == 1
 
 
-@pytest.mark.parametrize("dropped", [False, True])
+@pytest.mark.parametrize("lens", [[2, 14, 1, 5, 3], [4, 12, 8, 1, 13]],
+                         ids=["uneven", "multiples_of_4"])
 @pytest.mark.parametrize("chunk", [1, 3, 4, None])
-def test_chunk_table_covers_every_run_once_in_order(chunk, dropped):
-    """Synthetic runs, one of them (14 pairs) longer than 3*C for C <= 4;
-    with destinations, runs outside [0, num_dst) are left out."""
-    lens = np.array([2, 14, 1, 5, 3])
+def test_chunk_table_covers_every_run_once_in_order(chunk, lens):
+    """Synthetic runs, one of them longer than 3*C for C <= 4, and runs
+    whose length is a multiple of C (no short last chunk)."""
+    lens = np.array(lens)
     run_start = np.concatenate([[0], np.cumsum(lens)])
-    run_dst = np.array([-1, 0, 2, 3, 7])
-    kw = dict(run_dst=run_dst, num_dst=4) if dropped else {}
-    cs, cr = tg.chunk_table(run_start, chunk, **kw)
+    cs, cr = tg.chunk_table(run_start, chunk)
     assert cs.dtype == cr.dtype == np.int32
-    kept = [1, 2, 3] if dropped else [0, 1, 2, 3, 4]
-    _check_chunk_table(run_start, chunk, cs, cr, kept)
-    if chunk is not None and chunk <= 4:
-        assert lens[1] > 3 * chunk
-        assert int((cr == 1).sum()) == -(-14 // chunk)
+    _check_chunk_table(run_start, chunk, cs, cr, range(len(lens)))
+    if chunk is not None:
+        assert lens.max() > 3 * chunk
+        long_run = int(lens.argmax())
+        assert int((cr == long_run).sum()) == -(-lens.max() // chunk)
+        assert len(cr) == int(np.sum(-(-lens // chunk)))
 
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
@@ -436,7 +436,7 @@ def test_block_pairs_carry_the_chunk_table(semiring):
     np.testing.assert_array_equal(N(tbp.chunk_start), cs)
     np.testing.assert_array_equal(N(tbp.chunk_run), cr)
     _check_chunk_table(rs, PAIR_CHUNK, cs, cr, range(tbp.num_runs))
-    dcs, dcr = fk._chunks(tbp.run_start, tbp.dst, tbp.num_blocks)
+    dcs, dcr = fk._chunks(tbp.run_start)
     np.testing.assert_array_equal(N(dcs), cs)
     np.testing.assert_array_equal(N(dcr), cr)
     counters = tbp.arrivals(3)
