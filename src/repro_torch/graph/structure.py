@@ -191,7 +191,7 @@ DENSE_OP_MAX_BYTES = 64 * 2**20
 
 
 #: pairs per work item of the fused superstep kernels (`chunk_table`);
-#: chosen on the H100 from {32, 64, 128, whole run} (PERF.md, PR 13)
+#: chosen on the H100 from {32, 64, 128, whole run} (PERF.md)
 PAIR_CHUNK = 64
 
 
