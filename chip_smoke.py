@@ -14,8 +14,10 @@ Phases (any failure exits non-zero before the last line is printed):
    path's job axis), a prime J, and a width-contract case (d at B_N,
    outputs at B_loc < B_N).  Bars: plus-times rtol = atol = 1e-5 with
    node_un exact; min-plus values, deltas and node_un bit-equal, p_sum
-   rtol 1e-6.  Each kernel and its plain version are timed with CUDA
-   events (median of 10 after warm-up) beside the all-pairs bound.
+   rtol 1e-6.  Each kernel and its plain version are timed (`Timer`:
+   device time per launch by CUDA events around a run of back-to-back
+   launches queued behind a spin, and host time per call by the host
+   clock around a run of calls) beside the all-pairs bound.
 3. The main path at full size: GraphSession(rmat_graph(2**16, 8), 64,
    capacity=4) on CUDA with PageRank, PPR(3), SSSP(0), SSSP(4097) — two
    graph views — run under TwoLevel() to convergence with the launch
@@ -44,9 +46,13 @@ Phases (any failure exits non-zero before the last line is printed):
    torch.matmul for plus-times; push_shared on both views (the jobs'
    fresh state, the host TwoLevel's first global queue with padded
    slots) against the port's ELL push; priority_pairs on each view's
-   vertex priorities at submit and after 20 host supersteps against
-   core.priority.block_pairs.  B3's and B4's launch counts are read
-   around their entry-point runs (push_shared, priority_pairs).
+   vertex priorities at submit and after 20 host supersteps ([4, 1024,
+   64], L2-resident) against core.priority.block_pairs, then at the
+   byte-bound size [16, 16384, 64] (64 MB, more than the L2), beside the
+   scalar variant on the same inputs and the launch floor (an empty
+   kernel timed the same way).  B3's and B4's
+   launch counts are read around their entry-point runs (push_shared,
+   priority_pairs).
 
 Then one JSON line of kernel figures, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -95,6 +101,13 @@ DEVICE_CADENCE = 8             # steps_per_sync of the chunk-invariance run
 CADENCE_SWEEP = (4, 8, 16, 32)  # run in this order, then in reverse
 PADDED_SLOTS = 3               # padded slots in push_shared's queue
 SELECTION_POINTS = (("early", 0.1), ("middle", 0.5), ("late", 0.9))
+B4_BIG = (16, 16384, 64)       # 16 jobs over 2**20 vertices: 64 MB > L2
+# back-to-back calls per timed run, so that a run lasts about 1 ms or more
+R_B1B2, R_B3, R_B4, R_B4_BIG = 20, 10, 200, 50
+R_PLAIN, R_B4_PLAIN, R_B4_BIG_PLAIN = 2, 20, 10
+TIMING = ("ms: device time per launch, CUDA events around a run of "
+          "back-to-back launches queued behind a spin, median of 5 runs; "
+          "host_ms_per_call: host clock around a run of calls, no sync")
 
 
 def log(msg: str) -> None:
@@ -109,21 +122,77 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of fn() over `reps` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+class Timer:
+    """Time per call of a function on the card.
+
+    Host time: the host clock around `launches` back-to-back calls with no
+    synchronise inside, over the count (what a caller pays before it can
+    go on).  Device time: a pair of CUDA events around `launches`
+    back-to-back calls, over the count.  A spin kernel
+    (`torch.cuda._sleep`) is queued first and outlasts the host's enqueue
+    of the whole run, so the device runs the launches back to back and
+    never waits for the host: the events read device time even where the
+    host's wrapper takes longer than the kernel.  `queued` says whether
+    every run was still behind the spin when its last call was enqueued
+    (False for a function that waits on the device itself).  Each value
+    is the median over `runs` runs, after `warmup` calls (with the range of
+    the host runs, since the host's clock varies more than the card's);
+    each call's outputs are released within the run."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        cycles = 10**7
+        self._sleep(cycles)                  # warm the spin kernel
+        a, b = self._events()
         a.record()
-        fn()
+        self._sleep(cycles)
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        self.cycles_per_ms = cycles / a.elapsed_time(b)
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def _sleep(self, cycles):
+        self.torch.cuda._sleep(int(cycles))
+
+    def __call__(self, fn, launches: int, runs: int = 5,
+                 warmup: int = 2) -> dict:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            for _ in range(launches):
+                fn()
+            host.append(1e3 * (time.perf_counter() - t0) / launches)
+            torch.cuda.synchronize()
+        host_ms = statistics.median(host)
+        dev, queued = [], True
+        for _ in range(runs):
+            a, b = self._events()
+            self._sleep(self.cycles_per_ms * (2 * host_ms * launches + 1))
+            a.record()
+            for _ in range(launches):
+                fn()
+            b.record()
+            queued &= not a.query()
+            b.synchronize()
+            dev.append(a.elapsed_time(b) / launches)
+        return dict(ms=statistics.median(dev), host_ms=host_ms,
+                    host_ms_range=[min(host), max(host)],
+                    launches_per_run=launches, queued=queued)
+
+
+def fmt(t: dict) -> str:
+    """A Timer reading as text."""
+    return (f"{t['ms']:.5f} ms device ({t['launches_per_run']} back to "
+            f"back{'' if t['queued'] else ', NOT queued behind the spin'})"
+            f", {t['host_ms']:.5f} ms host per call (runs "
+            f"{t['host_ms_range'][0]:.5f}-{t['host_ms_range'][1]:.5f})")
 
 
 def random_state(torch, rng, j, bn_src, bn_loc, vb, semiring, device):
@@ -224,7 +293,7 @@ def record_selections(fops):
     return masks, restore
 
 
-def check_selections(torch, sess, groups, device, masks):
+def check_selections(torch, timer, sess, groups, device, masks):
     """Phase 2b: B1/B2 on the main path's own selections (the src_live
     masks of an early, a middle and a late push of the phase-3 run), d
     masked by them, against the plain version; timed beside the plain
@@ -279,21 +348,24 @@ def check_selections(torch, sess, groups, device, masks):
             if live is None:
                 continue
             live_np = live.cpu().numpy()
-            k_ms = median_ms(torch, kern)
-            p_ms = median_ms(torch, plain)
+            k = timer(kern, R_B1B2)
+            p = timer(plain, R_PLAIN)
             b_ms, b_by, n_live = live_bound(
                 semiring, CAPACITY, bn, vb, src_np, live_np, bp.num_runs,
                 bp.chunk_run.numel())
             log(f"  {semiring} main-path selection {label}: "
                 f"{int(live_np.sum())} of {bn} sources live, {n_live} of "
                 f"{bp.num_pairs} pairs; matches plain (max |err| {err:.3g}),"
-                f" repeat call bit-identical; kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms, live-pair bound {b_ms:.4f} ms ({b_by}); "
-                f"{100 * b_ms / k_ms:.1f}% of the bound")
+                f" repeat call bit-identical; kernel {fmt(k)}; plain "
+                f"{fmt(p)}; live-pair bound {b_ms:.4f} ms ({b_by}); "
+                f"{100 * b_ms / k['ms']:.1f}% of the bound")
             figures[semiring].append(dict(
                 selection=label, live_sources=int(live_np.sum()),
-                live_pairs=n_live, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err))
+                live_pairs=n_live, ms=k["ms"],
+                host_ms_per_call=k["host_ms"],
+                host_ms_range=k["host_ms_range"], queued=k["queued"],
+                plain_ms=p["ms"], bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err))
         del inputs
         torch.cuda.empty_cache()
     return figures
@@ -317,7 +389,7 @@ def ptxas_report(common, fk):
             f"{fk.blocks_per_sm(4, 64, sr)} thread blocks per SM")
 
 
-def check_kernels(torch, sess, groups, device):
+def check_kernels(torch, timer, sess, groups, device):
     """Phase 2: kernels vs plain versions on the real pairs."""
     from repro_torch.kernels.fused_superstep import kernel as fk
     from repro_torch.kernels.fused_superstep.ops import _pick_job_block
@@ -359,15 +431,17 @@ def check_kernels(torch, sess, groups, device):
                 f" matches plain (max |err| {err:.3g})")
             if (j, bn_loc, jb) == (CAPACITY, bn,
                                    _pick_job_block(j, vb, semiring)):
-                k_ms = median_ms(torch, kern)
-                p_ms = median_ms(torch, plain)
+                k = timer(kern, R_B1B2)
+                p = timer(plain, R_PLAIN)
                 b_ms, b_by = bound(semiring, j, bn, bn_loc, vb,
                                    bp.num_pairs, bp.num_runs)
-                log(f"  {semiring}: kernel {k_ms:.4f} ms, plain "
-                    f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                    f"{k_ms / b_ms:.2f}x the bound")
-                figures[semiring] = dict(ms=k_ms, plain_ms=p_ms,
-                                         bound_ms=b_ms, bound_by=b_by)
+                log(f"  {semiring}: kernel {fmt(k)}; plain {fmt(p)}; bound "
+                    f"{b_ms:.4f} ms ({b_by}); {k['ms'] / b_ms:.2f}x the "
+                    f"bound")
+                figures[semiring] = dict(
+                    ms=k["ms"], host_ms_per_call=k["host_ms"],
+                    queued=k["queued"], plain_ms=p["ms"], bound_ms=b_ms,
+                    bound_by=b_by)
         figures[semiring]["max_abs_err"] = max(errs)
         del d, base, vals, got, want
         torch.cuda.empty_cache()
@@ -620,7 +694,7 @@ def b3_state(torch, rng, q, j, vb, semiring, device):
     return torch.as_tensor(d, device=device)
 
 
-def check_mj_spmm(torch, groups, device):
+def check_mj_spmm(torch, timer, groups, device):
     """Phase 5a: mj_spmm kernel against its plain version on q=400
     distinct rows of each view's real ELL tiles; timed beside the plain
     version and (plus-times) one torch.matmul."""
@@ -659,32 +733,31 @@ def check_mj_spmm(torch, groups, device):
             if j != CAPACITY:
                 continue
             del got, got_i, want
-            k_ms = median_ms(torch, lambda: mj_spmm(d, tiles_sel, semiring))
-            ki_ms = median_ms(torch, lambda: mj_spmm(d, tiles, semiring,
-                                                     tile_index=idx))
-            p_ms = median_ms(torch,
-                             lambda: mj_spmm_ref(d, tiles_sel, semiring))
-            lib_ms = None
+            kt = timer(lambda: mj_spmm(d, tiles_sel, semiring), R_B3)
+            ki = timer(lambda: mj_spmm(d, tiles, semiring, tile_index=idx),
+                       R_B3)
+            p = timer(lambda: mj_spmm_ref(d, tiles_sel, semiring), R_PLAIN)
+            lib = None
             if semiring == "plus_times":
-                lib_ms = median_ms(torch,
-                                   lambda: torch.matmul(d[:, None],
-                                                        tiles_sel))
+                lib = timer(lambda: torch.matmul(d[:, None], tiles_sel),
+                            R_B3)
             b_ms, b_by = b3_bound(Q_B3, k, j, vb)
-            log(f"  mj_spmm {semiring}: kernel {k_ms:.4f} ms (with "
-                f"tile_index {ki_ms:.4f} ms), plain {p_ms:.4f} ms, "
-                f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
-                f" ms, bound {b_ms:.4f} ms ({b_by}); "
-                f"{k_ms / b_ms:.2f}x the bound")
-            figures[semiring] = dict(ms=k_ms, indexed_ms=ki_ms,
-                                     plain_ms=p_ms, library_ms=lib_ms,
-                                     bound_ms=b_ms, bound_by=b_by)
+            log(f"  mj_spmm {semiring}: kernel {fmt(kt)}; with tile_index "
+                f"{fmt(ki)}; plain {fmt(p)}; library "
+                f"{'none' if lib is None else fmt(lib)}; bound "
+                f"{b_ms:.4f} ms ({b_by}); {kt['ms'] / b_ms:.2f}x the bound")
+            figures[semiring] = dict(
+                ms=kt["ms"], host_ms_per_call=kt["host_ms"],
+                queued=kt["queued"], indexed_ms=ki["ms"], plain_ms=p["ms"],
+                library_ms=None if lib is None else lib["ms"],
+                bound_ms=b_ms, bound_by=b_by)
         figures[semiring]["max_abs_err"] = max(errs)
         del tiles_sel, d
         torch.cuda.empty_cache()
     return figures
 
 
-def check_push_shared(torch, sess, groups, device):
+def check_push_shared(torch, timer, sess, groups, device):
     """Phase 5b: push_shared (the kernel-backed engine push through
     mj_spmm with tile_index) on both views, launch counts around it;
     then held against the port's ELL push."""
@@ -748,13 +821,13 @@ def check_push_shared(torch, sess, groups, device):
                                        rtol=1e-5, atol=1e-6)
         err = max(max_err(v_k, v_e), max_err(d_k, d_e))
         del want, v_e, d_e
-        k_ms = median_ms(torch, lambda: kern(grp))
-        e_ms = median_ms(torch, lambda: ell(
+        k = timer(lambda: kern(grp), R_B3)
+        e = timer(lambda: ell(
             grp.values, grp.deltas, grp.graph.tiles, grp.graph.nbr_ids,
-            sel_t, msk_t, grp.push_scale, grp.overlay, None), reps=3,
+            sel_t, msk_t, grp.push_scale, grp.overlay, None), 1, runs=3,
             warmup=0)
         log(f"  push_shared {sr}: matches the ELL push (max |err| "
-            f"{err:.3g}); {k_ms:.4f} ms per call (ELL push {e_ms:.4f} ms)")
+            f"{err:.3g}); {fmt(k)} (ELL push {fmt(e)})")
     del outs
     torch.cuda.empty_cache()
     return launches
@@ -768,10 +841,14 @@ def b4_bound(j, bn, vb):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_priority_pairs(torch, sess, groups):
+def check_priority_pairs(torch, timer, sess, groups):
     """Phase 5c: priority_pairs on each view's vertex priorities at
     submit and after 20 host supersteps (launch counts around those
-    calls), then against core.priority.block_pairs, and timed."""
+    calls), then against core.priority.block_pairs, and timed; then at
+    the byte-bound size B4_BIG, numpy-seeded with half the entries <= 0,
+    against block_pairs and timed; the scalar variant (`lanes=0`) on the
+    same inputs at both sizes, held and timed beside the vector one; and
+    the library's empty kernel, the launch floor."""
     from repro_torch.core import TwoLevel
     from repro_torch.core.priority import block_pairs
     from repro_torch.kernels.priority_pairs import kernel as pk
@@ -790,24 +867,76 @@ def check_priority_pairs(torch, sess, groups):
     launches = pk.launches["priority_pairs"]
     if launches <= 0:
         raise RuntimeError("priority_pairs was not launched")
-    errs = []
-    for stage, sr, vp, (nu, pm) in outs:
+
+    def held(vp, nu, pm):
         nu_p, pm_p = block_pairs(vp)
         np.testing.assert_array_equal(nu.cpu().numpy(), nu_p.cpu().numpy())
         np.testing.assert_allclose(pm.cpu().numpy(), pm_p.cpu().numpy(),
                                    rtol=1e-6)
-        errs.append(max(max_err(nu, nu_p), max_err(pm, pm_p)))
-        log(f"  priority_pairs {sr} {stage}: {tuple(vp.shape)}, node_un "
-            f"exact, p_mean within rtol 1e-6 (max |err| {errs[-1]:.3g}; "
-            f"{int(nu.sum().item())} unconverged vertices)")
+        return max(max_err(nu, nu_p), max_err(pm, pm_p))
+
+    def variant(vp):
+        lanes = pk.pick_variant(vp.shape[-1], vp.data_ptr())
+        return f"vector, {lanes} lanes per row" if lanes else "scalar"
+
+    errs = []
+    for stage, sr, vp, (nu, pm) in outs:
+        errs.append(held(vp, nu, pm))
+        log(f"  priority_pairs {sr} {stage}: {tuple(vp.shape)} "
+            f"({variant(vp)}), node_un exact, p_mean within rtol 1e-6 "
+            f"(max |err| {errs[-1]:.3g}; {int(nu.sum().item())} "
+            f"unconverged vertices)")
     vp = outs[-2][2]
-    k_ms = median_ms(torch, lambda: priority_pairs(vp))
-    p_ms = median_ms(torch, lambda: block_pairs(vp))
+    floor = timer(lambda: pk.launch_empty(vp.device), R_B4)
+    log(f"  launch floor (the priority_pairs library's empty kernel): "
+        f"{fmt(floor)}")
+    k = timer(lambda: priority_pairs(vp), R_B4)
+    p = timer(lambda: block_pairs(vp), R_B4_PLAIN)
+    sc_err = held(vp, *pk.priority_pairs_call(vp, lanes=0))
+    sc = timer(lambda: pk.priority_pairs_call(vp, lanes=0), R_B4)
     b_ms, b_by = b4_bound(*vp.shape)
-    log(f"  priority_pairs: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by}); launches on its path {launches}")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, max_abs_err=max(errs), launches=launches)
+    log(f"  priority_pairs {tuple(vp.shape)}: kernel {fmt(k)}; scalar "
+        f"variant (a warp per row) on the same input "
+        f"{fmt(sc)} (max |err| {sc_err:.3g}); plain {fmt(p)}; bound "
+        f"{b_ms:.6f} ms ({b_by}); {k['ms'] / floor['ms']:.2f}x the launch "
+        f"floor; launches on its path {launches}")
+
+    rng = np.random.default_rng(29)
+    big = torch.as_tensor(rng.standard_normal(B4_BIG, dtype=np.float32),
+                          device=vp.device)        # half the entries <= 0
+    nu, pm = priority_pairs(big)
+    torch.cuda.synchronize()
+    big_err = held(big, nu, pm)
+    del nu, pm
+    kb = timer(lambda: priority_pairs(big), R_B4_BIG)
+    pb = timer(lambda: block_pairs(big), R_B4_BIG_PLAIN)
+    scb_err = held(big, *pk.priority_pairs_call(big, lanes=0))
+    scb = timer(lambda: pk.priority_pairs_call(big, lanes=0), R_B4_BIG)
+    bb_ms, bb_by = b4_bound(*B4_BIG)
+    log(f"  priority_pairs {B4_BIG} ({variant(big)}; "
+        f"{big.numel() * 4 / 2**20:.0f} MiB): node_un exact, p_mean within "
+        f"rtol 1e-6 (max |err| {big_err:.3g}); kernel {fmt(kb)}; scalar "
+        f"variant {fmt(scb)} (max |err| {scb_err:.3g}); plain {fmt(pb)}; "
+        f"bound {bb_ms:.6f} ms ({bb_by}); {100 * bb_ms / kb['ms']:.1f}% of "
+        f"the bound (scalar {100 * bb_ms / scb['ms']:.1f}%)")
+    del big
+    torch.cuda.empty_cache()
+    return dict(ms=k["ms"], device_ms=k["ms"], host_ms_per_call=k["host_ms"],
+                host_ms_range=k["host_ms_range"],
+                queued=k["queued"], launch_floor_ms=floor["ms"],
+                launch_floor_host_ms=floor["host_ms"], plain_ms=p["ms"],
+                scalar_variant_device_ms=sc["ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=list(vp.shape),
+                max_abs_err=max(errs + [big_err, sc_err, scb_err]),
+                launches=launches,
+                byte_bound_size=dict(
+                    shape=list(B4_BIG), device_ms=kb["ms"],
+                    host_ms_per_call=kb["host_ms"],
+                    host_ms_range=kb["host_ms_range"], queued=kb["queued"],
+                    scalar_variant_device_ms=scb["ms"],
+                    plain_ms=pb["ms"], bound_ms=bb_ms, bound_by=bb_by,
+                    max_abs_err=max(big_err, scb_err)))
 
 
 def main() -> int:
@@ -880,7 +1009,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f} s")
 
     # -- phase 2: kernels against their plain versions ---------------------
-    figures = check_kernels(torch, sess, groups, sess.device)
+    timer = Timer(torch)
+    figures = check_kernels(torch, timer, sess, groups, sess.device)
 
     # -- phase 3: the main path (host backend) ------------------------------
     dist = sssp_ref(csr, SSSP_SOURCES).astype(np.float32)
@@ -896,7 +1026,8 @@ def main() -> int:
     check_results(sess, handles, csr, refs, "main path")
 
     # -- phase 2b: B1/B2 on the main path's selections ---------------------
-    sel_figures = check_selections(torch, sess, groups, sess.device, masks)
+    sel_figures = check_selections(torch, timer, sess, groups, sess.device,
+                                   masks)
     del masks
     steps = max(1, m.supersteps)
     select_ms = 1e3 * policy.select_s / steps
@@ -916,9 +1047,9 @@ def main() -> int:
 
     # -- phase 5: B3 and B4 at their entry points ---------------------------
     handles = resubmit(torch, sess, handles)
-    b3 = check_mj_spmm(torch, groups, sess.device)
-    b3_launches = check_push_shared(torch, sess, groups, sess.device)
-    b4 = check_priority_pairs(torch, sess, groups)
+    b3 = check_mj_spmm(torch, timer, groups, sess.device)
+    b3_launches = check_push_shared(torch, timer, sess, groups, sess.device)
+    b4 = check_priority_pairs(torch, timer, sess, groups)
 
     if args.trace:
         handles = traced_rerun(torch, sess, handles, TwoLevel())
@@ -935,9 +1066,11 @@ def main() -> int:
                                  "device_fused": dev_launches[sr]},
             "max_abs_err": max([f["max_abs_err"]] + [
                 x["max_abs_err"] for x in sel_figures[sr]]),
-            "ms": f["ms"], "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
+            "ms": f["ms"], "kernel_ms": f["ms"], "device_ms": f["ms"],
+            "host_ms_per_call": f["host_ms_per_call"],
+            "queued": f["queued"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "timing": TIMING,
             "main_path_selections": sel_figures[sr]})
     for sr in SEMIRINGS:
         f = b3[sr]
@@ -945,16 +1078,16 @@ def main() -> int:
             "name": f"mj_spmm_{sr}", "route": "cuda", "source": B3_SOURCE,
             "replaces": B3_REPLACES[sr], "launches": b3_launches[sr],
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],
-            "kernel_ms": f["ms"], "plain_ms": f["plain_ms"],
-            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-            "library_ms": f["library_ms"]})
+            "kernel_ms": f["ms"], "device_ms": f["ms"],
+            "host_ms_per_call": f["host_ms_per_call"],
+            "queued": f["queued"], "indexed_ms": f["indexed_ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+            "timing": TIMING})
     kernels.append({
         "name": "priority_pairs", "route": "cuda", "source": B4_SOURCE,
-        "replaces": B4_REPLACES, "launches": b4["launches"],
-        "max_abs_err": b4["max_abs_err"], "ms": b4["ms"],
-        "kernel_ms": b4["ms"], "plain_ms": b4["plain_ms"],
-        "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
-        "library_ms": None})
+        "replaces": B4_REPLACES, "kernel_ms": b4["ms"], "timing": TIMING,
+        **b4})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

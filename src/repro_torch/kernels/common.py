@@ -7,9 +7,9 @@ Three decisions live here, once:
               port never drops to the CPU on its own.
   dispatch    a wrapper whose tensors lie on the CPU runs the kernel's
               plain PyTorch version; a wrapper whose tensors lie on a CUDA
-              device launches the kernel or raises (`on_cuda`).  There is
-              no fallback from a failed build or launch to the plain
-              version.
+              device launches the kernel or raises (`on_cuda`,
+              `launch`).  There is no fallback from a failed build or
+              launch to the plain version.
   build       CUDA sources under ``kernels/*/csrc`` are compiled with nvcc
               at first use into a shared library with a plain C interface,
               cached under ``build/repro_torch/`` at the repository root
@@ -123,6 +123,24 @@ def checked(name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
     return t
+
+
+def launch(fn, device: torch.device, error_string, *args) -> None:
+    """fn(*args, stream) on `device`'s current stream, entering the device
+    only when it is not the current one; raise with `error_string(rc)`
+    (the library's decoder of its return code) if the launch failed.
+    The stream handle comes from `torch._C._cuda_getCurrentRawStream`
+    (what torch's own generated kernels launch on), which skips building
+    a `torch.cuda.Stream` per call."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: "
+                           f"{error_string(rc).decode()}")
 
 
 def _nvcc() -> str:

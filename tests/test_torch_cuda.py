@@ -430,6 +430,82 @@ def test_priority_pairs_kernel_matches_plain(cuda, j, bn, vb):
                                rtol=1e-6)
 
 
+def _edge_priorities(rng, j, bn, vb):
+    """Priorities with half the entries <= 0 plus NaN, -0.0 and +inf
+    entries, a row of only non-positive values and a row holding +inf."""
+    p = rng.standard_normal((j, bn, vb)).astype(np.float32)
+    flat = p.reshape(-1)
+    idx = rng.permutation(flat.size)
+    n = max(1, flat.size // 16)
+    flat[idx[:n]] = np.nan
+    flat[idx[n:2 * n]] = -0.0
+    flat[idx[2 * n:3 * n]] = np.inf
+    p[0, 0] = -np.abs(p[0, 0])
+    p[-1, -1, 0] = np.inf
+    return p
+
+
+def _hold_pairs(p, n_k, m_k):
+    """node_un exact; p_mean at rtol 1e-6 against block_pairs, with the
+    same inf and NaN positions."""
+    from repro_torch.core.priority import block_pairs
+    n_p, m_p = block_pairs(p)
+    np.testing.assert_array_equal(n_k.cpu().numpy(), n_p.cpu().numpy())
+    np.testing.assert_allclose(m_k.cpu().numpy(), m_p.cpu().numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("variant,vb", [
+    ("vector", 4), ("vector", 8), ("vector", 16), ("vector", 40),
+    ("vector", 64), ("vector", 128), ("vector", 256), ("scalar", 1),
+    ("scalar", 3), ("misaligned", 64), ("forced-scalar", 64)])
+def test_priority_pairs_variants_match_block_pairs(cuda, variant, vb):
+    """Each kernel variant against block_pairs on NaN, -0.0, +inf and
+    negative entries; a misaligned view (one float into its storage)
+    takes the scalar variant, and `lanes=0` forces it on an aligned
+    one."""
+    from repro_torch.kernels.priority_pairs import kernel as pk
+    rng = np.random.default_rng(vb)
+    j, bn = 3, 301
+    host = torch.as_tensor(_edge_priorities(rng, j, bn, vb))
+    if variant == "misaligned":
+        buf = torch.empty(host.numel() + 1, device=cuda)
+        p = buf[1:].view(j, bn, vb)
+        p.copy_(host)
+    else:
+        p = host.to(cuda)
+    assert p.is_contiguous()
+    lanes = pk.pick_variant(vb, p.data_ptr())
+    assert (lanes > 0) == (variant in ("vector", "forced-scalar"))
+    before = pk.launches["priority_pairs"]
+    n_k, m_k = pk.priority_pairs_call(
+        p, lanes=0 if variant == "forced-scalar" else None)
+    torch.cuda.synchronize()
+    assert pk.launches["priority_pairs"] == before + 1
+    _hold_pairs(p, n_k, m_k)
+
+
+@pytest.mark.parametrize("vb", [3, 64])
+def test_priority_pairs_repeat_call_and_output_rows(cuda, vb):
+    """A repeat call is bit-identical and counts one more launch; node_un
+    and p_mean are two rows of one buffer, so writing into the returned
+    node_un leaves p_mean as it was."""
+    from repro_torch.kernels.priority_pairs import kernel as pk
+    rng = np.random.default_rng(7)
+    p = torch.as_tensor(_edge_priorities(rng, 4, 1024, vb), device=cuda)
+    n1, m1 = pk.priority_pairs_call(p)
+    before = pk.launches["priority_pairs"]
+    n2, m2 = pk.priority_pairs_call(p)
+    torch.cuda.synchronize()
+    assert pk.launches["priority_pairs"] == before + 1
+    for a, b in ((n1, n2), (m1, m2)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    m_before = m2.clone()
+    n2.fill_(-7.0)
+    torch.cuda.synchronize()
+    assert torch.equal(m2, m_before)
+
+
 def test_b3_b4_cuda_tensors_never_reach_plain_versions(cuda, monkeypatch):
     from repro_torch.kernels.mj_spmm import kernel as mk
     from repro_torch.kernels.priority_pairs import kernel as pk
@@ -441,7 +517,11 @@ def test_b3_b4_cuda_tensors_never_reach_plain_versions(cuda, monkeypatch):
     rng = np.random.default_rng(0)
     d, t = _mj_state(rng, 3, 2, 4, 16, "plus_times", cuda)
     mk.mj_spmm_call(d, t)
-    pk.priority_pairs_call(torch.zeros((2, 5, 16), device=cuda))
+    misaligned = torch.zeros(2 * 5 * 16 + 1, device=cuda)[1:].view(2, 5, 16)
+    for p in (torch.zeros((2, 5, 16), device=cuda),      # vector
+              torch.zeros((2, 5, 3), device=cuda),       # scalar
+              misaligned):                               # scalar
+        pk.priority_pairs_call(p)
     torch.cuda.synchronize()
     for jb, vb in [(1, 8), (4, 64), (7, 128)]:
         assert mk._lib().ms_smem_bytes(jb, vb) == mk.smem_bytes(jb, vb)

@@ -23,12 +23,16 @@ from repro.kernels.mj_spmm.ops import push_shared as r_push  # noqa: E402
 from repro.kernels.mj_spmm.ref import mj_spmm_ref as r_mj_ref  # noqa: E402
 from repro.kernels.priority_pairs.ops import (  # noqa: E402
     priority_pairs as r_pairs)
+from repro.kernels.priority_pairs.ref import (  # noqa: E402
+    priority_pairs_ref as r_pairs_ref)
 from repro_torch.core.push import shared_push_fn  # noqa: E402
 from repro_torch.kernels.mj_spmm import (_pick_job_block, fold_min,  # noqa: E402
                                          mj_spmm, push_shared)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.mj_spmm import kernel as mk  # noqa: E402
 from repro_torch.kernels.priority_pairs import priority_pairs  # noqa: E402
+from repro_torch.kernels.priority_pairs import kernel as pk  # noqa: E402
+from test_torch_cuda import _edge_priorities  # noqa: E402
 
 SHAPES = [  # (q, K, J, Vb), tests/test_kernels.py:16-22
     (1, 1, 1, 8),
@@ -134,6 +138,36 @@ def test_priority_pairs_all_converged_block():
     n_r, m_r = r_pairs(jnp.zeros((2, 3, 16), jnp.float32), interpret=True)
     np.testing.assert_array_equal(n.numpy(), np.asarray(n_r))
     np.testing.assert_array_equal(m.numpy(), np.asarray(m_r))
+
+
+@pytest.mark.parametrize("vb", [1, 3, 64, 200])
+def test_priority_pairs_edge_values_match_reference(vb):
+    """NaN, -0.0 and -inf are not > 0 and are left out, +inf is counted:
+    the plain version against the reference's kernel (interpret mode)
+    and its oracle, node_un exact, p_mean at rtol 1e-6, NaN positions
+    equal."""
+    rng = np.random.default_rng(vb)
+    p = _edge_priorities(rng, 3, 37, vb)
+    n_t, m_t = (x.numpy() for x in priority_pairs(torch.as_tensor(p)))
+    assert n_t[0, 0] == 0 and m_t[0, 0] == 0
+    assert m_t[-1, -1] == np.inf
+    for n_r, m_r in (r_pairs(jnp.asarray(p), interpret=True),
+                     r_pairs_ref(jnp.asarray(p))):
+        n_r, m_r = np.asarray(n_r), np.asarray(m_r)
+        np.testing.assert_array_equal(n_t, n_r)
+        np.testing.assert_array_equal(np.isnan(m_t), np.isnan(m_r))
+        np.testing.assert_allclose(m_t, m_r, rtol=1e-6)
+
+
+@pytest.mark.parametrize("vb,ptr,lanes", [
+    (4, 0, 1), (8, 16, 2), (16, 32, 4), (40, 0, 16), (64, 4096, 16),
+    (128, 0, 32), (200, 0, 32), (256, 16, 32),        # vector variant
+    (1, 0, 0), (3, 0, 0), (6, 0, 0), (64, 4, 0), (64, 8, 0), (4, 12, 0)])
+def test_priority_pairs_variant_choice(vb, ptr, lanes):
+    """The vector variant (lanes per row: the next power of two >= Vb/4,
+    at most 32) needs Vb % 4 == 0 and a 16-byte aligned input; anything
+    else takes the scalar variant (0)."""
+    assert pk.pick_variant(vb, ptr) == lanes
 
 
 def _push_case(variant):
