@@ -53,6 +53,25 @@ Phases (any failure exits non-zero before the last line is printed):
    kernel timed the same way).  B3's and B4's
    launch counts are read around their entry-point runs (push_shared,
    priority_pairs).
+6. Evolving graphs at full size, on the same session: the four jobs
+   converge, then take the reference's own update generator,
+   mutation_stream(csr, 4, inserts_per_batch=512, deletes_per_batch=256,
+   seed=1) (768 updates a batch, about 0.15% of the edges), each batch
+   applied with `apply_updates` and the jobs rerun to convergence
+   (Fused() after batches 1 and 3, TwoLevel() after 2 and 4); then a
+   hand-built batch of inserts on block pairs that own no tile slot (the
+   overlay and the kernel route's ride-along, under Fused(), with live
+   overlay entries asserted) and a batch with more new pairs in one
+   block row than its overlay holds (compaction, under TwoLevel()); then
+   an explicit `compact()`.  Each rerun is held to phase 3's bars on the
+   updated graph, the session's CSR to a plain application of the
+   batches, and after compaction every view's tiles, neighbour ids and
+   mask and its rebuilt BlockPairs to a fresh build on the card.  Per
+   batch it prints the apply_updates seconds, the StreamStats, the live
+   overlay entries, the pair-view rebuild seconds and the rerun's wall,
+   supersteps, tile_loads, tile_pair_loads and host_syncs; then the
+   phase's peak device memory.  B1/B2 launches over the reruns are the
+   `stream` entry of `launches_by_path`.
 
 Then one JSON line of kernel figures, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -102,6 +121,9 @@ CADENCE_SWEEP = (4, 8, 16, 32)  # run in this order, then in reverse
 PADDED_SLOTS = 3               # padded slots in push_shared's queue
 SELECTION_POINTS = (("early", 0.1), ("middle", 0.5), ("late", 0.9))
 B4_BIG = (16, 16384, 64)       # 16 jobs over 2**20 vertices: 64 MB > L2
+# phase 6: the reference's own update generator, 0.15% of the edges a batch
+STREAM_BATCHES, STREAM_INSERTS, STREAM_DELETES, STREAM_SEED = 4, 512, 256, 1
+STREAM_DELETE = 1              # UpdateBatch.op of a delete
 # back-to-back calls per timed run, so that a run lasts about 1 ms or more
 R_B1B2, R_B3, R_B4, R_B4_BIG = 20, 10, 200, 50
 R_PLAIN, R_B4_PLAIN, R_B4_BIG_PLAIN = 2, 20, 10
@@ -939,6 +961,242 @@ def check_priority_pairs(torch, timer, sess, groups):
                     max_abs_err=max(big_err, scb_err)))
 
 
+# -- phase 6: evolving graphs ------------------------------------------------
+
+
+def plain_adjacency(csr):
+    """The graph as a scipy CSR matrix: the plain side of phase 6."""
+    import scipy.sparse as sp
+    return sp.csr_matrix((csr.weights.astype(np.float32), csr.indices,
+                          csr.indptr), shape=(csr.n, csr.n))
+
+
+def plain_update(adj, batch):
+    """`adj` after `batch`, independent of the port's apply_to_csr: ops in
+    order, an insert sets the weight (in-batch duplicate inserts keep the
+    smaller), a delete removes the edge."""
+    import scipy.sparse as sp
+    coo = adj.tocoo()
+    edges = dict(zip(zip(coo.row.tolist(), coo.col.tolist()),
+                     coo.data.tolist()))
+    fresh = set()
+    for u, v, w, op in zip(batch.src.tolist(), batch.dst.tolist(),
+                           batch.w.tolist(), batch.op.tolist()):
+        if op == STREAM_DELETE:
+            edges.pop((u, v), None)
+            fresh.discard((u, v))
+        elif (u, v) in fresh:
+            edges[(u, v)] = min(edges[(u, v)], w)
+        else:
+            edges[(u, v)] = w
+            fresh.add((u, v))
+    keys = np.array(sorted(edges), dtype=np.int64).reshape(-1, 2)
+    w = np.array([edges[k] for k in map(tuple, keys.tolist())], np.float32)
+    out = sp.csr_matrix((w, (keys[:, 0], keys[:, 1])), shape=adj.shape)
+    out.sort_indices()
+    return out
+
+
+def plain_csr(adj):
+    """The (n, indptr, indices, weights) view the references read."""
+    import types
+    return types.SimpleNamespace(n=adj.shape[0], indptr=adj.indptr,
+                                 indices=adj.indices, weights=adj.data)
+
+
+def references(csr, handles):
+    """Each job's plain answer on `csr`: Dijkstra for SSSP, the float64
+    power iteration for PageRank/PPR."""
+    sources = [h.alg.source for h in handles if h.alg.semiring == "min_plus"]
+    dist = iter(sssp_ref(csr, sources).astype(np.float32))
+    return [next(dist) if h.alg.semiring == "min_plus"
+            else pagerank_ref(csr, h.alg.damping, getattr(h.alg, "source",
+                                                          None))
+            for h in handles]
+
+
+def new_pairs(sess, grp, rows, per_row, reach):
+    """Inserts (u, v) on block pairs that own no tile slot in `grp`: for
+    each source block of `rows`, `per_row` edges from its first vertex
+    `reach` marks (finite SSSP distance) to distinct destination blocks
+    outside its ELL row, none an existing edge."""
+    ids = grp.graph.nbr_ids.cpu().numpy()
+    msk = grp.graph.nbr_mask.cpu().numpy()
+    n, bn = sess._csr.n, grp.graph.num_blocks
+    src, dst = [], []
+    for b in rows:
+        lanes = [u for u in range(b * BLOCK, min(n, (b + 1) * BLOCK))
+                 if reach[u]]
+        if not lanes:
+            raise RuntimeError(f"block {b} has no reachable vertex")
+        u = lanes[0]
+        taken = set(ids[b][msk[b]].tolist())
+        free = [db for db in range(bn) if db not in taken]
+        picked = 0
+        for db in free:
+            v = db * BLOCK + (u % BLOCK)
+            if v < n and v != u and sess._csr.edge_weight(u, v) is None:
+                src.append(u)
+                dst.append(v)
+                picked += 1
+                if picked == per_row:
+                    break
+        if picked < per_row:
+            raise RuntimeError(f"block {b}: {picked} of {per_row} pairs")
+    return src, dst
+
+
+def stream_phase(torch, sess, handles, csr, fk):
+    """Phase 6: the evolving-graph path at full size on the session of
+    phases 3-5.  The jobs converge on the generated graph, then take
+    `mutation_stream` batches (Fused after batches 1 and 3, TwoLevel
+    after 2 and 4), a hand-built batch of inserts on block pairs without
+    a tile slot (the overlay and the kernel route's ride-along, under
+    Fused) and a batch that overflows one block row's overlay (compaction,
+    under TwoLevel); then an explicit compact().  Each rerun is held to
+    the phase 3 bars on the updated graph, and the session's CSR to a
+    plain application of the batches; after compaction each view's tiles
+    and pair view to a fresh build.  Returns the B1/B2 launch counts of
+    the reruns."""
+    from repro_torch.core import Fused, TwoLevel
+    from repro_torch.graph import (build_block_pairs, build_blocked,
+                                   mutation_stream)
+    from repro_torch.stream import UpdateBatch
+
+    groups = sess.view_groups()
+    handles = resubmit(torch, sess, handles)
+    m0 = sess.run(TwoLevel(), MAX_SUPERSTEPS)
+    if not m0.converged:
+        raise RuntimeError("phase 6: no convergence before the stream")
+    adj = plain_adjacency(csr)
+    t0 = time.perf_counter()
+    batches = mutation_stream(csr, STREAM_BATCHES,
+                              inserts_per_batch=STREAM_INSERTS,
+                              deletes_per_batch=STREAM_DELETES,
+                              seed=STREAM_SEED)
+    log(f"stream: mutation_stream({STREAM_BATCHES} batches of "
+        f"{STREAM_INSERTS} inserts + {STREAM_DELETES} deletes, seed "
+        f"{STREAM_SEED}) generated in {time.perf_counter() - t0:.2f} s")
+    totals = {sr: 0 for sr in SEMIRINGS}
+    peak = [0]
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+
+    def peak_of(fn):
+        """fn()'s result and the device memory peak while it ran, in GB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        got = torch.cuda.max_memory_allocated()
+        peak[0] = max(peak[0], got)
+        return out, got / 1e9
+
+    def step(label, batch, policy):
+        nonlocal adj
+        t0 = time.perf_counter()
+        st, apply_gb = peak_of(lambda: sess.apply_updates(batch))
+        apply_s = time.perf_counter() - t0
+        adj = plain_update(adj, batch)
+        for f, want in (("indptr", adj.indptr), ("indices", adj.indices),
+                        ("weights", adj.data)):
+            if not np.array_equal(getattr(sess._csr, f), want):
+                raise RuntimeError(f"{label}: the session's CSR {f} differs "
+                                   f"from the plain application")
+        live = sum(int(g.overlay.mask.sum()) for g in groups)
+        t0 = time.perf_counter()
+        for g in groups:
+            sess._pair_data(g)
+        torch.cuda.synchronize()
+        pairs_s = time.perf_counter() - t0
+        m, wall, launches, run_peak = drive(torch, sess, policy, fk)
+        peak[0] = max(peak[0], run_peak)
+        for sr in totals:
+            totals[sr] += launches[sr]
+        log(f"{label} ({policy.name}, backend={policy.backend}): "
+            f"apply_updates {apply_s:.3f} s; updates {st.updates_applied}, "
+            f"dirty_blocks {st.dirty_blocks}, reseed_fraction "
+            f"{st.reseed_fraction:.6f}, compacted_views "
+            f"{st.compacted_views}; overlay entries live {live}, pair view "
+            f"rebuilt in {pairs_s:.3f} s; rerun wall {wall:.3f} s, "
+            f"supersteps {m.supersteps}, tile_loads {m.tile_loads}, "
+            f"tile_pair_loads {m.tile_pair_loads}, host_syncs "
+            f"{m.host_syncs}, launches {launches}; updates_applied "
+            f"{m.updates_applied}, dirty_blocks {m.dirty_blocks} in "
+            f"RunMetrics; device memory peak {apply_gb:.2f} GB in "
+            f"apply_updates, {run_peak / 1e9:.2f} GB in the rerun")
+        if not m.converged:
+            raise RuntimeError(f"{label}: no convergence in "
+                               f"{MAX_SUPERSTEPS} supersteps")
+        if (m.updates_applied, m.dirty_blocks) != (st.updates_applied,
+                                                   st.dirty_blocks):
+            raise RuntimeError(f"{label}: RunMetrics did not drain the "
+                               f"stream counters")
+        check_results(sess, handles, plain_csr(adj),
+                      references(plain_csr(adj), handles), label)
+        return st, live
+
+    for i, b in enumerate(batches):
+        step(f"stream batch {i + 1}/{len(batches)}", b,
+             Fused() if i % 2 == 0 else TwoLevel())
+
+    # inserts on block pairs without a tile slot: they land in the overlay
+    reach = np.isfinite(sess.result(handles[-2]))
+    bn = groups[0].graph.num_blocks
+    src, dst = new_pairs(sess, groups[0], range(7, bn, bn // 8), 1, reach)
+    _, live = step("stream overlay batch", UpdateBatch.inserts(src, dst),
+                   Fused())
+    if live == 0:
+        raise RuntimeError("the overlay batch left no live overlay entry")
+
+    # more new pairs in one block row than its overlay holds: compaction
+    counts = groups[0].graph.nbr_mask.sum(dim=1).cpu().numpy()
+    row = int(np.argmin(counts))
+    src, dst = new_pairs(sess, groups[0], [row],
+                         sess.overlay_capacity + 1,
+                         np.ones(sess._csr.n, dtype=bool))
+    st, _ = step(f"stream overflow batch (block row {row})",
+                 UpdateBatch.inserts(src, dst), TwoLevel())
+    if st.compacted_views != len(groups):
+        raise RuntimeError(f"overflow batch compacted {st.compacted_views} "
+                           f"of {len(groups)} views")
+    t0 = time.perf_counter()
+    _, compact_gb = peak_of(sess.compact)
+    compact_s = time.perf_counter() - t0
+
+    def same_as_fresh(g):
+        _, fill, normalize, _ = g.key
+        fresh = build_blocked(sess._csr, BLOCK, fill=fill,
+                              normalize=normalize, device=sess.device)
+        bp, fb = sess._pair_data(g), build_block_pairs(fresh)
+        for f in ("tiles", "nbr_ids", "nbr_mask"):
+            if not torch.equal(getattr(g.graph, f), getattr(fresh, f)):
+                raise RuntimeError(f"compacted {g.semiring} view: {f} "
+                                   f"differs from a fresh build")
+        for f in ("src", "dst", "tiles", "run_start", "chunk_start",
+                  "chunk_run"):
+            if not torch.equal(getattr(bp, f), getattr(fb, f)):
+                raise RuntimeError(f"compacted {g.semiring} view: pairs "
+                                   f"{f} differ from a fresh build")
+
+    check_gb = []
+    for g in groups:
+        check_gb.append(peak_of(lambda: same_as_fresh(g))[1])
+        torch.cuda.empty_cache()
+    log(f"stream: compact() of {len(groups)} views {compact_s:.3f} s "
+        f"(device memory peak {compact_gb:.2f} GB); tiles, nbr_ids, "
+        f"nbr_mask and pairs (src, dst, tiles, run_start, chunk_start, "
+        f"chunk_run) bit-equal to a fresh build of the final CSR "
+        f"({sess._csr.nnz} edges) on the card (peak "
+        f"{', '.join(f'{x:.2f}' for x in check_gb)} GB while checking)")
+    log(f"stream: peak device memory {peak[0] / 1e9:.2f} GB "
+        f"({100.0 * peak[0] / total_mem:.1f}% of {total_mem / 1e9:.1f} GB)"
+        f"; launches over the reruns {totals}")
+    for sr, n in totals.items():
+        if n <= 0:
+            raise RuntimeError(f"stream: kernel {sr} was not launched")
+    return handles, totals
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -1007,6 +1265,8 @@ def main() -> int:
             f"{gr.tiles.numel() * 4 / 1e9:.2f} GB, pair tiles "
             f"{bp.tiles.numel() * 4 / 1e9:.2f} GB; pairs built in "
             f"{time.perf_counter() - t0:.2f} s")
+    # phase 6 replaces both: holding them would keep a stale view alive
+    del bp, gr
 
     # -- phase 2: kernels against their plain versions ---------------------
     timer = Timer(torch)
@@ -1055,15 +1315,20 @@ def main() -> int:
         handles = traced_rerun(torch, sess, handles, TwoLevel())
         handles = traced_rerun(torch, sess, handles, Fused())
 
+    # -- phase 6: evolving graphs -------------------------------------------
+    handles, stream_launches = stream_phase(torch, sess, handles, csr, fk)
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
         kernels.append({
             "name": f"fused_superstep_{sr}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES[sr],
-            "launches": launches[sr] + dev_launches[sr],
+            "launches": (launches[sr] + dev_launches[sr]
+                         + stream_launches[sr]),
             "launches_by_path": {"host_two_level": launches[sr],
-                                 "device_fused": dev_launches[sr]},
+                                 "device_fused": dev_launches[sr],
+                                 "stream": stream_launches[sr]},
             "max_abs_err": max([f["max_abs_err"]] + [
                 x["max_abs_err"] for x in sel_figures[sr]]),
             "ms": f["ms"], "kernel_ms": f["ms"], "device_ms": f["ms"],

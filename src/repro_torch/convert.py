@@ -1,23 +1,26 @@
 """Carry a reference run's graph and job state into the port.
 
 This system has no weights; what a run carries is its graph and the
-mid-run job state.  These functions take the reference's fields as numpy
-arrays (from `repro.graph.CSRGraph`, `BlockedGraph`, `BlockPairs` and a
-`repro.core.GraphSession` view group) and build the port's objects on a
-device, so a run begun in the reference can continue in the port.
+mid-run job state, and on an evolving graph the view's live-update
+overlay and its host mirrors.  These functions take the reference's
+fields as numpy arrays (from `repro.graph.CSRGraph`, `BlockedGraph`,
+`BlockPairs`, `TileOverlay` and a `repro.core.GraphSession` view group)
+and build the port's objects on a device, so a run begun in the
+reference can continue in the port, mid-stream included.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.session import GraphSession, ViewGroup
 from repro_torch.graph.structure import (BlockedGraph, BlockPairs, CSRGraph,
-                                         chunk_table, run_starts)
+                                         TileOverlay, chunk_table, run_starts)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.stream.apply import _ensure_mirrors
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -100,4 +103,50 @@ def load_group_state(sess: GraphSession, view_key: tuple, values, deltas,
     grp.active = active.copy()
     if rng_state is not None:
         sess.scheduler.rng.bit_generator.state = rng_state
+    return grp
+
+
+def load_overlay(sess: GraphSession, view_key: tuple, capacity: int, src_u,
+                 dst, w, mask, ov_used=None,
+                 ov_entry: Optional[Dict[Tuple[int, int],
+                                         Tuple[int, int]]] = None, *,
+                 graph: Optional[BlockedGraph] = None) -> ViewGroup:
+    """Install a reference view group's live-update state into `sess`.
+
+    src_u/dst/w/mask [B_N, capacity] are the reference's `TileOverlay`
+    arrays; `ov_used` [B_N, capacity] bool and `ov_entry` {(u, v):
+    (block, col)} its group's host mirrors (None where the reference has
+    not built them yet).  `graph` (from `blocked_from_arrays`) replaces
+    the group's BlockedGraph when the reference's tiles were edited by
+    earlier batches.  The group's (src block, dst block) -> slot mirror
+    is rebuilt from its graph and its pair view dropped, so the next run
+    rebuilds it.  The group for `view_key` must already exist."""
+    grp = sess.groups.get(tuple(view_key))
+    if grp is None:
+        raise KeyError(f"no view group {view_key!r}: submit its jobs first")
+    if graph is not None:
+        grp.graph = graph
+    bn = grp.graph.num_blocks
+    capacity = int(capacity)
+    dev = sess.device
+    arrays = [np.asarray(a) for a in (src_u, dst, w, mask)]
+    for a in arrays:
+        if a.shape != (bn, capacity):
+            raise ValueError(f"overlay array {a.shape} != {(bn, capacity)}")
+    grp.overlay = TileOverlay(
+        capacity=capacity,
+        src_u=_tensor(arrays[0], np.int32, dev),
+        dst=_tensor(arrays[1], np.int32, dev),
+        w=_tensor(arrays[2], np.float32, dev),
+        mask=_tensor(arrays[3], np.float32, dev))
+    grp.pairs = None
+    grp.pair_slot = grp.ov_used = grp.ov_entry = None
+    if ov_used is not None:
+        _ensure_mirrors(grp)
+        used = np.array(ov_used, dtype=bool)
+        if used.shape != (bn, capacity):
+            raise ValueError(f"ov_used {used.shape} != {(bn, capacity)}")
+        grp.ov_used = used
+        grp.ov_entry = {(int(u), int(v)): (int(b), int(c))
+                        for (u, v), (b, c) in (ov_entry or {}).items()}
     return grp

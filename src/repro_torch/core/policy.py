@@ -78,9 +78,11 @@ class RunMetrics:
     iterations_per_job: Optional[np.ndarray] = None
     converged: bool = False
     wall_time_s: float = 0.0       # driver wall time of this run()
-    updates_applied: int = 0       # live-update counters (0 until ported)
-    dirty_blocks: int = 0
-    reseed_fraction: float = 0.0
+    # evolving-graph counters (repro_torch.stream), drained from the
+    # session's apply_updates() calls since the previous run()
+    updates_applied: int = 0       # edge insert/delete ops absorbed
+    dirty_blocks: int = 0          # blocks marked update-affected
+    reseed_fraction: float = 0.0   # re-seeded share of active job state
     telemetry: Optional[object] = None
 
     def to_dict(self) -> dict:
@@ -204,6 +206,11 @@ def _run_host(policy: SchedulePolicy, sess,
     # run (no job can arrive mid-run), so its read is skipped outright
     done = [None] * len(groups)
     bn = sess.scheduler.num_blocks
+    trace = sess.trace if sess.trace.enabled else None
+    # dirty-block priority injection (repro_torch.stream): update-affected
+    # blocks enter every job's DO queue boosted on the FIRST superstep
+    # after apply_updates, only where the job has pending work there
+    boost = sess._consume_dirty_boost()
 
     def _mark_done(gi):
         g = groups[gi]
@@ -212,6 +219,7 @@ def _run_host(policy: SchedulePolicy, sess,
                     if policy.needs_pairs else None)
 
     for _ in range(max_supersteps):
+        t_step = trace.now_us() if trace else 0.0
         actives = []
         node_un = []
         p_mean = [] if policy.needs_pairs else None
@@ -227,6 +235,8 @@ def _run_host(policy: SchedulePolicy, sess,
             if policy.needs_pairs:
                 nu, pm = _read_pairs(*compute_pairs(g.alg, g.values,
                                                     g.deltas))
+                if boost is not None:
+                    pm = pm + boost[None, :] * (nu > 0)
                 node_un.append(nu)
                 p_mean.append(pm)
                 actives.append(prio.counts_from_pairs(nu) > 0)
@@ -242,6 +252,7 @@ def _run_host(policy: SchedulePolicy, sess,
         if not any(a.any() for a in actives):
             m.converged = True
             break
+        boost = None
         selection = policy.select(sess, node_un if policy.needs_pairs
                                   else None, p_mean, actives)
         if selection is None:
@@ -280,6 +291,10 @@ def _run_host(policy: SchedulePolicy, sess,
         m.supersteps += 1
         m.tile_loads += int(selection.tile_loads)
         m.job_block_pushes += int(selection.job_block_pushes)
+        if trace:
+            trace.complete("superstep", t_step, trace.now_us() - t_step,
+                           cat="superstep", tid=2, step=m.supersteps - 1,
+                           tile_loads=int(selection.tile_loads))
     return m
 
 
@@ -446,12 +461,18 @@ def _run_device(policy: SchedulePolicy, sess,
     state, *args = device_inputs(sess)
     budget = int(min(max_supersteps, np.iinfo(np.int32).max))
     seed, pos = sess.seed, sess.scheduler._step
+    trace = sess.trace if sess.trace.enabled else None
     m = RunMetrics()
     while True:
+        t_chunk = trace.now_us() if trace else 0.0
         state, un = step_fn(state, *args, budget, seed, pos)
         # the ONE host read of the chunk: (it, unconverged_total) together
         it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
         m.host_syncs += 1
+        if trace:
+            trace.complete("device_chunk", t_chunk,
+                           trace.now_us() - t_chunk, cat="superstep", tid=2,
+                           sync=m.host_syncs - 1, supersteps_done=it_h)
         if un_h == 0 or it_h >= budget:
             break
     sess.scheduler._step += it_h

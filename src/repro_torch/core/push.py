@@ -11,9 +11,16 @@ Scatters drop out-of-range destination ids, as the reference's
 ``mode="drop"`` scatters do: an out-of-range id is sent to a sink row
 that is appended and dropped (no host sync, unlike boolean masking).
 
-Every push takes the live-update overlay as its trailing argument.  The
-port carries only the capacity-0 overlay of a never-updated view, which
-is an exact no-op; a non-empty overlay raises (ROADMAP A8).
+Evolving graphs (`repro_torch.stream`) stage a bounded per-block
+delta-COO overlay alongside each tile (`graph.structure.TileOverlay`): a
+push of block b consumes b's pending deltas through the base tile AND
+through b's overlay edges in the same staging.  Every push takes the
+overlay as its trailing argument; the capacity-0 overlay of a
+never-updated view is skipped.  The overlay ride-along is plain PyTorch
+on every route (the kernel route runs it around the fused kernel, on the
+deltas as they were before the kernel consumed them).  Its scatters sum
+(`index_add`) and min (`scatter_reduce` "amin") repeated destinations,
+as the reference's `.at[].add` / `.at[].min` do.
 """
 
 from __future__ import annotations
@@ -37,36 +44,94 @@ INF = float("inf")
 _block_mask = fused_ops.block_mask
 
 
-def _no_overlay(ov) -> None:
-    if ov is not None and ov.capacity:
-        raise NotImplementedError(
-            "a non-empty TileOverlay (live graph updates) is not ported "
-            "yet: ROADMAP A8, evolving graphs")
+def _rides(ov) -> bool:
+    """True when `ov` holds overlay slots the push must consume."""
+    return ov is not None and ov.capacity > 0
+
+
+def _overlay_rows(ov: TileOverlay, sel_ids: torch.Tensor):
+    """Gather the overlay rows of the selected blocks: [q, C] each."""
+    s = sel_ids.long()
+    return ov.src_u[s].long(), ov.dst[s].long(), ov.w[s], ov.mask[s]
+
+
+def _pick_sources(d_sel: torch.Tensor, src_u: torch.Tensor) -> torch.Tensor:
+    """d_sel [J, q, Vb] at each overlay entry's source lane -> [J, q, C]
+    (the reference's d_sel[arange(q)[:, None], src_u])."""
+    j = d_sel.shape[0]
+    return torch.gather(d_sel, 2, src_u[None].expand(j, -1, -1))
 
 
 def overlay_push_plus(deltas: torch.Tensor, d_sel: torch.Tensor,
                       ov: TileOverlay, sel_ids: torch.Tensor) -> torch.Tensor:
-    """Scatter the selected blocks' overlay contributions into `deltas`
-    (capacity 0: an exact no-op)."""
+    """Scatter the selected blocks' overlay contributions into `deltas`.
+
+    deltas [B_N, Vb] with d_sel [q, Vb] (one job, the reference's
+    signature) or deltas [J, B_N, Vb] with d_sel [J, q, Vb].  d_sel must
+    be the SAME consumed-and-scaled deltas the base tile push used
+    (pre-consumption values), so an overlay edge pushes exactly once per
+    staging, in lockstep with the tile.  Repeated destinations sum."""
     if ov.capacity == 0:
         return deltas
-    _no_overlay(ov)
+    if deltas.dim() == 2:
+        return overlay_push_plus(deltas[None], d_sel[None], ov, sel_ids)[0]
+    src_u, dst, w, mask = _overlay_rows(ov, sel_ids)          # [q, C]
+    j = deltas.shape[0]
+    contrib = _pick_sources(d_sel, src_u) * w * mask          # [J, q, C]
+    flat = deltas.reshape(j, -1).index_add(1, dst.reshape(-1),
+                                           contrib.reshape(j, -1))
+    return flat.reshape(deltas.shape)
 
 
 def overlay_push_min(values: torch.Tensor, deltas: torch.Tensor,
                      d_sel: torch.Tensor, ov: TileOverlay,
                      sel_ids: torch.Tensor):
-    """Min-plus analogue of `overlay_push_plus`."""
+    """Min-plus analogue: relax the selected blocks' overlay edges.
+
+    Shapes as in `overlay_push_plus`.  d_sel is the consumed pending
+    distance of the selected blocks (inf where nothing pends / the slot
+    is padded).  Every destination's old value is read before the min and
+    its new value after it, so repeated destinations see the same
+    old/new pair the reference's gather-min-gather does."""
     if ov.capacity == 0:
         return values, deltas
-    _no_overlay(ov)
+    if values.dim() == 2:
+        v, d = overlay_push_min(values[None], deltas[None], d_sel[None], ov,
+                                sel_ids)
+        return v[0], d[0]
+    src_u, dst, w, mask = _overlay_rows(ov, sel_ids)          # [q, C]
+    j = values.shape[0]
+    cand = torch.where(mask > 0, _pick_sources(d_sel, src_u) + w,
+                       INF).reshape(j, -1)
+    idx = dst.reshape(-1)
+    ix = idx[None].expand(j, -1)
+    v_flat, d_flat = values.reshape(j, -1), deltas.reshape(j, -1)
+    old = v_flat[:, idx]
+    v_flat = v_flat.scatter_reduce(1, ix, cand, reduce="amin",
+                                   include_self=True)
+    new = v_flat[:, idx]
+    d_flat = d_flat.scatter_reduce(1, ix, torch.where(new < old, new, INF),
+                                   reduce="amin", include_self=True)
+    return v_flat.reshape(values.shape), d_flat.reshape(deltas.shape)
+
+
+def _overlay_d_sel(semiring: str, deltas, sel, msk, scales):
+    """[J, q, Vb] the selected blocks' deltas as the overlay ride-along
+    reads them, gathered BEFORE a push consumes them: plus-times scaled
+    and slot-masked, min-plus inf where the slot is off."""
+    consumed = _block_mask(sel, msk, deltas.shape[1])[None, :, None]
+    s = sel.long()
+    if semiring == "plus_times":
+        raw = torch.where(consumed, deltas, 0.0)
+        return raw[:, s] * scales[:, None, None] * msk[None, :, None]
+    d_sel = torch.where(consumed, deltas, INF)[:, s]
+    return torch.where(msk[None, :, None] > 0, d_sel, INF)
 
 
 def _push_plus_jobs(values, deltas, tiles, nbr_ids, sel, msk, scales,
                     overlay):
     """PLUS_TIMES push of every job [J, B_N, Vb] over ONE shared [q]
-    selection through the block-ELL tiles."""
-    _no_overlay(overlay)
+    selection through the block-ELL tiles, then the overlay ride-along."""
     j, bn, vb = values.shape
     consumed = _block_mask(sel, msk, bn)[None, :, None]
     raw = torch.where(consumed, deltas, 0.0)
@@ -79,13 +144,15 @@ def _push_plus_jobs(values, deltas, tiles, nbr_ids, sel, msk, scales,
     deltas = deltas - raw
     dst = nbr_ids[sel].reshape(-1)                           # [q*K]
     deltas = scatter_add_drop(deltas, dst, contrib.reshape(j, -1, vb))
+    if _rides(overlay):
+        deltas = overlay_push_plus(deltas, d_sel, overlay, sel)
     return values, deltas
 
 
 def _push_min_jobs(values, deltas, tiles, nbr_ids, sel, msk, overlay):
     """MIN_PLUS push of every job [J, B_N, Vb] over ONE shared [q]
-    selection: a loop over the K ELL slots (the reference's lax.scan)."""
-    _no_overlay(overlay)
+    selection: a loop over the K ELL slots (the reference's lax.scan),
+    then the overlay ride-along."""
     j, bn, vb = values.shape
     consumed = _block_mask(sel, msk, bn)[None, :, None]
     sel = sel.long()
@@ -108,7 +175,11 @@ def _push_min_jobs(values, deltas, tiles, nbr_ids, sel, msk, overlay):
         new = v[:, idx]
         dl.scatter_reduce_(1, ix, torch.where(new < old, new, INF),
                            reduce="amin")
-    return v[:, :bn], dl[:, :bn]
+    values, deltas = v[:, :bn], dl[:, :bn]
+    if _rides(overlay):
+        values, deltas = overlay_push_min(values, deltas, d_sel, overlay,
+                                          sel)
+    return values, deltas
 
 
 def push_plus_one(values: torch.Tensor, deltas: torch.Tensor,
@@ -175,9 +246,20 @@ def shared_push_fn(semiring: str, push_one, use_pallas: bool):
             if pairs is None:
                 return ell(values, deltas, tiles, nbr_ids, sel, msk, scales,
                            overlay)
-            _no_overlay(overlay)
-            return fused_ops.fused_push(values, deltas, pairs, sel, msk,
-                                        scales, semiring=semiring, gate=gate)
+            # the overlay must see the PRE-consumption deltas, gathered
+            # before the kernel consumes them
+            ride = _rides(overlay)
+            if ride:
+                d_sel = _overlay_d_sel(semiring, deltas, sel, msk, scales)
+            values, deltas = fused_ops.fused_push(
+                values, deltas, pairs, sel, msk, scales, semiring=semiring,
+                gate=gate)
+            if ride and semiring == "plus_times":
+                deltas = overlay_push_plus(deltas, d_sel, overlay, sel)
+            elif ride:
+                values, deltas = overlay_push_min(values, deltas, d_sel,
+                                                  overlay, sel)
+            return values, deltas
 
         return fn
 
@@ -194,7 +276,6 @@ def shared_push_fn(semiring: str, push_one, use_pallas: bool):
         if pairs is None:
             return ell(values, deltas, tiles, nbr_ids, sel, msk, scales,
                        overlay)
-        _no_overlay(overlay)
         bn = values.shape[1]
         selb = _block_mask(sel, msk, bn)[None, :, None]
         raw = torch.where(selb, deltas, 0.0)
@@ -202,7 +283,11 @@ def shared_push_fn(semiring: str, push_one, use_pallas: bool):
         base = deltas - raw
         contrib = torch.einsum("jpv,pvw->jpw", d[:, pairs.src.long(), :],
                                pairs.tiles)
-        return values + raw, scatter_add_drop(base, pairs.dst, contrib)
+        deltas = scatter_add_drop(base, pairs.dst, contrib)
+        if _rides(overlay):
+            d_sel = d[:, sel.long(), :] * msk[None, :, None]   # [J, q, Vb]
+            deltas = overlay_push_plus(deltas, d_sel, overlay, sel)
+        return values + raw, deltas
 
     return fn
 

@@ -6,6 +6,8 @@
   converged(handle)            per-job convergence test
   result(handle)               per-job result extraction
   detach(handle)               release the job's slot for reuse
+  apply_updates(batch)         absorb live edge updates (repro_torch.stream)
+  compact()                    rebuild every view from the updated CSR
 
 Sessions are HETEROGENEOUS: jobs of both semiring families coexist over
 one shared CSR.  The session keeps a registry of ViewGroups, one per
@@ -28,7 +30,7 @@ the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +46,7 @@ from repro_torch.graph.structure import (BlockedGraph, BlockPairs, CSRGraph,
                                          TileOverlay, build_block_pairs,
                                          build_blocked, empty_overlay)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs.trace import TraceRecorder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +80,16 @@ class ViewGroup:
     algs: List[Optional[Algorithm]]
     active: np.ndarray         # [cap] bool
     gens: List[int]
+    # evolving-graph state (repro_torch.stream): the bounded per-block
+    # delta-COO staged alongside the tiles (capacity 0 until the first
+    # structural insert), plus host mirrors of the blocked structure that
+    # apply_updates needs to classify edits, built lazily on first use
     overlay: Optional[TileOverlay] = None
-    # destination-sorted pair view of `graph`, built lazily
+    pair_slot: Optional[Dict[Tuple[int, int], int]] = None
+    ov_used: Optional[np.ndarray] = None   # [B_N, C] bool
+    ov_entry: Optional[Dict[Tuple[int, int], Tuple[int, int]]] = None
+    # destination-sorted pair view of `graph`, built lazily and dropped
+    # to None whenever the tiles change (stream edits, compaction)
     pairs: Optional[BlockPairs] = None
 
     @property
@@ -92,6 +103,12 @@ class ViewGroup:
     @property
     def num_active(self) -> int:
         return int(self.active.sum())
+
+
+def _no_stream_counts() -> dict:
+    """The stream counters a session accumulates between runs."""
+    return {"updates_applied": 0, "dirty_blocks": 0, "reseed_num": 0,
+            "reseed_den": 0}
 
 
 def _inert_state(semiring: str, g: BlockedGraph, n: int):
@@ -115,6 +132,12 @@ class GraphSession:
                 "telemetry is not ported yet (ROADMAP A9, observability)")
         self.device = resolve_device(device)
         self._csr = csr
+        self.telemetry = None
+        # trace events (submit/detach, supersteps, apply_updates,
+        # compactions) record only with telemetry on, as in the
+        # reference; telemetry is not ported yet (ROADMAP A9)
+        self.trace = TraceRecorder(enabled=False)
+        self.trace.name_thread(2, "supersteps")
         self.block_size = block_size
         self._capacity0 = max(1, int(capacity))   # initial per-view capacity
         self.c = c
@@ -124,8 +147,10 @@ class GraphSession:
         # the fused kernel on CUDA; the plain pair sweep on the CPU
         self.use_pallas = (self.device.type == "cuda" if use_pallas is None
                            else bool(use_pallas))
+        # evolving graphs: per-block delta-COO budget a view grows to on
+        # its first structural insert; a full block row triggers
+        # compaction (BlockedGraph rebuilt from the updated CSR)
         self.overlay_capacity = max(1, int(overlay_capacity))
-        self.telemetry = None
         # view registry, insertion-ordered (the order defines the
         # concatenated job-metric layout, see job_index)
         self.groups: Dict[tuple, ViewGroup] = {}
@@ -133,9 +158,9 @@ class GraphSession:
         self.q = 0
         # device-backend step functions, keyed on what shapes the program
         self._jit_cache: Dict[tuple, Callable] = {}
-        # [B_N] pending priority injection for update-affected blocks;
-        # always None until live graph updates are ported (ROADMAP A8)
+        # [B_N] pending priority injection for update-affected blocks
         self._dirty_boost: Optional[np.ndarray] = None
+        self._stream_pending = _no_stream_counts()
 
     # alpha/samples/seed live canonically on the scheduler once it exists
 
@@ -314,6 +339,8 @@ class GraphSession:
         grp.push_scale[slot] = alg.get_push_scale()
         grp.algs[slot] = alg
         grp.active[slot] = True
+        self.trace.instant("submit", cat="job", alg=type(alg).__name__,
+                           view=str(grp.key), slot=slot)
         return JobHandle(slot=slot, gen=grp.gens[slot], alg=alg, view=grp.key)
 
     def _handle_group(self, handle: JobHandle) -> ViewGroup:
@@ -373,13 +400,57 @@ class GraphSession:
         grp.algs[slot] = None
         grp.active[slot] = False
         grp.gens[slot] += 1
+        self.trace.instant("detach", cat="job",
+                           alg=type(handle.alg).__name__,
+                           view=str(grp.key), slot=slot)
         return res
+
+    # -- evolving graphs (repro_torch.stream) --------------------------------
+
+    def apply_updates(self, batch):
+        """Apply a live edge insert/delete/reweight batch while jobs run.
+
+        The shared CSR is the source of truth: the batch updates it
+        exactly, then every view group absorbs the change — in-place tile
+        edits for block pairs that own a tile slot, the bounded per-block
+        delta-COO overlay for structurally-new pairs (a full overlay row
+        compacts the view: BlockedGraph rebuilt from the updated CSR,
+        bit-identical to a from-scratch build) — and every job's state is
+        invalidated just enough to converge to the NEW graph's fixpoint.
+        Affected blocks are injected as priority boosts into the next
+        run()'s first superstep.  Callable between run()/step() calls;
+        returns this batch's `stream.StreamStats` (the counters also
+        drain into the next run()'s RunMetrics)."""
+        from repro_torch.stream.apply import apply_updates_to_session
+        return apply_updates_to_session(self, batch)
+
+    def compact(self) -> None:
+        """Force compaction of every view: rebuild each BlockedGraph from
+        the updated CSR (bit-identical to a from-scratch build) and empty
+        the overlays.  Happens automatically when an overlay row fills."""
+        from repro_torch.stream.apply import compact_group
+        if self._csr is None:
+            raise ValueError(
+                "compact needs the session-owned CSRGraph (sessions "
+                "adopted from a legacy ConcurrentRun have none)")
+        for grp in self.view_groups():
+            compact_group(self, grp)
 
     def _consume_dirty_boost(self) -> Optional[np.ndarray]:
         """[B_N] pending priority injection for update-affected blocks, or
         None; consumed by the first superstep of the next run."""
         boost, self._dirty_boost = self._dirty_boost, None
         return boost
+
+    def _drain_stream_stats(self, metrics: RunMetrics) -> None:
+        """Move the stream counters accumulated since the last run into
+        `metrics` and reset them."""
+        p = self._stream_pending
+        metrics.updates_applied = p["updates_applied"]
+        metrics.dirty_blocks = p["dirty_blocks"]
+        metrics.reseed_fraction = (p["reseed_num"] / p["reseed_den"]
+                                   if p["reseed_den"] else 0.0)
+        self._stream_pending = _no_stream_counts()
 
     def _device_step_fn(self, policy):
         """The device-backend chunk function for `policy`, cached on the
@@ -427,7 +498,16 @@ class GraphSession:
         if not self.groups:
             raise ValueError("no jobs submitted yet")
         policy = TwoLevel() if policy is None else policy
-        return policy.run(self, max_supersteps)
+        t_run = self.trace.now_us() if self.trace.enabled else 0.0
+        m = policy.run(self, max_supersteps)
+        self._drain_stream_stats(m)
+        if self.trace.enabled:
+            self.trace.complete("run", t_run, self.trace.now_us() - t_run,
+                                cat="run", policy=policy.name, **m.to_dict())
+            if m.converged:
+                self.trace.instant("converged", cat="run",
+                                   supersteps=int(m.supersteps))
+        return m
 
     def step(self, policy: Optional[SchedulePolicy] = None) -> RunMetrics:
         """A single superstep under `policy`."""

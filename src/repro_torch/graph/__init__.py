@@ -3,7 +3,8 @@ from repro_torch.graph.structure import (CSRGraph, BlockedGraph, BlockPairs,
                                          build_block_pairs, chunk_table,
                                          empty_overlay, run_starts)
 from repro_torch.graph.generators import (rmat_graph, uniform_graph,
-                                          chain_graph, grid_graph)
+                                          chain_graph, grid_graph,
+                                          mutation_stream)
 
 __all__ = [
     "CSRGraph",
@@ -19,4 +20,5 @@ __all__ = [
     "uniform_graph",
     "chain_graph",
     "grid_graph",
+    "mutation_stream",
 ]

@@ -282,14 +282,28 @@ def build_block_pairs(g: BlockedGraph, *,
 
 @dataclasses.dataclass
 class TileOverlay:
-    """Bounded per-block delta-COO staged alongside the base tiles (live
-    graph updates).  The port carries only the capacity-0 overlay of a
-    never-updated view so far; the push paths take it as their trailing
-    argument, as the reference's do.
+    """Bounded per-block delta-COO staged alongside the base tiles.
+
+    Evolving graphs mutate while jobs run (`repro_torch.stream`).  Most
+    edge updates edit the dense base tile in place (the (src block, dst
+    block) pair already owns a tile slot); an insert that creates a NEW
+    block pair has nowhere to land in the block-ELL layout, so it goes
+    into this overlay: for each source block, up to `capacity` explicit
+    COO edges, on the session's device.  A push of block b consumes b's
+    pending deltas through its tiles AND its overlay row (one
+    `tile_loads` unit: the overlay rides along).  When a block's overlay
+    row fills up, the owning view COMPACTS: the BlockedGraph is rebuilt
+    from the updated CSR (bit-identical to a from-scratch build) and the
+    overlay empties.
+
+    Entries with mask 0 are inert by construction (plus-times adds an
+    exact 0.0, min-plus mins an inf), and the capacity-0 overlay of a
+    never-updated view is skipped outright.
 
       src_u [B_N, C] int32   source vertex offset within the block
       dst   [B_N, C] int32   destination vertex, global padded index
-      w     [B_N, C] float32 edge weight in the view's weight space
+      w     [B_N, C] float32 edge weight in the VIEW's weight space
+                             (normalization already applied)
       mask  [B_N, C] float32 1.0 where the entry is a real edge
     """
 

@@ -239,16 +239,11 @@ def fused_superstep_call(src, dst, first, last, d, base, tiles, *,
         return result
     partial = torch.empty((n_chunks, j, vb), **kw)
     lib = _lib()
-    launch = lib.fs_plus_times if semiring == "plus_times" else lib.fs_min_plus
+    fn = lib.fs_plus_times if semiring == "plus_times" else lib.fs_min_plus
     ptrs = [t.data_ptr() for t in (src, dst, run_start, chunk_start,
                                    chunk_run)]
-    with torch.cuda.device(d.device):
-        rc = launch(*ptrs, n_chunks, *flags, arrivals.data_ptr(),
-                    partial.data_ptr(),
-                    *(t.data_ptr() for t in ins + result),
-                    *scalars, torch.cuda.current_stream(d.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_superstep {semiring} launch failed: "
-                           f"{lib.fs_error_string(rc).decode()}")
+    common.launch(fn, d.device, lib.fs_error_string, *ptrs, n_chunks,
+                  *flags, arrivals.data_ptr(), partial.data_ptr(),
+                  *(t.data_ptr() for t in ins + result), *scalars)
     launches[semiring] += 1
     return result

@@ -100,15 +100,10 @@ def mj_spmm_call(d_sel: torch.Tensor, tiles: torch.Tensor, *,
     if q * k > _MAX_GRID:
         raise ValueError(f"q*K={q * k} thread blocks exceed the grid limit")
     lib = _lib()
-    with torch.cuda.device(d_sel.device):
-        rc = lib.ms_mj_spmm(
-            d_sel.data_ptr(), tiles.data_ptr(),
-            None if tile_index is None else tile_index.data_ptr(),
-            out.data_ptr(), q, k, j, jb, num_tiles, vb,
-            int(semiring == "min_plus"),
-            torch.cuda.current_stream(d_sel.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"mj_spmm {semiring} launch failed: "
-                           f"{lib.ms_error_string(rc).decode()}")
+    common.launch(lib.ms_mj_spmm, d_sel.device, lib.ms_error_string,
+                  d_sel.data_ptr(), tiles.data_ptr(),
+                  None if tile_index is None else tile_index.data_ptr(),
+                  out.data_ptr(), q, k, j, jb, num_tiles, vb,
+                  int(semiring == "min_plus"))
     launches[semiring] += 1
     return out

@@ -8,6 +8,8 @@ sum order differs), plus-times at rtol = atol = 1e-5 with node_un exact.
 This file imports neither jax nor repro, so it runs where JAX is absent.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -661,3 +663,90 @@ def test_con_processing_on_the_card_goes_through_mj_spmm(cuda, semiring):
     else:
         np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
         np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+# --- evolving graphs: the overlay ride-along and compaction on the card -----
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_kernel_route_with_live_overlay_matches_cpu(cuda, semiring):
+    """The kernel route (B1/B2 plus the overlay ride-along on the deltas
+    gathered before the kernel consumes them) with a live overlay on the
+    card against the CPU's plain route on the same inputs: min-plus
+    bit-equal, plus-times at rtol 1e-5."""
+    from repro_torch.core.push import shared_push_fn
+    from repro_torch.graph import TileOverlay
+
+    vb, j, cap = 32, 4, 6
+    out = {}
+    for dev in ("cpu", cuda):
+        g, bp = _pairs(semiring, vb, dev)
+        bn = g.num_blocks
+        r = np.random.default_rng(29)
+        arrs = (r.integers(0, vb, (bn, cap)).astype(np.int32),
+                r.integers(0, 3 * vb, (bn, cap)).astype(np.int32),
+                r.uniform(0.5, 4.0, (bn, cap)).astype(np.float32),
+                (r.random((bn, cap)) < 0.7).astype(np.float32))
+        ov = TileOverlay(cap, *(torch.as_tensor(a, device=dev)
+                                for a in arrs))
+        vals = r.uniform(0.0, 9.0, (j, bn, vb)).astype(np.float32)
+        d = r.uniform(0.0, 1.0, (j, bn, vb)).astype(np.float32)
+        if semiring == "min_plus":
+            d[r.random(d.shape) < 0.5] = np.inf
+        sel = np.array([0, 3, 5, 7, 0], np.int32)
+        msk = np.array([1, 1, 1, 1, 0], np.float32)    # a padded slot
+        t = functools.partial(torch.as_tensor, device=dev)
+        fn = shared_push_fn(semiring, None, dev != "cpu")
+        fk.reset_launches()
+        v2, d2 = fn(t(vals), t(d), g.tiles, g.nbr_ids, t(sel), t(msk),
+                    t(np.array([0.85, 0.5, 1.0, 0.7], np.float32)), ov, bp)
+        if dev != "cpu":
+            assert fk.launches[semiring] == 1
+        out[str(dev)] = (v2.cpu().numpy(), d2.cpu().numpy())
+    (vc, dc), (vg, dg) = out["cpu"], out[str(cuda)]
+    if semiring == "min_plus":
+        np.testing.assert_array_equal(vg, vc)
+        np.testing.assert_array_equal(dg, dc)
+    else:
+        np.testing.assert_allclose(vg, vc, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(dg, dc, rtol=1e-5, atol=1e-6)
+
+
+def test_structural_batch_then_compaction_under_fused_on_the_card(cuda):
+    """A session on the card takes a structural batch (an overlay entry)
+    under Fused(), then compacts: its fixpoint equals a fresh CUDA session
+    on the final CSR (min-plus bit-equal, plus-times at rtol 1e-4) and
+    its tiles and pair view a fresh build."""
+    from repro_torch.algorithms import PageRank, SSSP
+    from repro_torch.core import Fused, GraphSession
+    from repro_torch.graph import chain_graph
+    from repro_torch.stream import UpdateBatch, apply_to_csr
+
+    csr = chain_graph(512)
+    b = UpdateBatch.concat([UpdateBatch.inserts([5, 70], [400, 300]),
+                            UpdateBatch.deletes([200], [201])])
+    sess = GraphSession(csr, 32, capacity=2, seed=0, overlay_capacity=4)
+    hs = [sess.submit(SSSP(source=0)), sess.submit(PageRank())]
+    assert sess.run(Fused(), 20000).converged
+    sess.apply_updates(b)
+    assert all(int(g.overlay.mask.sum()) == 2 for g in sess.view_groups())
+    fk.reset_launches()
+    assert sess.run(Fused(), 20000).converged
+    assert fk.launches["plus_times"] > 0 and fk.launches["min_plus"] > 0
+    sess.compact()
+    assert sess.run(Fused(), 20000).converged
+    final = apply_to_csr(csr, b)
+    fresh = GraphSession(final, 32, capacity=2, seed=0)
+    fh = [fresh.submit(SSSP(source=0)), fresh.submit(PageRank())]
+    assert fresh.run(Fused(), 20000).converged
+    np.testing.assert_array_equal(sess.result(hs[0]), fresh.result(fh[0]))
+    np.testing.assert_allclose(sess.result(hs[1]), fresh.result(fh[1]),
+                               rtol=1e-4, atol=1e-6)
+    for gs, gf in zip(sess.view_groups(), fresh.view_groups()):
+        assert gs.overlay.capacity == 0
+        for f in ("tiles", "nbr_ids", "nbr_mask"):
+            assert torch.equal(getattr(gs.graph, f), getattr(gf.graph, f))
+        ps, pf = sess._pair_data(gs), fresh._pair_data(gf)
+        for f in ("src", "dst", "tiles", "run_start", "chunk_start",
+                  "chunk_run"):
+            assert torch.equal(getattr(ps, f), getattr(pf, f)), f
