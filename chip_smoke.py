@@ -39,7 +39,18 @@ Phases (any failure exits non-zero before the last line is printed):
    results (ms per superstep, host_syncs and B1/B2 launches against K;
    the two passes show the drift of the host's speed within the run);
    then one chunk of the step function under
-   torch.cuda.set_sync_debug_mode("error").
+   torch.cuda.set_sync_debug_mode("error").  Then telemetry
+   (TelemetryConfig() on the same session, its own step-function entry):
+   Fused() and TwoLevel() rerun from the same start as their
+   telemetry-off runs must give the same supersteps, tile_loads,
+   tile_pair_loads, job_block_pushes and host_syncs and bit-identical
+   values and deltas, with series that sum to the totals; ms per
+   superstep on and off; two telemetry chunks, the second under
+   set_sync_debug_mode("error"), rows written in place; telemetry's
+   cost as medians over 20 interleaved off/on pairs of a Fused chunk's
+   host enqueue and of an 8-superstep TwoLevel() run, beside the torch
+   ops a Fused superstep dispatches.  The scheduler's stream is put back,
+   so phases 5-6 run as they would without telemetry.
 5. B3 and B4 at their entry points on the full-size views: mj_spmm
    (both semirings, J=4 and a prime J=7, q=400 distinct rows of the
    view's ELL tiles) against its plain version, timed beside
@@ -72,6 +83,28 @@ Phases (any failure exits non-zero before the last line is printed):
    supersteps, tile_loads, tile_pair_loads and host_syncs; then the
    phase's peak device memory.  B1/B2 launches over the reruns are the
    `stream` entry of `launches_by_path`.
+7. The serve front at full size, with the first session freed: the
+   open-loop harness (obs.loadgen: seeded Poisson arrivals with a burst
+   envelope, 64 tenants on the default family mix pagerank/ppr/sssp/bfs,
+   a mutation_stream batch of 8 inserts and 4 deletes every 80 ticks
+   forwarded to notify_group_update) admits requests through a
+   ConcurrentServeScheduler over 1024 request groups (one per block)
+   into GraphSession(rmat_graph(2**16, 8), 64, capacity=8,
+   telemetry=True), at most 8 running, 8 supersteps a tick; once under
+   TwoLevel() and once under TwoLevel(backend="device",
+   steps_per_sync=8), each on a fresh session whose three views are
+   built before the first tick.  Every SSSP/BFS result is held bit-equal
+   to scipy's Dijkstra/BFS on the CSR it finished on, the first three
+   PageRank/PPR results to phase 3's bars; every request admitted and
+   completed, at most 8 running and 8 at the peak (the load of 0.4
+   requests a tick, as in examples/serve_slo.py, fills the slots: the
+   admission headroom reaches 0), the series' tile_loads summing to the
+   harness's, the exported trace (build/chip_smoke/serve_trace_*.json) valid
+   with serve.admit instants, the MetricsRegistry snapshot valid.  It
+   prints arrivals, ticks, supersteps, throughput, p50/p99 latency in
+   ticks (overall and by family), wall, ms per tick and per superstep,
+   B1/B2 launches (the `serve` entry of `launches_by_path`) and the
+   peak device memory.
 
 Then one JSON line of kernel figures, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -87,6 +120,8 @@ end-to-end numbers.
 from __future__ import annotations
 
 import argparse
+import copy
+import gc
 import json
 import statistics
 import subprocess
@@ -124,6 +159,16 @@ B4_BIG = (16, 16384, 64)       # 16 jobs over 2**20 vertices: 64 MB > L2
 # phase 6: the reference's own update generator, 0.15% of the edges a batch
 STREAM_BATCHES, STREAM_INSERTS, STREAM_DELETES, STREAM_SEED = 4, 512, 256, 1
 STREAM_DELETE = 1              # UpdateBatch.op of a delete
+# phase 7: the serve front, one request group per block, the load
+# generator's default family mix
+SERVE_CAPACITY = 8             # the session's job slots per view
+SERVE_MAX_RUNNING = 8          # admitted jobs sharing the supersteps
+SERVE_STEPS_PER_TICK = 8
+SERVE_LOAD = dict(seed=33, ticks=240, base_rate=0.4, burst_amplitude=0.6,
+                  burst_period=60, n_tenants=64, update_every=80)
+SERVE_PT_CHECKED = 3           # PageRank/PPR results held per run
+TELEMETRY_PAIRS = 20           # interleaved off/on timings of telemetry
+HOST_TIMED_STEPS = 8           # supersteps per timed TwoLevel() run
 # back-to-back calls per timed run, so that a run lasts about 1 ms or more
 R_B1B2, R_B3, R_B4, R_B4_BIG = 20, 10, 200, 50
 R_PLAIN, R_B4_PLAIN, R_B4_BIG_PLAIN = 2, 20, 10
@@ -607,7 +652,7 @@ def report_run(torch, label, m, wall, launches, peak):
 def device_backend(torch, sess, handles, csr, refs, fk, host):
     """Phase 4: Fused() and TwoLevel(device, K) at full size, then one
     chunk under the sync-debug mode.  Returns (handles, Fused's launch
-    counts)."""
+    counts, (Fused's RunMetrics, wall, final state))."""
     from repro_torch.core import Fused, TwoLevel
     from repro_torch.core.policy import INF_CHUNK, device_inputs
 
@@ -615,8 +660,9 @@ def device_backend(torch, sess, handles, csr, refs, fk, host):
     sess.scheduler.reset()
     m, wall, launches, peak = drive(torch, sess, Fused(), fk)
     report_run(torch, "device backend (Fused)", m, wall, launches, peak)
+    fused = (m, wall, snapshot(sess))
     check_results(sess, handles, csr, refs, "device backend")
-    hm, hwall = host
+    hm, hwall, _ = host
     log(f"host vs device backend: supersteps {hm.supersteps} vs "
         f"{m.supersteps}, tile_loads {hm.tile_loads} vs {m.tile_loads}, "
         f"host_syncs {hm.host_syncs} vs {m.host_syncs}, wall {hwall:.3f} vs "
@@ -685,7 +731,192 @@ def device_backend(torch, sess, handles, csr, refs, fk, host):
     log(f"next chunk: host enqueue {1e3 * t_enq / step_fn.chunk:.3f} ms "
         f"per superstep, enqueue + drain {1e3 * t_all / step_fn.chunk:.3f} "
         f"ms per superstep")
-    return handles, launches
+    return handles, launches, fused
+
+
+def snapshot(sess):
+    """Copies of every view group's values and deltas."""
+    return [(g.values.clone(), g.deltas.clone()) for g in sess.view_groups()]
+
+
+def check_series(m, label):
+    """A run's telemetry series against its totals."""
+    tel = m.telemetry
+    if tel is None or len(tel) != m.supersteps or tel.truncated:
+        raise RuntimeError(f"{label}: series of {len(tel or ())} rows for "
+                           f"{m.supersteps} supersteps")
+    for f in ("tile_loads", "job_block_pushes", "tile_pair_loads"):
+        if int(getattr(tel, f).sum()) != getattr(m, f):
+            raise RuntimeError(f"{label}: the series' {f} sums to "
+                               f"{int(getattr(tel, f).sum())}, the run "
+                               f"counted {getattr(m, f)}")
+
+
+class OpCount:
+    """Counts the torch operations dispatched inside a `with` block."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(mode, func, types, args=(), kwargs=None):
+                self.n += 1
+                return func(*args, **(kwargs or {}))
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def telemetry_on_off(torch, sess, handles, csr, refs, fk, host, fused):
+    """Phase 4, telemetry: the same session with TelemetryConfig() (its
+    step-function cache gets a telemetry entry beside the one without),
+    Fused() and then TwoLevel() from the same start as the telemetry-off
+    runs of phases 3 and 4.  Same schedule, host reads and bit-identical
+    state; the series sums equal the totals; one chunk with the series
+    under set_sync_debug_mode("error"); the cost per superstep.  The
+    scheduler's stream leaves as it came, so the later phases run as
+    they would without this one.  Returns the handles."""
+    from repro_torch.core import Fused, TwoLevel
+    from repro_torch.core.policy import device_inputs
+    from repro_torch.obs import TelemetryConfig
+
+    stream = (copy.deepcopy(sess.scheduler.rng), sess.scheduler._step)
+
+    def same(label, m, wall, off):
+        m_off, wall_off, state_off = off
+        for f in ("supersteps", "tile_loads", "tile_pair_loads",
+                  "job_block_pushes", "host_syncs"):
+            if getattr(m, f) != getattr(m_off, f):
+                raise RuntimeError(f"{label}: telemetry on gives {f} "
+                                   f"{getattr(m, f)}, off "
+                                   f"{getattr(m_off, f)}")
+        for g, (v, d) in zip(sess.view_groups(), state_off):
+            if not (torch.equal(g.values, v) and torch.equal(g.deltas, d)):
+                raise RuntimeError(f"{label}: {g.semiring} state with "
+                                   f"telemetry differs from without")
+        check_series(m, label)
+        tel = m.telemetry
+        log(f"{label}: telemetry on = off in supersteps, tile_loads, "
+            f"tile_pair_loads, job_block_pushes, host_syncs "
+            f"({m.host_syncs}) and bit for bit in every view's values and "
+            f"deltas; series of {len(tel)} rows sums to the totals "
+            f"(max_residual first/last "
+            f"{tel.max_residual[0].tolist()} / "
+            f"{tel.max_residual[-1].tolist()}); ms/superstep off "
+            f"{1e3 * wall_off / max(1, m_off.supersteps):.3f}, on "
+            f"{1e3 * wall / max(1, m.supersteps):.3f}")
+
+    sess.telemetry = TelemetryConfig()
+    try:
+        handles = resubmit(torch, sess, handles)
+        sess.scheduler.reset()
+        m, wall, launches, peak = drive(torch, sess, Fused(), fk)
+        report_run(torch, "device backend (Fused), telemetry on", m, wall,
+                   launches, peak)
+        same("Fused", m, wall, fused)
+        check_results(sess, handles, csr, refs, "device backend, telemetry")
+
+        handles = resubmit(torch, sess, handles)
+        step_fn = sess._device_step_fn(Fused())
+        state, *args = device_inputs(sess)
+        ptr = state[8].data_ptr()
+        state, un = step_fn(state, *args, MAX_SUPERSTEPS, sess.seed, 0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, un = step_fn(state, *args, MAX_SUPERSTEPS, sess.seed, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rows = state[8][:, 1].cpu().numpy()                 # tile_loads
+        it_h = int(state[0].item())
+        if (state[8].data_ptr() != ptr
+                or not (rows[:it_h] > 0).all() or rows[it_h:].any()):
+            raise RuntimeError("telemetry chunk: rows or buffers wrong")
+        log(f"two chunks ({it_h} supersteps) with telemetry, the second "
+            f"under set_sync_debug_mode('error'): no implicit sync; "
+            f"{it_h} rows written in place")
+
+        handles = resubmit(torch, sess, handles)
+        sess.scheduler.reset()
+        m, wall, launches, peak = drive(torch, sess, TwoLevel(), fk)
+        report_run(torch, "main path (TwoLevel), telemetry on", m, wall,
+                   launches, peak)
+        same("TwoLevel", m, wall, host)
+        check_results(sess, handles, csr, refs, "main path, telemetry")
+
+        # the cost per superstep, off and on interleaved: the host enqueue
+        # of one Fused chunk (the chunk's ops do not depend on the data,
+        # and a sync before each call keeps the device from holding the
+        # host back), and a TwoLevel() run of HOST_TIMED_STEPS supersteps
+        # from the jobs' initial state; medians over TELEMETRY_PAIRS each
+        cfg = sess.telemetry
+        chunks = {}
+        for on in (False, True):
+            sess.telemetry = cfg if on else None
+            handles = resubmit(torch, sess, handles)
+            step_fn = sess._device_step_fn(Fused())
+            state, *args = device_inputs(sess)
+            chunks[on] = [step_fn, state, args]
+        enq_ms, host_ms = {False: [], True: []}, {False: [], True: []}
+        for i in range(TELEMETRY_PAIRS):
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                step_fn, state, args = chunks[on]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step_fn(state, *args, MAX_SUPERSTEPS, sess.seed,
+                                   0)
+                enq_ms[on].append(1e3 * (time.perf_counter() - t0)
+                                  / step_fn.chunk)
+                chunks[on][1] = state
+        torch.cuda.synchronize()
+        del chunks, state, args
+        for i in range(TELEMETRY_PAIRS):
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                sess.telemetry = cfg if on else None
+                handles = resubmit(torch, sess, handles)
+                sess.scheduler.reset()
+                t0 = time.perf_counter()
+                m = sess.run(TwoLevel(), HOST_TIMED_STEPS)  # ends in a sync
+                host_ms[on].append(1e3 * (time.perf_counter() - t0)
+                                   / m.supersteps)
+        # and what a Fused chunk dispatches: torch ops per superstep
+        ops = {}
+        for on in (False, True):
+            sess.telemetry = cfg if on else None
+            handles = resubmit(torch, sess, handles)
+            step_fn = sess._device_step_fn(Fused())
+            state, *args = device_inputs(sess)
+            with OpCount() as count:
+                step_fn(state, *args, MAX_SUPERSTEPS, sess.seed, 0)
+            ops[on] = count.n / step_fn.chunk
+            del state, args
+        torch.cuda.synchronize()
+        log(f"torch ops dispatched per Fused superstep: telemetry off "
+            f"{ops[False]:.2f}, on {ops[True]:.2f}")
+        for name, ms in (("Fused chunk, host enqueue", enq_ms),
+                         (f"TwoLevel, {HOST_TIMED_STEPS}-superstep run",
+                          host_ms)):
+            q = {on: statistics.quantiles(ms[on], n=4) for on in ms}
+            # within a pair the two timings are adjacent, so the host's
+            # drift across the loop cancels in their difference
+            diff = [b - a for a, b in zip(ms[False], ms[True])]
+            log(f"telemetry cost, {name}: ms/superstep over "
+                f"{TELEMETRY_PAIRS} interleaved off/on pairs, median (lower"
+                f" quartile, upper quartile): off {q[False][1]:.4f} "
+                f"({q[False][0]:.4f}, {q[False][2]:.4f}), on "
+                f"{q[True][1]:.4f} ({q[True][0]:.4f}, {q[True][2]:.4f}); "
+                f"on - off {q[True][1] - q[False][1]:+.4f} ms; within a "
+                f"pair on - off median {statistics.median(diff):+.4f} ms, "
+                f"on slower in {sum(d > 0 for d in diff)} of "
+                f"{len(diff)} pairs")
+    finally:
+        sess.telemetry = None
+        sess.scheduler.rng, sess.scheduler._step = stream
+    return handles
 
 
 def max_err(got, want) -> float:
@@ -1197,6 +1428,221 @@ def stream_phase(torch, sess, handles, csr, fk):
     return handles, totals
 
 
+# -- phase 7: the serve front ------------------------------------------------
+
+
+def peak_running(h) -> int:
+    """Most requests running at once, from the harness's logs: admissions
+    at tick t join before completions stamped t + 1 leave."""
+    admits = sorted(t for t, *_ in h.admission_log)
+    leaves = sorted(t for t, *_ in h.completion_log)
+    peak, ai, li = 0, 0, 0
+    for t in range(h.ticks_run + 1):
+        while ai < len(admits) and admits[ai] <= t:
+            ai += 1
+        peak = max(peak, ai - li)
+        while li < len(leaves) and leaves[li] <= t + 1:
+            li += 1
+    return peak
+
+
+def serve_run(torch, csr, policy, fk, out_dir):
+    """One open-loop harness run of phase 7 on a fresh session; returns
+    its B1/B2 launch counts."""
+    from repro_torch.algorithms import BFS, PageRank, SSSP
+    from repro_torch.core import GraphSession
+    from repro_torch.obs import (LoadgenConfig, MetricsRegistry,
+                                 OpenLoopHarness, SLOTarget, SLOTracker,
+                                 validate_registry_snapshot,
+                                 validate_trace_events)
+    from repro_torch.serve import ConcurrentServeScheduler
+    from scipy.sparse.csgraph import dijkstra
+    import scipy.sparse as sp
+
+    label = f"serve ({policy.name}, backend={policy.backend})"
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sess = GraphSession(csr, BLOCK, capacity=SERVE_CAPACITY, seed=0,
+                        telemetry=True)
+    # set-up outside the served ticks: the three views the family mix
+    # needs (plus-times, min-plus, unit-weight min-plus) and their pairs
+    for alg in (PageRank(), SSSP(source=0), BFS(source=0)):
+        sess.detach(sess.submit(alg))
+    for g in sess.view_groups():
+        sess._pair_data(g)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mem_setup = torch.cuda.memory_allocated()
+    n_groups = sess.scheduler.num_blocks
+    slo = SLOTracker(targets=[SLOTarget(family="*", p99_latency_steps=60)])
+    sched = ConcurrentServeScheduler(n_groups, batch_budget=SERVE_MAX_RUNNING,
+                                     seed=5, trace=sess.trace, slo=slo)
+    h = OpenLoopHarness(sess, sched, LoadgenConfig(**SERVE_LOAD),
+                        policy=policy, max_running=SERVE_MAX_RUNNING,
+                        supersteps_per_tick=SERVE_STEPS_PER_TICK)
+    # the script's view of the run: every RunMetrics, each detached job's
+    # result with the CSR it finished on, and the seconds and device
+    # memory peak inside run() and apply_updates() against the rest (the
+    # harness, submit, detach, the convergence poll)
+    runs, done = [], []
+    secs = {"run": 0.0, "apply_updates": 0.0}
+    peaks = {"run": 0, "apply_updates": 0, "rest": 0}
+    real = {k: getattr(sess, k) for k in ("run", "apply_updates",
+                                           "detach")}
+
+    def segment(name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            peaks["rest"] = max(peaks["rest"],
+                                torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            if name == "run":
+                runs.append(out)
+            return out
+        return call
+
+    def detach(handle):
+        res = real["detach"](handle)
+        done.append((handle.alg, res, sess._csr))
+        return res
+    sess.run, sess.apply_updates = segment("run"), segment("apply_updates")
+    sess.detach = detach
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    s = h.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fk.launches)
+    peaks["rest"] = max(peaks["rest"], torch.cuda.max_memory_allocated())
+    peak = max(peaks.values())
+
+    # -- checks ------------------------------------------------------------
+    if not s["admitted"] == s["completed"] == s["arrivals"] > 0:
+        raise RuntimeError(f"{label}: arrivals {s['arrivals']}, admitted "
+                           f"{s['admitted']}, completed {s['completed']}")
+    # the load must fill the slots: at the peak the admission headroom
+    # (the scheduler's batch budget) is 0
+    most = peak_running(h)
+    if most != SERVE_MAX_RUNNING:
+        raise RuntimeError(f"{label}: at most {most} requests ran at once, "
+                           f"not the {SERVE_MAX_RUNNING} the load should "
+                           f"fill")
+    # request-ticks of service over the ticks: the mean number running
+    mean_running = (sum(c[0] for c in h.completion_log)
+                    - sum(a[0] for a in h.admission_log)) / h.ticks_run
+    for m in runs:
+        check_series(m, label)
+    tel_loads = sum(int(m.telemetry.tile_loads.sum()) for m in runs)
+    if tel_loads != s["counters"]["tile_loads"]:
+        raise RuntimeError(f"{label}: series tile_loads {tel_loads} != "
+                           f"harness {s['counters']['tile_loads']}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{label}: kernel {k} was not launched")
+    trace_path = out_dir / f"serve_trace_{policy.backend}.json"
+    sess.trace.export(str(trace_path))
+    doc = json.loads(trace_path.read_text())
+    n_events = validate_trace_events(doc)
+    admits = sum(e["name"] == "serve.admit" for e in doc["traceEvents"])
+    if admits == 0:
+        raise RuntimeError(f"{label}: no serve.admit instant in the trace")
+    reg = MetricsRegistry()
+    reg.register("serve", sched.metrics)
+    reg.register("slo", slo)
+    reg.register("loadgen", s)
+    reg.register("last_run", runs[-1].to_dict(include_telemetry=True))
+    n_sources = validate_registry_snapshot(reg.snapshot())
+
+    # each result against its plain answer on the CSR it finished on
+    versions, cache = {}, {}
+    n_min = n_pt = 0
+    for alg, res, g in done:
+        v = versions.setdefault(id(g), len(versions))
+        if alg.semiring == "min_plus":
+            key = (v, alg.name, alg.source)
+            if key not in cache:
+                a = sp.csr_matrix((g.weights.astype(np.float64), g.indices,
+                                   g.indptr), shape=(g.n, g.n))
+                cache[key] = dijkstra(a, directed=True, indices=alg.source,
+                                      unweighted=alg.name == "bfs"
+                                      ).astype(np.float32)
+            np.testing.assert_array_equal(res, cache[key])
+            n_min += 1
+        elif n_pt < SERVE_PT_CHECKED:
+            src = getattr(alg, "source", None)
+            key = (v, alg.name, src)
+            if key not in cache:
+                cache[key] = pagerank_ref(g, alg.damping, src)
+            if not np.isfinite(res).all():
+                raise RuntimeError(f"{label}: non-finite {alg.name}")
+            np.testing.assert_allclose(res, cache[key], rtol=5e-3,
+                                       atol=1e-4)
+            n_pt += 1
+
+    lat, fams = s["latency_ticks"], s["latency_by_family"]
+    steps = max(1, s["supersteps"])
+    log(f"{label}: device memory {mem0 / 1e9:.2f} GB allocated before the "
+        f"session, {mem_setup / 1e9:.2f} GB after its set-up; peak "
+        f"{peaks['run'] / 1e9:.2f} GB in run(), "
+        f"{peaks['apply_updates'] / 1e9:.2f} GB in apply_updates(), "
+        f"{peaks['rest'] / 1e9:.2f} GB elsewhere; seconds in run() "
+        f"{secs['run']:.3f}, in apply_updates() {secs['apply_updates']:.3f},"
+        f" elsewhere {wall - secs['run'] - secs['apply_updates']:.3f} (the "
+        f"harness, submit, detach, the convergence poll; each call fenced "
+        f"by a sync)")
+    log(f"{label}: set-up {setup_s:.2f} s (3 views + pairs); arrivals "
+        f"{s['arrivals']}, admitted {s['admitted']}, completed "
+        f"{s['completed']}, at most {most} running, {mean_running:.3f} "
+        f"on average; ticks {s['ticks']}, "
+        f"supersteps {s['supersteps']}, updates {s['updates_applied']}; "
+        f"throughput {s['throughput_per_tick']} per tick; latency ticks "
+        f"p50 {lat['p50']} p99 {lat['p99']} max {lat['max']}")
+    log(f"{label}: by family " + "; ".join(
+        f"{f} n={x['count']} p50 {x['p50']} p99 {x['p99']}"
+        for f, x in fams.items()))
+    log(f"{label}: wall {wall:.3f} s, {1e3 * wall / max(1, s['ticks']):.3f} "
+        f"ms/tick, {1e3 * wall / steps:.3f} ms/superstep; launches "
+        f"{launches}; counters {s['counters']}; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    log(f"{label}: {n_min} SSSP/BFS results bit-equal to scipy on the CSR "
+        f"they finished on ({len(versions)} CSR versions), {n_pt} "
+        f"PageRank/PPR within rtol 5e-3, atol 1e-4; every run's series "
+        f"sums to its totals, {len(runs)} runs' tile_loads {tel_loads} = "
+        f"the harness's; trace {n_events} events ({admits} serve.admit) "
+        f"valid; registry snapshot of {n_sources} sources valid; SLO "
+        f"p99 <= 60 ticks met by family: " + ", ".join(
+            f"{f} {e['slo']['ok']}"
+            for f, e in slo.report()["families"].items() if "slo" in e))
+    for k, fn in real.items():
+        setattr(sess, k, fn)
+    del sess, h, sched, runs, done
+    return launches
+
+
+def serve_phase(torch, csr, fk, out_dir):
+    """Phase 7: the open-loop serve front at full size, once on each
+    scheduling backend.  Returns the B1/B2 launches of both runs."""
+    from repro_torch.core import TwoLevel
+    totals = {sr: 0 for sr in SEMIRINGS}
+    for policy in (TwoLevel(), TwoLevel(backend="device",
+                                        steps_per_sync=SERVE_STEPS_PER_TICK)):
+        launches = serve_run(torch, csr, policy, fk, out_dir)
+        for sr in totals:
+            totals[sr] += launches[sr]
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -1265,8 +1711,9 @@ def main() -> int:
             f"{gr.tiles.numel() * 4 / 1e9:.2f} GB, pair tiles "
             f"{bp.tiles.numel() * 4 / 1e9:.2f} GB; pairs built in "
             f"{time.perf_counter() - t0:.2f} s")
-    # phase 6 replaces both: holding them would keep a stale view alive
-    del bp, gr
+    # phases 6 and 7 replace or free the views: a name bound here would
+    # keep one alive
+    del bp, gr, g
 
     # -- phase 2: kernels against their plain versions ---------------------
     timer = Timer(torch)
@@ -1283,6 +1730,7 @@ def main() -> int:
     finally:
         restore()
     report_run(torch, "main path", m, wall, launches, peak)
+    host_state = snapshot(sess)
     check_results(sess, handles, csr, refs, "main path")
 
     # -- phase 2b: B1/B2 on the main path's selections ---------------------
@@ -1302,8 +1750,11 @@ def main() -> int:
         f" ms (pair reduction and its read, state ops, Python)")
 
     # -- phase 4: the device scheduling backend ----------------------------
-    handles, dev_launches = device_backend(
-        torch, sess, handles, csr, refs, fk, (m, wall))
+    handles, dev_launches, fused = device_backend(
+        torch, sess, handles, csr, refs, fk, (m, wall, host_state))
+    handles = telemetry_on_off(torch, sess, handles, csr, refs, fk,
+                               (m, wall, host_state), fused)
+    del host_state, fused
 
     # -- phase 5: B3 and B4 at their entry points ---------------------------
     handles = resubmit(torch, sess, handles)
@@ -1318,6 +1769,14 @@ def main() -> int:
     # -- phase 6: evolving graphs -------------------------------------------
     handles, stream_launches = stream_phase(torch, sess, handles, csr, fk)
 
+    # -- phase 7: the serve front (the first session's views freed) ---------
+    del sess, groups, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = root / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    serve_launches = serve_phase(torch, csr, fk, out_dir)
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -1325,10 +1784,11 @@ def main() -> int:
             "name": f"fused_superstep_{sr}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES[sr],
             "launches": (launches[sr] + dev_launches[sr]
-                         + stream_launches[sr]),
+                         + stream_launches[sr] + serve_launches[sr]),
             "launches_by_path": {"host_two_level": launches[sr],
                                  "device_fused": dev_launches[sr],
-                                 "stream": stream_launches[sr]},
+                                 "stream": stream_launches[sr],
+                                 "serve": serve_launches[sr]},
             "max_abs_err": max([f["max_abs_err"]] + [
                 x["max_abs_err"] for x in sel_figures[sr]]),
             "ms": f["ms"], "kernel_ms": f["ms"], "device_ms": f["ms"],

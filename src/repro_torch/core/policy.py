@@ -40,10 +40,17 @@ numbers whatever the chunk length and wherever runs begin and end.
 `RunMetrics.host_syncs` counts scheduling round-trips (host backend: one
 per superstep including the final all-converged poll; device backend: one
 per chunk).
+
+Telemetry (`repro_torch.obs.telemetry`): a session built with
+`telemetry=...` gets a per-superstep `TelemetrySeries` on
+`RunMetrics.telemetry` from either driver, with no extra host read: the
+host driver's residual rides the pairs read, the device driver's series
+rides the chunk carry and the run's final counter read.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -56,6 +63,10 @@ from repro_torch.core import priority as prio
 from repro_torch.core.do_select import group_queues_device, step_key
 from repro_torch.core.global_q import accumulate_priority, synthesize_topq
 from repro_torch.core.push import compute_pairs, indep_push_fn, shared_push_fn
+from repro_torch.obs.telemetry import (SERIES_FIELDS, HostSeriesBuilder,
+                                       TelemetrySeries, device_buffers,
+                                       device_rows, device_write,
+                                       series_from_rows)
 
 HOST, DEVICE = "host", "device"
 
@@ -83,21 +94,27 @@ class RunMetrics:
     updates_applied: int = 0       # edge insert/delete ops absorbed
     dirty_blocks: int = 0          # blocks marked update-affected
     reseed_fraction: float = 0.0   # re-seeded share of active job state
-    telemetry: Optional[object] = None
+    # per-superstep series, only when the session was built with
+    # telemetry=...; None otherwise
+    telemetry: Optional[TelemetrySeries] = None
 
-    def to_dict(self) -> dict:
-        """Scalar record of this run (the reference's keys)."""
-        return {"supersteps": int(self.supersteps),
-                "tile_loads": int(self.tile_loads),
-                "tile_pair_loads": int(self.tile_pair_loads),
-                "job_block_pushes": int(self.job_block_pushes),
-                "host_syncs": int(self.host_syncs),
-                "halo_bytes": float(self.halo_bytes),
-                "converged": bool(self.converged),
-                "wall_time_s": round(float(self.wall_time_s), 6),
-                "updates_applied": int(self.updates_applied),
-                "dirty_blocks": int(self.dirty_blocks),
-                "reseed_fraction": round(float(self.reseed_fraction), 6)}
+    def to_dict(self, include_telemetry: bool = False) -> dict:
+        """Scalar record of this run (the reference's keys), with the
+        series under "telemetry" when asked for and recorded."""
+        d = {"supersteps": int(self.supersteps),
+             "tile_loads": int(self.tile_loads),
+             "tile_pair_loads": int(self.tile_pair_loads),
+             "job_block_pushes": int(self.job_block_pushes),
+             "host_syncs": int(self.host_syncs),
+             "halo_bytes": float(self.halo_bytes),
+             "converged": bool(self.converged),
+             "wall_time_s": round(float(self.wall_time_s), 6),
+             "updates_applied": int(self.updates_applied),
+             "dirty_blocks": int(self.dirty_blocks),
+             "reseed_fraction": round(float(self.reseed_fraction), 6)}
+        if include_telemetry and self.telemetry is not None:
+            d["telemetry"] = self.telemetry.to_dict()
+        return d
 
 
 @dataclasses.dataclass
@@ -177,11 +194,53 @@ class SchedulePolicy:
 # ---------------------------------------------------------------------------
 
 
-def _read_pairs(node_un: torch.Tensor, p_mean: torch.Tensor):
+def _profiler_span(sess, name: str):
+    """A `torch.profiler.record_function` span around one driver phase,
+    opt-in via TelemetryConfig(jax_profiler=True); a no-op otherwise."""
+    cfg = sess.telemetry
+    if cfg is not None and cfg.jax_profiler:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def _selection_occupancy(selection: Selection) -> int:
+    """Staged-selection occupancy for telemetry: shared policies report the
+    global-queue length (<= q), independent the total queue entries."""
+    if selection.shared:
+        return int(np.sum(np.asarray(selection.msk) > 0))
+    return sum(int(np.sum(np.asarray(msk) > 0)) for msk in selection.msk)
+
+
+def _pairs_and_resid(alg, values: torch.Tensor, deltas: torch.Tensor):
+    """compute_pairs plus the group's max vertex priority (telemetry's
+    max_residual), all from one vertex-priority tensor."""
+    vp = alg.vertex_priority(values, deltas)
+    node_un, p_mean = prio.block_pairs(vp)
+    return node_un, p_mean, vp.max()
+
+
+def _read_pairs(node_un: torch.Tensor, p_mean: torch.Tensor,
+                resid: Optional[torch.Tensor] = None):
     """The ONE device->host read of a view group per superstep: both
-    [J, B_N] pair arrays in a single copy."""
-    both = torch.stack([node_un, p_mean]).cpu().numpy()
-    return both[0], both[1]
+    [J, B_N] pair arrays in a single copy.  With telemetry, the group's
+    max residual (a 0-dim float32) rides the same copy and is returned
+    third."""
+    if resid is None:
+        both = torch.stack([node_un, p_mean]).cpu().numpy()
+        return both[0], both[1]
+    n = node_un.numel()
+    flat = torch.cat([node_un.reshape(-1), p_mean.reshape(-1),
+                      resid.reshape(1)]).cpu().numpy()
+    return (flat[:n].reshape(node_un.shape),
+            flat[n:2 * n].reshape(p_mean.shape), float(flat[-1]))
+
+
+def _read_counts(counts: torch.Tensor, resid: torch.Tensor):
+    """[cap] unconverged counts and the max residual in one copy (float64
+    holds both exactly)."""
+    flat = torch.cat([counts.to(torch.float64),
+                      resid.reshape(1).to(torch.float64)]).cpu().numpy()
+    return flat[:-1].astype(np.int64), float(flat[-1])
 
 
 def _run_host(policy: SchedulePolicy, sess,
@@ -190,7 +249,12 @@ def _run_host(policy: SchedulePolicy, sess,
     superstep.  The convergence counts are derived from the pairs
     (counts == node_un.sum(-1)), so policies that need pairs cost ONE
     device read per group per superstep; AllBlocks reads per-job counts
-    only (needs_pairs=False)."""
+    only (needs_pairs=False).
+
+    Telemetry: with the session built telemetry=..., each superstep
+    appends one row to a HostSeriesBuilder.  The max-residual column
+    rides the same read as the pairs (or the counts), so telemetry adds
+    no host read."""
     groups = sess.view_groups()
     dev = sess.device
     offs = np.cumsum([0] + [g.capacity for g in groups])
@@ -202,6 +266,10 @@ def _run_host(policy: SchedulePolicy, sess,
     indep_fns = [indep_push_fn(g.push_one) for g in groups]
     m = RunMetrics(
         iterations_per_job=np.zeros(int(offs[-1]), dtype=np.int64))
+    telemetry = sess.telemetry is not None
+    series = (HostSeriesBuilder([g.key for g in groups]) if telemetry
+              else None)
+    resids = [0.0] * len(groups)
     # a group observed fully converged stays converged for the rest of this
     # run (no job can arrive mid-run), so its read is skipped outright
     done = [None] * len(groups)
@@ -220,32 +288,44 @@ def _run_host(policy: SchedulePolicy, sess,
 
     for _ in range(max_supersteps):
         t_step = trace.now_us() if trace else 0.0
+        dirty_n = int((boost > 0).sum()) if boost is not None else 0
         actives = []
         node_un = []
         p_mean = [] if policy.needs_pairs else None
-        for gi, g in enumerate(groups):
-            if done[gi] is not None:
-                actives.append(done[gi][0])
+        with _profiler_span(sess, "superstep.schedule"):
+            for gi, g in enumerate(groups):
+                if done[gi] is not None:
+                    actives.append(done[gi][0])
+                    if policy.needs_pairs:
+                        node_un.append(done[gi][1])
+                        p_mean.append(done[gi][1])
+                    else:
+                        node_un.append(np.zeros(g.capacity, dtype=np.int32))
+                    resids[gi] = 0.0
+                    continue
                 if policy.needs_pairs:
-                    node_un.append(done[gi][1])
-                    p_mean.append(done[gi][1])
+                    if telemetry:
+                        nu, pm, resids[gi] = _read_pairs(
+                            *_pairs_and_resid(g.alg, g.values, g.deltas))
+                    else:
+                        nu, pm = _read_pairs(*compute_pairs(
+                            g.alg, g.values, g.deltas))
+                    if boost is not None:
+                        pm = pm + boost[None, :] * (nu > 0)
+                    node_un.append(nu)
+                    p_mean.append(pm)
+                    actives.append(prio.counts_from_pairs(nu) > 0)
                 else:
-                    node_un.append(np.zeros(g.capacity, dtype=np.int32))
-                continue
-            if policy.needs_pairs:
-                nu, pm = _read_pairs(*compute_pairs(g.alg, g.values,
-                                                    g.deltas))
-                if boost is not None:
-                    pm = pm + boost[None, :] * (nu > 0)
-                node_un.append(nu)
-                p_mean.append(pm)
-                actives.append(prio.counts_from_pairs(nu) > 0)
-            else:
-                counts = sess._counts(g).cpu().numpy()   # the one read
-                node_un.append(counts)
-                actives.append(counts > 0)
-            if not actives[gi].any():
-                _mark_done(gi)
+                    if telemetry:   # the one read, residual riding along
+                        counts, resids[gi] = _read_counts(
+                            sess._counts(g), g.alg.vertex_priority(
+                                g.values, g.deltas).max())
+                    else:
+                        counts = sess._counts(g).cpu().numpy()
+                    node_un.append(counts)
+                    actives.append(counts > 0)
+                if not actives[gi].any():
+                    _mark_done(gi)
         for gi in range(len(groups)):
             m.iterations_per_job[offs[gi]:offs[gi + 1]][actives[gi]] += 1
         m.host_syncs += 1
@@ -260,34 +340,47 @@ def _run_host(policy: SchedulePolicy, sess,
             break
         # a fully-converged group is never pushed
         pair_step = 0
-        if selection.shared:
-            sel = torch.as_tensor(selection.sel, dtype=torch.int32,
-                                  device=dev)
-            msk = torch.as_tensor(selection.msk, dtype=torch.float32,
-                                  device=dev)
-            sel_np = np.asarray(selection.sel)
-            on_np = np.asarray(selection.msk) > 0
-            for gi, g in enumerate(groups):
-                if not actives[gi].any():
-                    continue
-                pair_step += int(nnz_host[gi][sel_np][on_np].sum())
-                g.values, g.deltas = shared_fns[gi](
-                    g.values, g.deltas, g.graph.tiles, g.graph.nbr_ids,
-                    sel, msk, g.push_scale, g.overlay, grp_pairs[gi])
-        else:
-            for gi, g in enumerate(groups):
-                if not actives[gi].any():
-                    continue
-                sel_np = np.asarray(selection.sel[gi])
-                on_np = np.asarray(selection.msk[gi]) > 0
-                pair_step += int((nnz_host[gi][sel_np] * on_np).sum())
-                g.values, g.deltas = indep_fns[gi](
-                    g.values, g.deltas, g.graph.tiles, g.graph.nbr_ids,
-                    torch.as_tensor(sel_np, dtype=torch.int32, device=dev),
-                    torch.as_tensor(selection.msk[gi], dtype=torch.float32,
-                                    device=dev),
-                    g.push_scale, g.overlay)
+        with _profiler_span(sess, "superstep.push"):
+            if selection.shared:
+                sel = torch.as_tensor(selection.sel, dtype=torch.int32,
+                                      device=dev)
+                msk = torch.as_tensor(selection.msk, dtype=torch.float32,
+                                      device=dev)
+                sel_np = np.asarray(selection.sel)
+                on_np = np.asarray(selection.msk) > 0
+                for gi, g in enumerate(groups):
+                    if not actives[gi].any():
+                        continue
+                    pair_step += int(nnz_host[gi][sel_np][on_np].sum())
+                    g.values, g.deltas = shared_fns[gi](
+                        g.values, g.deltas, g.graph.tiles, g.graph.nbr_ids,
+                        sel, msk, g.push_scale, g.overlay, grp_pairs[gi])
+            else:
+                for gi, g in enumerate(groups):
+                    if not actives[gi].any():
+                        continue
+                    sel_np = np.asarray(selection.sel[gi])
+                    on_np = np.asarray(selection.msk[gi]) > 0
+                    pair_step += int((nnz_host[gi][sel_np] * on_np).sum())
+                    g.values, g.deltas = indep_fns[gi](
+                        g.values, g.deltas, g.graph.tiles, g.graph.nbr_ids,
+                        torch.as_tensor(sel_np, dtype=torch.int32,
+                                        device=dev),
+                        torch.as_tensor(selection.msk[gi],
+                                        dtype=torch.float32, device=dev),
+                        g.push_scale, g.overlay)
         m.tile_pair_loads += pair_step
+        if series is not None:
+            # everything but pair_step is a pre-push read; the row is
+            # appended post-push only so that pair_step can join it
+            series.append(
+                active_jobs=sum(int(a.sum()) for a in actives),
+                tile_loads=int(selection.tile_loads),
+                job_block_pushes=int(selection.job_block_pushes),
+                gq_occupancy=_selection_occupancy(selection),
+                dirty_blocks=dirty_n,
+                unconverged=[int(np.sum(nu)) for nu in node_un],
+                max_residual=resids, tile_pair_loads=pair_step)
         m.supersteps += 1
         m.tile_loads += int(selection.tile_loads)
         m.job_block_pushes += int(selection.job_block_pushes)
@@ -295,6 +388,8 @@ def _run_host(policy: SchedulePolicy, sess,
             trace.complete("superstep", t_step, trace.now_us() - t_step,
                            cat="superstep", tid=2, step=m.supersteps - 1,
                            tile_loads=int(selection.tile_loads))
+    if series is not None:
+        m.telemetry = series.build()
     return m
 
 
@@ -310,14 +405,17 @@ def build_device_step(policy: SchedulePolicy, sess):
                 seed, stream_pos) -> (state, unconverged_total)
 
     where state = (it, values_tuple, deltas_tuple, loads, pushes,
-    pair_loads, iters_tuple, boost), `pairs` is the per-group `BlockPairs`
-    tuple and `stream_pos` the stream position at the run's start.  One
+    pair_loads, iters_tuple, boost), with the telemetry row buffer
+    (`obs.telemetry.device_buffers`) as a ninth entry only when the
+    session has telemetry, `pairs` is the per-group `BlockPairs` tuple
+    and `stream_pos` the stream position at the run's start.  One
     call runs a chunk of supersteps back to back on the device —
     steps_per_sync of them, or `INF_CHUNK` for math.inf — each GATED:
     where all jobs have converged or `it` has reached max_steps, the
     superstep leaves every carry entry bit-identical, counts nothing and
     does not advance `it`
-    (`torch.where` on a 0-dim device bool; counters add live x count).
+    (`torch.where` on a 0-dim device bool; the int64 counters add
+    live x count).
     Nothing in a chunk reads the device from the host: no `.item()`, no
     data-dependent shape (`nonzero`, boolean masks), no host branch on a
     device value.  Superstep t of the run draws from
@@ -328,6 +426,15 @@ def build_device_step(policy: SchedulePolicy, sess):
     group, but read that gate (`live & group active`) on the device at
     entry and return before any load; their results are discarded.  So
     the kernels' launch counters count chunk slots, not live supersteps.
+
+    Telemetry on, each superstep also writes its series row in place
+    into the buffer at min(it, capacity - 1): pure reads of the pre-push
+    state (max_residual is the max vertex priority before the push) plus
+    the push loop's pair count.  The write is gated like the totals: a
+    gated slot writes back the row it finds, so a truncated series keeps
+    the last executed superstep in its last row and the series sums equal
+    the run totals.  Telemetry off, the chunk issues exactly the
+    operations it issues without it.
     Cache via session._device_step_fn."""
     groups = sess.view_groups()
     n_groups = len(groups)
@@ -339,6 +446,8 @@ def build_device_step(policy: SchedulePolicy, sess):
     chunk = (INF_CHUNK if policy.steps_per_sync == math.inf
              else int(policy.steps_per_sync))
     needs_pairs = policy.needs_pairs
+    tel_cap = (int(sess.telemetry.capacity) if sess.telemetry is not None
+               else 0)
 
     shared_push = [shared_push_fn(g.semiring, g.push_one, sess.use_pallas)
                    for g in groups]
@@ -352,17 +461,25 @@ def build_device_step(policy: SchedulePolicy, sess):
 
     def superstep(carry, scales, tiles, nbrs, ovs, prs, max_steps, seed,
                   stream_pos):
-        it, vs, ds, loads, pushes, pair_loads, iters, boost = carry
+        it, vs, ds, loads, pushes, pair_loads, iters, boost = carry[:8]
         live = (unconverged_total(vs, ds) > 0) & (it < max_steps)
-        node_uns, p_means, actives = [], [], []
+        node_uns, p_means, actives, resids = [], [], [], []
         for gi in range(n_groups):
             if needs_pairs:
-                nu, pm = compute_pairs(algs[gi], vs[gi], ds[gi])
+                if tel_cap:
+                    nu, pm, resid = _pairs_and_resid(algs[gi], vs[gi],
+                                                     ds[gi])
+                    resids.append(resid)
+                else:
+                    nu, pm = compute_pairs(algs[gi], vs[gi], ds[gi])
                 pm = pm + boost[None, :] * (nu > 0)
             else:   # Node_un alone suffices (AllBlocks): cheaper reduce
                 un = algs[gi].unconverged(vs[gi], ds[gi])
                 nu = un.sum(-1).to(torch.float32)
                 pm = None
+                if tel_cap:
+                    resids.append(algs[gi].vertex_priority(
+                        vs[gi], ds[gi]).max())
             node_uns.append(nu)
             p_means.append(pm)
             actives.append(prio.counts_from_pairs(nu) > 0)
@@ -370,7 +487,7 @@ def build_device_step(policy: SchedulePolicy, sess):
             node_uns, p_means, actives, step_key(seed, stream_pos + it),
             q=q, alpha=alpha, samples=samples, num_blocks=bn)
         new_vs, new_ds, new_iters = [], [], []
-        pair_step = torch.zeros((), dtype=torch.float32, device=it.device)
+        pair_step = torch.zeros((), dtype=torch.int64, device=it.device)
         for gi in range(n_groups):
             # a fully-converged group is never pushed, exactly as in the
             # host driver: freezing it keeps sub-tolerance plus-times
@@ -397,17 +514,31 @@ def build_device_step(policy: SchedulePolicy, sess):
             new_ds.append(torch.where(upd, d2, ds[gi]))
             new_iters.append(iters[gi]
                              + (live & actives[gi]).to(torch.int32))
-            pair_step = pair_step + (keep.to(torch.float32)
-                                     * pair_cnt.to(torch.float32))
-        lf = live.to(torch.float32)
-        # the counters accumulate in float32, as the reference's carry does
-        # (exact up to 2^24, rounded beyond)
-        return (it + live.to(it.dtype), tuple(new_vs), tuple(new_ds),
-                loads + lf * selection.tile_loads.to(torch.float32),
-                pushes + lf * selection.job_block_pushes.to(torch.float32),
-                pair_loads + lf * pair_step,
+            pair_step = pair_step + keep.to(torch.int64) * pair_cnt
+        tel = ()
+        if tel_cap:
+            if selection.shared:
+                occ = (selection.msk > 0).sum()
+            else:
+                occ = sum((msk > 0).sum() for msk in selection.msk)
+            tel = (device_write(
+                carry[8], torch.clamp(it, max=tel_cap - 1).reshape(1), live,
+                active_jobs=sum(a.sum() for a in actives),
+                tile_loads=selection.tile_loads,
+                job_block_pushes=selection.job_block_pushes,
+                gq_occupancy=occ, dirty_blocks=(boost > 0).sum(),
+                unconverged=torch.stack([nu.sum() for nu in node_uns]),
+                max_residual=torch.stack(resids),
+                tile_pair_loads=pair_step),)
+        li = live.to(torch.int64)
+        # the counters accumulate in int64, exact at any length (the
+        # reference's float32 carry rounds past 2^24)
+        return (it + li, tuple(new_vs), tuple(new_ds),
+                loads + li * selection.tile_loads,
+                pushes + li * selection.job_block_pushes,
+                pair_loads + li * pair_step,
                 tuple(new_iters),
-                torch.where(live, torch.zeros_like(boost), boost))
+                torch.where(live, torch.zeros_like(boost), boost)) + tel
 
     def step_fn(state, scales, tiles, nbrs, ovs, prs, max_steps, seed,
                 stream_pos):
@@ -422,12 +553,13 @@ def build_device_step(policy: SchedulePolicy, sess):
 
 def device_inputs(sess):
     """(state, scales, tiles, nbrs, overlays, pairs): the device driver's
-    initial carry over the session's current job state, and the per-group
+    initial carry over the session's current job state (with fresh
+    telemetry buffer when the session has telemetry), and the per-group
     graph arguments of its step function."""
     groups = sess.view_groups()
     dev = sess.device
     boost = sess._consume_dirty_boost()
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
     state = (torch.zeros((), dtype=torch.int64, device=dev),
              tuple(g.values for g in groups),
              tuple(g.deltas for g in groups),
@@ -437,6 +569,9 @@ def device_inputs(sess):
              torch.zeros(sess.scheduler.num_blocks, dtype=torch.float32,
                          device=dev) if boost is None
              else torch.as_tensor(boost, dtype=torch.float32, device=dev))
+    if sess.telemetry is not None:
+        state = state + (device_buffers(sess.telemetry.capacity,
+                                        len(groups), dev),)
     return (state,
             tuple(g.push_scale for g in groups),
             tuple(g.graph.tiles for g in groups),
@@ -465,9 +600,11 @@ def _run_device(policy: SchedulePolicy, sess,
     m = RunMetrics()
     while True:
         t_chunk = trace.now_us() if trace else 0.0
-        state, un = step_fn(state, *args, budget, seed, pos)
-        # the ONE host read of the chunk: (it, unconverged_total) together
-        it_h, un_h = torch.stack([state[0], un.to(torch.int64)]).tolist()
+        with _profiler_span(sess, "device_chunk"):
+            state, un = step_fn(state, *args, budget, seed, pos)
+            # the ONE host read of the chunk: (it, unconverged_total)
+            it_h, un_h = torch.stack([state[0],
+                                      un.to(torch.int64)]).tolist()
         m.host_syncs += 1
         if trace:
             trace.complete("device_chunk", t_chunk,
@@ -479,14 +616,24 @@ def _run_device(policy: SchedulePolicy, sess,
     for gi, g in enumerate(groups):
         g.values, g.deltas = state[1][gi], state[2][gi]
     m.supersteps = it_h
-    loads_h, pushes_h, pair_loads_h = torch.stack(
-        [state[3], state[4], state[5]]).tolist()
-    m.tile_loads = int(loads_h)
-    m.job_block_pushes = int(pushes_h)
-    m.tile_pair_loads = int(pair_loads_h)
     m.converged = un_h == 0
-    m.iterations_per_job = np.concatenate(
-        [x.cpu().numpy().astype(np.int64) for x in state[6]])
+    # the run's totals, iteration counts and series in one read (float64
+    # holds the counts exactly up to 2^53)
+    parts = [torch.stack([state[3], state[4], state[5]]).to(torch.float64)]
+    parts += [x.to(torch.float64) for x in state[6]]
+    if sess.telemetry is not None:
+        parts.append(device_rows(state[8], it_h).reshape(-1))
+    flat = torch.cat(parts).cpu().numpy()
+    m.tile_loads, m.job_block_pushes, m.tile_pair_loads = (
+        int(x) for x in flat[:3])
+    n_iters = sum(g.capacity for g in groups)
+    m.iterations_per_job = flat[3:3 + n_iters].astype(np.int64)
+    if sess.telemetry is not None:
+        m.telemetry = series_from_rows(
+            flat[3 + n_iters:].reshape(
+                min(it_h, sess.telemetry.capacity),
+                len(SERIES_FIELDS) + 2 * len(groups)),
+            it_h, sess.telemetry.capacity, [g.key for g in groups])
     return m
 
 

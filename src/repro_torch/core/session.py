@@ -46,6 +46,7 @@ from repro_torch.graph.structure import (BlockedGraph, BlockPairs, CSRGraph,
                                          TileOverlay, build_block_pairs,
                                          build_blocked, empty_overlay)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs.telemetry import TelemetryConfig
 from repro_torch.obs.trace import TraceRecorder
 
 
@@ -127,16 +128,16 @@ class GraphSession:
                  alpha: float = DEFAULT_ALPHA, samples: int = DEFAULT_SAMPLES,
                  seed: int = 0, use_pallas: Optional[bool] = None,
                  overlay_capacity: int = 32, telemetry=None, device=None):
-        if telemetry not in (None, False):
-            raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP A9, observability)")
         self.device = resolve_device(device)
         self._csr = csr
-        self.telemetry = None
-        # trace events (submit/detach, supersteps, apply_updates,
-        # compactions) record only with telemetry on, as in the
-        # reference; telemetry is not ported yet (ROADMAP A9)
-        self.trace = TraceRecorder(enabled=False)
+        # observability: telemetry=True / TelemetryConfig(...) turns on
+        # the per-superstep series and, with cfg.trace, the trace events
+        # (submit/detach, supersteps, apply_updates, compactions);
+        # None/False (the default) leaves both drivers as they are
+        self.telemetry: Optional[TelemetryConfig] = \
+            TelemetryConfig.coerce(telemetry)
+        self.trace = TraceRecorder(
+            enabled=self.telemetry is not None and self.telemetry.trace)
         self.trace.name_thread(2, "supersteps")
         self.block_size = block_size
         self._capacity0 = max(1, int(capacity))   # initial per-view capacity
@@ -462,18 +463,21 @@ class GraphSession:
         `TwoLevel(backend="device", steps_per_sync=inf)` share one entry
         while a subclass overriding `device_select` gets its own),
         steps_per_sync, the view keys, per-view capacities, overlay
-        capacities, q, alpha, samples and the kernel toggle.  Repeated
-        run() calls and submit/detach cycles at unchanged capacity reuse
-        the entry."""
+        capacities, q, alpha, samples, the kernel toggle and the telemetry
+        capacity (0 when off, so a telemetry-off session runs the chunk
+        without the series and an on/off pair never shares an entry).
+        Repeated run() calls and submit/detach cycles at unchanged
+        capacity reuse the entry."""
         from repro_torch.core.policy import build_device_step
         groups = self.view_groups()
+        tel_cap = self.telemetry.capacity if self.telemetry else 0
         key = ("superstep", type(policy).device_select, policy.needs_pairs,
                policy.steps_per_sync,
                tuple(g.key for g in groups),
                tuple(g.capacity for g in groups),
                tuple(g.overlay.capacity for g in groups),
                self.q, float(self.alpha), int(self.samples),
-               self.use_pallas)
+               self.use_pallas, tel_cap)
         if key not in self._jit_cache:
             self._jit_cache[key] = build_device_step(policy, self)
         return self._jit_cache[key]
@@ -502,12 +506,41 @@ class GraphSession:
         m = policy.run(self, max_supersteps)
         self._drain_stream_stats(m)
         if self.trace.enabled:
-            self.trace.complete("run", t_run, self.trace.now_us() - t_run,
-                                cat="run", policy=policy.name, **m.to_dict())
-            if m.converged:
-                self.trace.instant("converged", cat="run",
-                                   supersteps=int(m.supersteps))
+            self._trace_run(policy, m, t_run)
         return m
+
+    def _trace_run(self, policy, m: RunMetrics, t_run: float) -> None:
+        """One run() span + counter tracks from the telemetry series."""
+        dur = self.trace.now_us() - t_run
+        self.trace.complete("run", t_run, dur, cat="run",
+                            policy=policy.name, **m.to_dict())
+        if m.converged:
+            self.trace.instant("converged", cat="run",
+                               supersteps=int(m.supersteps))
+        tel = m.telemetry
+        if tel is None or len(tel) == 0:
+            return
+        # counter samples interpolated across the run span (the device
+        # backend has no per-superstep wall clock); the stride caps the
+        # event volume of very long runs
+        k = len(tel)
+        stride = max(1, k // 2000)
+        for i in range(0, k, stride):
+            ts = t_run + dur * (i + 1) / k
+            vals = {"active_jobs": int(tel.active_jobs[i]),
+                    "tile_loads": int(tel.tile_loads[i]),
+                    "job_block_pushes": int(tel.job_block_pushes[i]),
+                    "gq_occupancy": int(tel.gq_occupancy[i]),
+                    "dirty_blocks": int(tel.dirty_blocks[i]),
+                    "tile_pair_loads": int(tel.tile_pair_loads[i]),
+                    "halo_bytes": float(tel.halo_bytes[i])}
+            self.trace.counter("telemetry", vals, ts_us=ts)
+            for gi in range(tel.num_groups):
+                self.trace.counter(
+                    f"group{gi}",
+                    {"unconverged": int(tel.unconverged[i, gi]),
+                     "max_residual": float(tel.max_residual[i, gi])},
+                    ts_us=ts)
 
     def step(self, policy: Optional[SchedulePolicy] = None) -> RunMetrics:
         """A single superstep under `policy`."""

@@ -538,10 +538,11 @@ def test_b3_b4_cuda_tensors_never_reach_plain_versions(cuda, monkeypatch):
 # --- the device scheduling backend on the card ------------------------------
 
 
-def _device_session(device, csr):
+def _device_session(device, csr, telemetry=None):
     from repro_torch.algorithms import SSSP, PageRank, PersonalizedPageRank
     from repro_torch.core import GraphSession
-    sess = GraphSession(csr, 16, capacity=2, seed=5, device=device)
+    sess = GraphSession(csr, 16, capacity=2, seed=5, device=device,
+                        telemetry=telemetry)
     hs = [sess.submit(a) for a in (PageRank(), PersonalizedPageRank(source=3),
                                    SSSP(source=3), SSSP(source=40))]
     return sess, hs
@@ -750,3 +751,71 @@ def test_structural_batch_then_compaction_under_fused_on_the_card(cuda):
         for f in ("src", "dst", "tiles", "run_start", "chunk_start",
                   "chunk_run"):
             assert torch.equal(getattr(ps, f), getattr(pf, f)), f
+
+
+# --- telemetry and the serve front on the card ------------------------------
+
+
+def test_fused_with_telemetry_on_the_card(cuda):
+    """Fused() with telemetry through the kernels: the same schedule and
+    bit-identical state as without it, the series sums equal the run
+    totals, and one chunk with the series forces no host sync."""
+    from repro_torch.core import Fused
+    from repro_torch.core.policy import device_inputs
+    csr = rmat_graph(400, 4, seed=13)
+    ms, states = {}, {}
+    for tel in (None, True):
+        sess, _ = _device_session(None, csr, telemetry=tel)
+        ms[tel] = sess.run(Fused(), 20000)
+        states[tel] = [(g.values, g.deltas) for g in sess.view_groups()]
+    m = ms[True]
+    assert m.converged and len(m.telemetry) == m.supersteps
+    for f in ("supersteps", "tile_loads", "tile_pair_loads", "host_syncs"):
+        assert getattr(m, f) == getattr(ms[None], f), f
+    for (v1, d1), (v0, d0) in zip(states[True], states[None]):
+        assert torch.equal(v1, v0) and torch.equal(d1, d0)
+    tel = m.telemetry
+    assert int(tel.tile_loads.sum()) == m.tile_loads
+    assert int(tel.job_block_pushes.sum()) == m.job_block_pushes
+    assert int(tel.tile_pair_loads.sum()) == m.tile_pair_loads
+
+    sess, _ = _device_session(None, csr, telemetry=True)
+    step_fn = sess._device_step_fn(Fused())
+    state, *args = device_inputs(sess)
+    state, un = step_fn(state, *args, 1000, 5, 0)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, un = step_fn(state, *args, 1000, 5, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    it_h = int(state[0].item())
+    rows = state[8][:, 1].cpu().numpy()                 # tile_loads
+    assert it_h > 16 and (rows[:it_h] > 0).all() and (rows[it_h:] == 0).all()
+
+
+def test_serve_harness_on_the_card_matches_the_cpu(cuda):
+    """The open-loop harness (host TwoLevel, B1/B2 through the session)
+    on the card admits and completes the same requests at the same ticks
+    as the same harness on the CPU."""
+    from repro_torch.core import GraphSession
+    from repro_torch.obs import LoadgenConfig, OpenLoopHarness
+    from repro_torch.serve import ConcurrentServeScheduler
+    logs = {}
+    for dev in ("cpu", None):
+        csr = rmat_graph(192, 5, seed=9)
+        sess = GraphSession(csr, 32, capacity=3, seed=3, device=dev)
+        sched = ConcurrentServeScheduler(-(-csr.n // 32), batch_budget=3,
+                                         seed=5)
+        h = OpenLoopHarness(sess, sched, LoadgenConfig(
+            seed=11, ticks=90, base_rate=0.25, n_tenants=30,
+            update_every=30), max_running=3)
+        fk.reset_launches()
+        s = h.run()
+        if dev is None:
+            assert sess.use_pallas
+            assert fk.launches["plus_times"] > 0
+            assert fk.launches["min_plus"] > 0
+        assert s["admitted"] == s["completed"] == s["arrivals"] > 0
+        logs[dev] = (h.admission_log, h.completion_log)
+    assert logs[None] == logs["cpu"]

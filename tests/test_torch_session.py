@@ -247,8 +247,9 @@ def test_session_needs_explicit_cpu_without_cuda(monkeypatch):
 
 def test_unported_options_raise():
     csr = tg.chain_graph(32)
-    with pytest.raises(NotImplementedError):
-        tc.GraphSession(csr, 16, device="cpu", telemetry=True)
+    # telemetry is ported (repro_torch.obs.telemetry)
+    assert tc.GraphSession(csr, 16, device="cpu",
+                           telemetry=True).telemetry is not None
     sess = tc.GraphSession(csr, 16, device="cpu")
     h = sess.submit(ta.SSSP())
     with pytest.raises(NotImplementedError):
