@@ -105,6 +105,30 @@ Phases (any failure exits non-zero before the last line is printed):
    ticks (overall and by family), wall, ms per tick and per superstep,
    B1/B2 launches (the `serve` entry of `launches_by_path`) and the
    peak device memory.
+8. The multi-device engine at full size (repro_torch.dist), after phase
+   7's sessions are freed: ranks are processes sharing the card over
+   gloo (`dist.world.run_world`), each building the session in turn and
+   keeping its slices (`GraphSession.run(mesh=...)`).  Once placed,
+   every rank holds B1/B2 on its own pair shard (local destinations,
+   the shard's run and chunk tables) against the plain version at the
+   mesh path's shapes, d at [J, B_N, Vb] and base/values at [J, B_loc,
+   Vb], at phase 2's bars (`shard_kernels`).  8a: a (1 x 4)
+   blocks mesh with both views and phase 3's four jobs under TwoLevel(),
+   Fused() and Fused() with the int8 frontier exchange; 8b: a (2 x 2)
+   mesh, the min-plus view alone with four SSSP jobs, under
+   TwoLevel(backend="device", steps_per_sync=8), then half the run, a
+   snapshot (`dist.fault.checkpoint_session`), the rest, and the
+   snapshot restored here onto one device and finished; 8c: a (2,) job
+   mesh with the same jobs under TwoLevel(), held bit for bit (results,
+   supersteps, tile_loads, tile_pair_loads) to a one-device run here.
+   Every run is checked as in phase 3 (SSSP bit-equal to Dijkstra),
+   halo_bytes under the frontier bound, B1/B2 launched on every rank;
+   it prints wall, ms per superstep, host syncs, collectives per
+   superstep and their host time, halo bytes per superstep, each
+   shard's real pairs against pair_cap, each rank's set-up time and
+   device memory, the phase's nvidia-smi peak and a gloo all_reduce's
+   time with the ranks lined up.  B1/B2 launches over every rank and
+   run are the `mesh` entry of `launches_by_path`.
 
 Then one JSON line of kernel figures, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -167,6 +191,10 @@ SERVE_STEPS_PER_TICK = 8
 SERVE_LOAD = dict(seed=33, ticks=240, base_rate=0.4, burst_amplitude=0.6,
                   burst_period=60, n_tenants=64, update_every=80)
 SERVE_PT_CHECKED = 3           # PageRank/PPR results held per run
+# phase 8: the multi-device engine, ranks sharing the card over gloo
+MESH_RANKS = 4
+MESH_SSSP_SOURCES = (0, 4097, 8192, 49152)   # 8b/8c: the min-plus view only
+MESH_THREADS = 2               # intra-op CPU threads a rank (8 cores, 4 ranks)
 TELEMETRY_PAIRS = 20           # interleaved off/on timings of telemetry
 HOST_TIMED_STEPS = 8           # supersteps per timed TwoLevel() run
 # back-to-back calls per timed run, so that a run lasts about 1 ms or more
@@ -602,20 +630,25 @@ def check_results(sess, handles, csr, refs, label):
     """Phase 3's checks of a run's results: SSSP bit-equal to scipy's
     Dijkstra, PageRank/PPR within rtol 5e-3, atol 1e-4 of the float64
     power iteration."""
-    res = [sess.result(h) for h in handles]
+    check_values([sess.result(h) for h in handles],
+                 [h.alg for h in handles], csr, refs, label)
+
+
+def check_values(res, algs, csr, refs, label):
+    """`check_results` on results already read (`algs` the jobs')."""
     for r in res:
         if r.shape != (csr.n,) or r.dtype != np.float32:
             raise RuntimeError(f"result shape/dtype {r.shape} {r.dtype}")
-    for r, h, want in zip(res, handles, refs):
-        if h.alg.semiring == "min_plus":
+    for r, alg, want in zip(res, algs, refs):
+        if alg.semiring == "min_plus":
             np.testing.assert_array_equal(r, want)
-            log(f"{label}: SSSP(source={h.alg.source}) bit-equal to scipy "
+            log(f"{label}: SSSP(source={alg.source}) bit-equal to scipy "
                 f"dijkstra ({int(np.isfinite(want).sum())} reachable)")
         else:
             if not np.isfinite(r).all():
-                raise RuntimeError(f"{h.alg.name}: non-finite result")
+                raise RuntimeError(f"{alg.name}: non-finite result")
             np.testing.assert_allclose(r, want, rtol=5e-3, atol=1e-4)
-            log(f"{label}: {h.alg.name} within rtol 5e-3, atol 1e-4 of the "
+            log(f"{label}: {alg.name} within rtol 5e-3, atol 1e-4 of the "
                 f"float64 power iteration (max |err| "
                 f"{np.abs(r - want).max():.3g})")
 
@@ -1643,6 +1676,381 @@ def serve_phase(torch, csr, fk, out_dir):
     return totals
 
 
+# -- phase 8: the multi-device engine ---------------------------------------
+
+
+class MemoryPoll:
+    """The card's peak `nvidia-smi` memory.used (MiB) while a phase runs:
+    a thread polls every 0.5 s until stopped."""
+
+    def __init__(self):
+        import threading
+        self.peak_mib = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def _read(self) -> int:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60)
+        return int(out.stdout.split()[0])
+
+    def _poll(self):
+        while not self._stop.is_set():
+            self.peak_mib = max(self.peak_mib, self._read())
+            self._stop.wait(0.5)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_mib = max(self.peak_mib, self._read())
+
+
+def mesh_algs(views: int):
+    """Phase 8's jobs: the main path's four (two views) or four SSSP
+    sources on the min-plus view alone."""
+    from repro_torch.algorithms import PageRank, PersonalizedPageRank, SSSP
+    if views == 2:
+        return [PageRank(), PersonalizedPageRank(source=PPR_SOURCE)] + [
+            SSSP(source=s) for s in SSSP_SOURCES]
+    return [SSSP(source=s) for s in MESH_SSSP_SOURCES]
+
+
+def mesh_policy(name: str):
+    from repro_torch.core import Fused, TwoLevel
+    return {"TwoLevel()": TwoLevel, "Fused()": Fused,
+            "TwoLevel(device, 8)": lambda: TwoLevel(
+                backend="device", steps_per_sync=DEVICE_CADENCE)}[name]()
+
+
+def shard_kernels(torch, sess, rank: int) -> dict:
+    """B1/B2 on this rank's placed pair shard (`PairShards.local`: local
+    dst, the shard's run and chunk tables, the inert pad of an empty
+    shard) at the shapes the mesh path gives them, d at [J, B_N, Vb] and
+    base/values at [J, B_loc, Vb], against the plain version on the same
+    inputs at phase 2's bars on the rows the shard touches.  Raises on a
+    mismatch; returns max |err| per semiring.  Runs before the timed
+    runs, whose launch counts start at 0."""
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
+    from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
+    rng = np.random.default_rng(23 + rank)
+    errs = {}
+    for g in sess.view_groups():
+        sr, ps = g.semiring, sess._pair_shards(g)
+        lp = ps.local
+        j, b_loc, vb = g.values.shape
+        d, base, vals = random_state(torch, rng, j, ps.num_blocks, b_loc, vb,
+                                     sr, sess.device)
+        jb = _pick_job_block(j, vb, sr)
+        got = fk.fused_superstep_call(
+            lp.src, lp.dst, lp.first, lp.last, d, base, lp.tiles,
+            values=vals, run_start=lp.run_start,
+            chunk_start=lp.chunk_start, chunk_run=lp.chunk_run,
+            arrivals=lp.arrivals(j // jb), semiring=sr, job_block=jb)
+        torch.cuda.synchronize()
+        want = fused_superstep_ref(lp.src, lp.dst, lp.first, lp.last, d,
+                                   base, lp.tiles, values=vals, semiring=sr)
+        errs[sr] = compare(sr, got, want, lp.dst_touched.cpu().numpy())
+        log(f"  rank {rank}: {sr} B1/B2 on shard {ps.shard} of "
+            f"{ps.num_shards} (J={j} jb={jb} B_loc={b_loc} d at "
+            f"B_N={ps.num_blocks}, P={lp.num_pairs}) matches plain (max "
+            f"|err| {errs[sr]:.3g})")
+    return errs
+
+
+def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
+    """One rank of a phase-8 world (every rank runs it; the ranks share
+    the card over gloo).  The ranks build the session in turn behind a
+    barrier, each placing it (keeping its slices, freeing the rest)
+    before the next builds; then every run of `plan` goes through
+    `GraphSession.run(mesh=...)` with the B1/B2 counts set to 0 just
+    before and read just after.  Returns rank 0's results and every
+    rank's figures."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import GraphSession
+    from repro_torch.dist.fault import checkpoint_session
+    from repro_torch.dist.graph import make_job_mesh, shard_session
+    from repro_torch.dist.mesh2d import make_mesh2d
+    from repro_torch.kernels.fused_superstep import kernel as fk
+
+    def everyone(x):
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, x)
+        return out
+
+    world = dist.get_world_size()
+    mesh = (make_job_mesh() if plan["mesh"] == "jobs"
+            else make_mesh2d(*plan["mesh"]))
+    mesh_ready = time.time()      # the wall clock: comparable across ranks
+    t0 = time.perf_counter()
+    for turn in range(world):
+        if turn == rank:
+            sess = GraphSession(csr, BLOCK, capacity=CAPACITY, seed=0)
+            handles = [sess.submit(a) for a in mesh_algs(plan["views"])]
+            torch.cuda.synchronize()
+            t_views = time.perf_counter()
+            shard_session(mesh, sess)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            build_peak = torch.cuda.max_memory_allocated()
+            log(f"  rank {rank}: views built and placed at "
+                f"{t_views - t0:.1f} / {time.perf_counter() - t0:.1f} s "
+                f"(build peak {build_peak / 1e9:.2f} GB, held "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+        dist.barrier()
+    setup_s = time.perf_counter() - t0
+    shard_err = shard_kernels(torch, sess, rank)
+
+    def collective_ms(numel, device, reps=10):
+        """ms per gloo all_reduce of `numel` float32 on `device` over the
+        world, the ranks lined up by a barrier first."""
+        t = torch.zeros(numel, device=device)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(t)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t1) / reps
+
+    frontier = max(g.values.shape[0] for g in sess.view_groups()) * sess.q \
+        * BLOCK
+    shards = {g.semiring: sess._pair_shards(g) for g in sess.view_groups()}
+    mine = dict(
+        setup_s=setup_s, build_peak=build_peak,
+        held=torch.cuda.memory_allocated(),
+        tile_bytes={sr: ps.tile_bytes for sr, ps in shards.items()},
+        ell_bytes={g.semiring: g.graph.tiles.numel() * 4
+                   for g in sess.view_groups()},
+        jobs_local={g.semiring: int(g.values.shape[0])
+                    for g in sess.view_groups()},
+        shard_err=shard_err, runs=[])
+    info = dict(q=sess.q, num_blocks=sess.scheduler.num_blocks,
+                mesh_ready_s=mesh_ready - world_t0,
+                collective_ms={(n, dev): collective_ms(n, dev)
+                               for dev in (sess.device, "cpu")
+                               for n in (4096, frontier)},
+                capacities=[g.capacity for g in sess.view_groups()],
+                shard_pairs={sr: ps.shard_pairs for sr, ps in shards.items()},
+                pair_cap={sr: ps.pair_cap for sr, ps in shards.items()},
+                runs=[])
+
+    def timed(label, policy, budget=MAX_SUPERSTEPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        m = sess.run(policy, budget, mesh=mesh)
+        wall = time.perf_counter() - t0
+        launches = dict(fk.launches)
+        mine["runs"].append(dict(
+            label=label, launches=launches,
+            peak=torch.cuda.max_memory_allocated(),
+            collective_s=m.collective_s))
+        results = [sess.result(h) for h in handles]
+        info["runs"].append(dict(
+            label=label, wall=wall, metrics=m.to_dict(),
+            collectives=m.collectives, collective_s=m.collective_s,
+            results=results))
+        return m
+
+    for i, (label, name, compress) in enumerate(plan["runs"]):
+        if i:
+            handles = resubmit(torch, sess, handles)
+            sess.scheduler.reset()
+        if compress:
+            shard_session(mesh, sess, compress_halo=True)
+        timed(label, mesh_policy(name))
+        if compress:
+            shard_session(mesh, sess)
+    if plan.get("checkpoint"):
+        # half the run, a snapshot, then the rest (same stream: the same
+        # total supersteps as the full run above)
+        label, name = plan["checkpoint"]
+        total = info["runs"][-1]["metrics"]["supersteps"]
+        handles = resubmit(torch, sess, handles)
+        sess.scheduler.reset()
+        pre = timed(label + " first half", mesh_policy(name), total // 2)
+        info["snapshot"] = checkpoint_session(sess)
+        info["snapshot_supersteps"] = pre.supersteps
+        timed(label + " resumed", mesh_policy(name))
+    info["ranks"] = everyone(mine)
+    return info
+
+
+def mesh_world(torch, csr, label, plan, out_dir):
+    """Run one phase-8 world of ranks on the card; returns rank 0's
+    figures with the phase's nvidia-smi peak and wall."""
+    from repro_torch.dist.world import choose_backend, run_world
+    world = 2 if plan["mesh"] == "jobs" else plan["mesh"][0] * \
+        plan["mesh"][1]
+    log(f"{label}: {world} ranks on {torch.cuda.device_count()} card(s) "
+        f"over {choose_backend('cuda', world)}")
+    t0 = time.perf_counter()
+    with MemoryPoll() as mem:
+        out = run_world(mesh_rank, world, device="cuda",
+                        store_dir=str(out_dir / "mesh"),
+                        args=(csr, plan, time.time()),
+                        threads=MESH_THREADS)
+    out["wall"] = time.perf_counter() - t0
+    out["smi_peak_mib"] = mem.peak_mib
+    return out
+
+
+def report_mesh(label, out, csr, refs, views):
+    """Phase 8's checks and figures of one world: every run's results
+    against the phase-3 references, halo_bytes under the frontier bound,
+    B1/B2 launched on every rank.  Returns the runs' B1/B2 launches
+    summed over the ranks."""
+    log(f"{label}: world wall {out['wall']:.3f} s (spawn, builds, runs); "
+        f"rank 0 on its mesh {out['mesh_ready_s']:.1f} s after the spawn; "
+        f"peak nvidia-smi memory {out['smi_peak_mib']} MiB")
+    log(f"{label}: gloo all_reduce over the world, ranks lined up: " +
+        ", ".join(f"{4 * n / 1e3:.0f} KB on {dev} {ms:.3f} ms"
+                  for (n, dev), ms in out["collective_ms"].items()))
+    for sr, pairs in out["shard_pairs"].items():
+        log(f"{label}: view {sr} real pairs per block shard {list(pairs)} "
+            f"(total {sum(pairs)}), pair_cap {out['pair_cap'][sr]}")
+    for r, mine in enumerate(out["ranks"]):
+        log(f"{label}: rank {r}: B1/B2 on its shard match plain (max |err| "
+            f"{mine['shard_err']})")
+        log(f"{label}: rank {r}: set-up {mine['setup_s']:.2f} s; jobs "
+            f"{mine['jobs_local']}; pair tiles "
+            f"{ {k: round(v / 1e9, 3) for k, v in mine['tile_bytes'].items()} }"
+            f" GB, ELL rows "
+            f"{ {k: round(v / 1e9, 3) for k, v in mine['ell_bytes'].items()} }"
+            f" GB; held {mine['held'] / 1e9:.2f} GB after placement, build "
+            f"peak {mine['build_peak'] / 1e9:.2f} GB, run peaks "
+            f"{[round(x['peak'] / 1e9, 2) for x in mine['runs']]} GB")
+    bound_per_step = (sum(c * out["q"] * BLOCK * 4 for c in out["capacities"])
+                      + 8 * out["num_blocks"])
+    totals = {sr: 0 for sr in SEMIRINGS}
+    for i, run in enumerate(out["runs"]):
+        m = run["metrics"]
+        steps = max(1, m["supersteps"])
+        tag = f"{label} {run['label']}"
+        log(f"{tag}: converged={m['converged']} supersteps="
+            f"{m['supersteps']} tile_loads={m['tile_loads']} "
+            f"tile_pair_loads={m['tile_pair_loads']} host_syncs="
+            f"{m['host_syncs']}; wall {run['wall']:.3f} s, "
+            f"{1e3 * run['wall'] / steps:.3f} ms/superstep; collectives "
+            f"{run['collectives'] / steps:.2f}/superstep, "
+            f"{1e3 * run['collective_s'] / steps:.3f} ms/superstep of host "
+            f"time ({100 * run['collective_s'] / max(run['wall'], 1e-9):.1f}%"
+            f" of wall); halo_bytes {m['halo_bytes']:.0f} = "
+            f"{m['halo_bytes'] / steps:.0f}/superstep (bound "
+            f"{bound_per_step}/superstep)")
+        if m["halo_bytes"] > steps * bound_per_step:
+            raise RuntimeError(f"{tag}: halo_bytes over the frontier bound")
+        if out["runs"][0]["metrics"]["supersteps"] and not (
+                m["halo_bytes"] > 0 or label.startswith("8c")):
+            raise RuntimeError(f"{tag}: no frontier was exchanged")
+        for r, mine in enumerate(out["ranks"]):
+            ln = mine["runs"][i]["launches"]
+            for sr in SEMIRINGS:
+                totals[sr] += ln[sr]
+            wanted = (SEMIRINGS if label.startswith("8a")
+                      else ("min_plus",))
+            for sr in wanted:
+                if ln[sr] <= 0:
+                    raise RuntimeError(f"{tag}: rank {r} launched no "
+                                       f"{sr} kernel")
+        log(f"{tag}: B1/B2 launches per rank "
+            f"{[mine['runs'][i]['launches'] for mine in out['ranks']]}")
+        budget_cut = "first half" in run["label"]
+        if not budget_cut:
+            if not m["converged"]:
+                raise RuntimeError(f"{tag}: no convergence")
+            check_values(run["results"], mesh_algs(views), csr, refs, tag)
+    return totals
+
+
+def mesh_phase(torch, csr, refs, fk, out_dir):
+    """Phase 8: the multi-device engine at full size, ranks sharing the
+    card over gloo.  8a: (1 x 4) blocks mesh, both views, TwoLevel(),
+    Fused() and Fused() with compress_halo; 8b: (2 x 2), the min-plus
+    view alone, four SSSP jobs under TwoLevel(device, 8), then half the
+    run, a snapshot, the rest, and the snapshot restored here onto one
+    device; 8c: job mesh (2,), the same jobs under TwoLevel(), bit-equal
+    to a one-device run here with the same supersteps and tile_loads.
+    Returns B1/B2 launches summed over every rank and run, and the
+    largest |err| of B1/B2 against the plain version on any rank's
+    shard."""
+    from repro_torch.core import GraphSession, TwoLevel
+    from repro_torch.dist.fault import restore_session
+    t_phase = time.perf_counter()
+    sssp = list(sssp_ref(csr, MESH_SSSP_SOURCES).astype(np.float32))
+    totals = {sr: 0 for sr in SEMIRINGS}
+    worlds = [
+        ("8a (1 x 4)", dict(mesh=(1, MESH_RANKS), views=2, runs=[
+            ("TwoLevel()", "TwoLevel()", False),
+            ("Fused()", "Fused()", False),
+            ("Fused() compress_halo", "Fused()", True)]), refs),
+        ("8b (2 x 2)", dict(mesh=(2, 2), views=1, runs=[
+            ("TwoLevel(device, 8)", "TwoLevel(device, 8)", False)],
+            checkpoint=("TwoLevel(device, 8)", "TwoLevel(device, 8)")),
+         sssp),
+        ("8c (2,) jobs", dict(mesh="jobs", views=1, runs=[
+            ("TwoLevel()", "TwoLevel()", False)]), sssp)]
+    outs = {}
+    errs = {sr: 0.0 for sr in SEMIRINGS}
+    for label, plan, want in worlds:
+        out = mesh_world(torch, csr, label, plan, out_dir)
+        for sr, n in report_mesh(label, out, csr, want,
+                                 plan["views"]).items():
+            totals[sr] += n
+        for mine in out["ranks"]:
+            for sr, e in mine["shard_err"].items():
+                errs[sr] = max(errs[sr], e)
+        outs[label[:2]] = out
+    # one device here: 8c's reference run, then 8b's snapshot restored
+    t0 = time.perf_counter()
+    sess = GraphSession(csr, BLOCK, capacity=CAPACITY, seed=0)
+    handles = [sess.submit(a) for a in mesh_algs(1)]
+    torch.cuda.synchronize()
+    log(f"8c/8b one-device session built in {time.perf_counter() - t0:.2f}"
+        f" s")
+    m, wall, launches, peak = drive(torch, sess, TwoLevel(), fk)
+    report_run(torch, "8c one device", m, wall,
+               {"min_plus": launches["min_plus"]}, peak)
+    got = outs["8c"]["runs"][0]
+    for k in ("supersteps", "tile_loads", "tile_pair_loads"):
+        if got["metrics"][k] != m.to_dict()[k]:
+            raise RuntimeError(f"8c: {k} {got['metrics'][k]} on the job "
+                               f"mesh, {m.to_dict()[k]} on one device")
+    for r, h in zip(got["results"], handles):
+        np.testing.assert_array_equal(r, sess.result(h))
+    log("8c: the job mesh equals one device bit for bit (results, "
+        "supersteps, tile_loads, tile_pair_loads)")
+    snap = outs["8b"]["snapshot"]
+    handles = resubmit(torch, sess, handles)
+    restore_session(sess, snap)
+    m, wall, launches, peak = drive(torch, sess, mesh_policy(
+        "TwoLevel(device, 8)"), fk)
+    report_run(torch, "8b restored onto one device", m, wall,
+               {"min_plus": launches["min_plus"]}, peak)
+    check_results(sess, handles, csr, sssp, "8b restored onto one device")
+    log(f"8b: snapshot after {outs['8b']['snapshot_supersteps']} supersteps "
+        f"on (2 x 2), {m.supersteps} more on one device; the mesh's own "
+        f"resumed run took "
+        f"{outs['8b']['runs'][-1]['metrics']['supersteps']} more")
+    del sess, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return totals, errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -1777,6 +2185,11 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     serve_launches = serve_phase(torch, csr, fk, out_dir)
 
+    # -- phase 8: the multi-device engine (ranks sharing the card) ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_errs = mesh_phase(torch, csr, refs, fk, out_dir)
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -1784,13 +2197,16 @@ def main() -> int:
             "name": f"fused_superstep_{sr}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES[sr],
             "launches": (launches[sr] + dev_launches[sr]
-                         + stream_launches[sr] + serve_launches[sr]),
+                         + stream_launches[sr] + serve_launches[sr]
+                         + mesh_launches[sr]),
             "launches_by_path": {"host_two_level": launches[sr],
                                  "device_fused": dev_launches[sr],
                                  "stream": stream_launches[sr],
-                                 "serve": serve_launches[sr]},
-            "max_abs_err": max([f["max_abs_err"]] + [
+                                 "serve": serve_launches[sr],
+                                 "mesh": mesh_launches[sr]},
+            "max_abs_err": max([f["max_abs_err"], mesh_errs[sr]] + [
                 x["max_abs_err"] for x in sel_figures[sr]]),
+            "mesh_shard_max_abs_err": mesh_errs[sr],
             "ms": f["ms"], "kernel_ms": f["ms"], "device_ms": f["ms"],
             "host_ms_per_call": f["host_ms_per_call"],
             "queued": f["queued"], "plain_ms": f["plain_ms"],

@@ -150,3 +150,19 @@ def load_overlay(sess: GraphSession, view_key: tuple, capacity: int, src_u,
         grp.ov_entry = {(int(u), int(v)): (int(b), int(c))
                         for (u, v), (b, c) in (ov_entry or {}).items()}
     return grp
+
+
+def snapshot_from_repro(snapshot: dict) -> dict:
+    """The port's `dist.fault.checkpoint_session` snapshot from the
+    reference's (`repro.dist.fault.checkpoint_session`, its arrays read
+    to numpy): view keys as tuples, values/deltas as float32 numpy, the
+    stream position as an int.  The reference keeps no host generator
+    state in its snapshot, so a restore continues the stream position
+    only.  `dist.fault.restore_session` then loads it into a port
+    session, on a mesh or on one device."""
+    return {"keys": [tuple(k) for k in snapshot["keys"]],
+            "values": [np.array(v, dtype=np.float32)
+                       for v in snapshot["values"]],
+            "deltas": [np.array(d, dtype=np.float32)
+                       for d in snapshot["deltas"]],
+            "step": int(snapshot["step"]), "rng": None}

@@ -109,14 +109,23 @@ def step_key(seed: int, position):
     return fold_in(seed_key(seed), position)
 
 
-def uniform_noise(key, group: int, shape, device) -> torch.Tensor:
+def uniform_noise(key, group: int, shape, device, *, job0: int = 0,
+                  shard=None) -> torch.Tensor:
     """[J, B_N] float32 noise for one view group's DO sampling at one
     superstep: uniform on the integers [0, 2^24), exact in float32,
     drawn from `key` (an int or an int64 0-dim tensor) and the
-    (group, job, block) counters."""
+    (group, job, block) counters.
+
+    On a mesh (`dist.mesh2d`) a rank draws for its slice: rows are the
+    GLOBAL jobs job0 .. job0 + J - 1, and a block shard's draw is keyed
+    by its index (`shard`, None for the whole block axis), so a job mesh
+    draws exactly what one device draws for the same jobs."""
     j, bn = shape
     k = fold_in(key, group)
-    rows = fold_in(k, torch.arange(j, dtype=torch.int64, device=device))
+    if shard is not None:
+        k = fold_in(k, shard)
+    jobs = torch.arange(j, dtype=torch.int64, device=device)
+    rows = fold_in(k, jobs + job0 if job0 else jobs)
     x = fold_in(rows[:, None],
                 torch.arange(bn, dtype=torch.int64, device=device)[None, :])
     return (x >> 8).to(torch.float32)

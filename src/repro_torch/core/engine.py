@@ -179,10 +179,17 @@ class ConcurrentEngine:
     # -- results -------------------------------------------------------------
 
     def results(self) -> np.ndarray:
-        """[J, n_real] per-job algorithm results."""
+        """[J, n_real] per-job algorithm results.  After a run on a mesh
+        `self.run` holds this rank's slice (`dist.graph.shard_run`'s
+        layout) and the results are gathered: a collective, so every
+        rank calls it."""
         r = self.run
+        values, deltas = r.values, r.deltas
+        if self.session._mesh2d is not None:
+            values, deltas = self.session._full_state(
+                self.session._sole_group())
         out = []
         for j, a in enumerate(r.algs):
-            res = a.result(r.values[j], r.deltas[j])
+            res = a.result(values[j], deltas[j])
             out.append(res.reshape(-1)[:r.graph.n_real].cpu().numpy())
         return np.stack(out)

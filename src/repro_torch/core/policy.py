@@ -41,6 +41,16 @@ numbers whatever the chunk length and wherever runs begin and end.
 per superstep including the final all-converged poll; device backend: one
 per chunk).
 
+On a mesh (`repro_torch.dist`, `GraphSession.run(mesh=...)`) every rank
+runs the same driver over its slices: the host driver gathers each
+group's global pairs (one collective a group a superstep) so that every
+rank runs the identical numpy scheduler, and pushes through the mesh's
+push functions (`dist.mesh2d.shared_push_fn_2d`/`indep_push_fn_2d`);
+the device driver runs its chunk loop over `dist.mesh2d`'s carry and
+ends with `dist.mesh2d.finish_device_2d`.
+`RunMetrics.collectives`/`collective_s` count a mesh run's collectives
+and their host time (0 on one device).
+
 Telemetry (`repro_torch.obs.telemetry`): a session built with
 `telemetry=...` gets a per-superstep `TelemetrySeries` on
 `RunMetrics.telemetry` from either driver, with no extra host read: the
@@ -85,7 +95,10 @@ class RunMetrics:
     tile_pair_loads: int = 0
     job_block_pushes: int = 0      # (job, block) processing events
     host_syncs: int = 0            # scheduling host<->device round-trips
-    halo_bytes: float = 0.0        # multi-device frontier payload (0 here)
+    # cross-shard frontier payload of a jobs x blocks mesh run
+    # (repro_torch.dist.mesh2d): exchanged delta rows x Vb x itemsize,
+    # never whole tiles; 0.0 on one device and on job meshes
+    halo_bytes: float = 0.0
     iterations_per_job: Optional[np.ndarray] = None
     converged: bool = False
     wall_time_s: float = 0.0       # driver wall time of this run()
@@ -97,6 +110,10 @@ class RunMetrics:
     # per-superstep series, only when the session was built with
     # telemetry=...; None otherwise
     telemetry: Optional[TelemetrySeries] = None
+    # a mesh run's collectives (torch.distributed all_reduce calls) and
+    # their host time; not in to_dict (the reference has no such keys)
+    collectives: int = 0
+    collective_s: float = 0.0
 
     def to_dict(self, include_telemetry: bool = False) -> dict:
         """Scalar record of this run (the reference's keys), with the
@@ -258,12 +275,24 @@ def _run_host(policy: SchedulePolicy, sess,
     groups = sess.view_groups()
     dev = sess.device
     offs = np.cumsum([0] + [g.capacity for g in groups])
-    grp_pairs = [sess._pair_data(g) for g in groups]
+    spec = sess._mesh2d
+    if spec is not None:
+        # on a mesh: this rank's pair shards (same global src_nnz) and
+        # the mesh's push functions
+        from repro_torch.dist import mesh2d as m2
+        m2.reset_collectives()
+        grp_pairs = [sess._pair_shards(g) for g in groups]
+        shared_fns = [m2.shared_push_fn_2d(spec, g, sess.use_pallas)
+                      for g in groups]
+        indep_fns = [m2.indep_push_fn_2d(spec, g, ps)
+                     for g, ps in zip(groups, grp_pairs)]
+    else:
+        grp_pairs = [sess._pair_data(g) for g in groups]
+        shared_fns = [shared_push_fn(g.semiring, g.push_one,
+                                     sess.use_pallas) for g in groups]
+        indep_fns = [indep_push_fn(g.push_one) for g in groups]
     # host mirror of the per-source-block real-pair counts, read once
     nnz_host = [p.src_nnz.cpu().numpy() for p in grp_pairs]
-    shared_fns = [shared_push_fn(g.semiring, g.push_one, sess.use_pallas)
-                  for g in groups]
-    indep_fns = [indep_push_fn(g.push_one) for g in groups]
     m = RunMetrics(
         iterations_per_job=np.zeros(int(offs[-1]), dtype=np.int64))
     telemetry = sess.telemetry is not None
@@ -304,7 +333,15 @@ def _run_host(policy: SchedulePolicy, sess,
                     resids[gi] = 0.0
                     continue
                 if policy.needs_pairs:
-                    if telemetry:
+                    if spec is not None:   # gathered over the mesh
+                        if telemetry:
+                            nu, pm, resids[gi] = m2.host_pairs(
+                                spec, g, *_pairs_and_resid(
+                                    g.alg, g.values, g.deltas))
+                        else:
+                            nu, pm = m2.host_pairs(spec, g, *compute_pairs(
+                                g.alg, g.values, g.deltas))
+                    elif telemetry:
                         nu, pm, resids[gi] = _read_pairs(
                             *_pairs_and_resid(g.alg, g.values, g.deltas))
                     else:
@@ -316,7 +353,15 @@ def _run_host(policy: SchedulePolicy, sess,
                     p_mean.append(pm)
                     actives.append(prio.counts_from_pairs(nu) > 0)
                 else:
-                    if telemetry:   # the one read, residual riding along
+                    if spec is not None:
+                        counts, rs = m2.gather_counts(
+                            spec, g, sess._counts(g),
+                            g.alg.vertex_priority(g.values, g.deltas).max()
+                            if telemetry else None)
+                        counts = counts.astype(np.int64)
+                        if telemetry:
+                            resids[gi] = rs
+                    elif telemetry:   # the one read, residual riding along
                         counts, resids[gi] = _read_counts(
                             sess._counts(g), g.alg.vertex_priority(
                                 g.values, g.deltas).max())
@@ -370,6 +415,10 @@ def _run_host(policy: SchedulePolicy, sess,
                                         dtype=torch.float32, device=dev),
                         g.push_scale, g.overlay)
         m.tile_pair_loads += pair_step
+        halo_step = 0.0
+        if spec is not None:
+            halo_step = m2.host_halo_bytes(spec, groups, selection, actives)
+            m.halo_bytes += halo_step
         if series is not None:
             # everything but pair_step is a pre-push read; the row is
             # appended post-push only so that pair_step can join it
@@ -380,7 +429,8 @@ def _run_host(policy: SchedulePolicy, sess,
                 gq_occupancy=_selection_occupancy(selection),
                 dirty_blocks=dirty_n,
                 unconverged=[int(np.sum(nu)) for nu in node_un],
-                max_residual=resids, tile_pair_loads=pair_step)
+                max_residual=resids, tile_pair_loads=pair_step,
+                halo_bytes=halo_step)
         m.supersteps += 1
         m.tile_loads += int(selection.tile_loads)
         m.job_block_pushes += int(selection.job_block_pushes)
@@ -390,6 +440,9 @@ def _run_host(policy: SchedulePolicy, sess,
                            tile_loads=int(selection.tile_loads))
     if series is not None:
         m.telemetry = series.build()
+    if spec is not None:
+        m.collectives = m2.COLLECTIVES["count"]
+        m.collective_s = m2.COLLECTIVES["seconds"]
     return m
 
 
@@ -590,10 +643,20 @@ def _run_device(policy: SchedulePolicy, sess,
     consumed — so repeated run()/step() calls keep drawing fresh samples
     (and `reset()` restores the stream).  The trajectory does not depend
     on steps_per_sync, so supersteps / tile_loads are identical across
-    cadences."""
+    cadences.  A session placed on a mesh runs the same chunk loop over
+    `dist.mesh2d.device_inputs_2d`'s carry and ends the run with
+    `dist.mesh2d.finish_device_2d` (the world sums of its partial
+    totals) instead of `_finish_device`."""
     groups = sess.view_groups()
     step_fn = sess._device_step_fn(policy)
-    state, *args = device_inputs(sess)
+    if sess._mesh2d is not None:
+        from repro_torch.dist import mesh2d
+        mesh2d.reset_collectives()
+        state, *args = mesh2d.device_inputs_2d(policy, sess)
+        finish = mesh2d.finish_device_2d
+    else:
+        state, *args = device_inputs(sess)
+        finish = _finish_device
     budget = int(min(max_supersteps, np.iinfo(np.int32).max))
     seed, pos = sess.seed, sess.scheduler._step
     trace = sess.trace if sess.trace.enabled else None
@@ -617,8 +680,14 @@ def _run_device(policy: SchedulePolicy, sess,
         g.values, g.deltas = state[1][gi], state[2][gi]
     m.supersteps = it_h
     m.converged = un_h == 0
-    # the run's totals, iteration counts and series in one read (float64
-    # holds the counts exactly up to 2^53)
+    finish(sess, state, it_h, m)
+    return m
+
+
+def _finish_device(sess, state, it_h: int, m: RunMetrics) -> None:
+    """The one-device run's totals, iteration counts and series into `m`
+    in one read (float64 holds the counts exactly up to 2^53)."""
+    groups = sess.view_groups()
     parts = [torch.stack([state[3], state[4], state[5]]).to(torch.float64)]
     parts += [x.to(torch.float64) for x in state[6]]
     if sess.telemetry is not None:
@@ -634,7 +703,6 @@ def _run_device(policy: SchedulePolicy, sess,
                 min(it_h, sess.telemetry.capacity),
                 len(SERIES_FIELDS) + 2 * len(groups)),
             it_h, sess.telemetry.capacity, [g.key for g in groups])
-    return m
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.core import priority as prio
 from repro_torch.graph.structure import TileOverlay
 from repro_torch.kernels.fused_superstep import ops as fused_ops
 from repro_torch.kernels.fused_superstep.ref import (_sink_index,
+                                                     pair_products,
                                                      scatter_add_drop)
 
 __all__ = [
@@ -226,8 +227,8 @@ def shared_push_fn(semiring: str, push_one, use_pallas: bool):
                         for a caller that discards it (the device
                         driver's gated supersteps).  The other routes
                         ignore it.
-      use_pallas=False  plus-times sweeps the same pairs with a per-(job,
-                        pair) einsum + scatter-add; min-plus keeps the
+      use_pallas=False  plus-times sweeps the same pairs with per-(job,
+                        pair) products (`pair_products`) + scatter-add; min-plus keeps the
                         per-job ELL push with its sequential slot loop.
       pairs=None        the block-ELL push, for callers without a pair view.
     """
@@ -281,8 +282,7 @@ def shared_push_fn(semiring: str, push_one, use_pallas: bool):
         raw = torch.where(selb, deltas, 0.0)
         d = raw * scales[:, None, None]
         base = deltas - raw
-        contrib = torch.einsum("jpv,pvw->jpw", d[:, pairs.src.long(), :],
-                               pairs.tiles)
+        contrib = pair_products(d[:, pairs.src.long(), :], pairs.tiles)
         deltas = scatter_add_drop(base, pairs.dst, contrib)
         if _rides(overlay):
             d_sel = d[:, sel.long(), :] * msk[None, :, None]   # [J, q, Vb]

@@ -25,6 +25,15 @@ The session lives on one device: ``device=None`` means CUDA and raises
 without one (pass ``device="cpu"``).  ``use_pallas=None`` pushes through
 the fused superstep kernel on CUDA and through the plain pair sweep on
 the CPU.
+
+``run(policy, mesh=...)`` spreads the jobs (a ("jobs",) DeviceMesh) or
+the jobs and the graph (a ("jobs", "blocks") one) over the ranks of a
+torch.distributed world (`repro_torch.dist`): every rank builds the same
+session and calls run; each keeps its slices from then on (the session
+stays placed until `dist.graph.unshard_session`).  On a placed session
+`result`, `converged`, `unconverged_counts` and `detach` gather, so
+every rank calls them; submit and detach reuse existing slots (growing a
+view, or a new view, raises), and live updates raise (ROADMAP A11b).
 """
 
 from __future__ import annotations
@@ -92,6 +101,9 @@ class ViewGroup:
     # destination-sorted pair view of `graph`, built lazily and dropped
     # to None whenever the tiles change (stream edits, compaction)
     pairs: Optional[BlockPairs] = None
+    # on a mesh (repro_torch.dist): (placement signature, this rank's
+    # PairShards), built at placement from the whole view
+    pair_shards: Optional[tuple] = None
 
     @property
     def capacity(self) -> int:
@@ -162,6 +174,8 @@ class GraphSession:
         # [B_N] pending priority injection for update-affected blocks
         self._dirty_boost: Optional[np.ndarray] = None
         self._stream_pending = _no_stream_counts()
+        # placement on a mesh (dist.mesh2d.Mesh2DSpec), None on one device
+        self._mesh2d = None
 
     # alpha/samples/seed live canonically on the scheduler once it exists
 
@@ -286,6 +300,7 @@ class GraphSession:
             return grp
         if self._csr is None:
             raise ValueError("GraphSession needs a CSRGraph to build from")
+        self._not_placed("a new graph view")
         g_csr = (self._csr.symmetrized() if alg.graph_symmetrize
                  else self._csr)
         g = build_blocked(g_csr, self.block_size, fill=alg.graph_fill,
@@ -306,7 +321,16 @@ class GraphSession:
         self.groups[key] = grp
         return grp
 
+    def _not_placed(self, what: str) -> None:
+        """Raise for an operation not ported to a placed session."""
+        if self._mesh2d is not None:
+            raise NotImplementedError(
+                f"{what} on a session placed on a mesh is not ported yet "
+                "(ROADMAP A11b); unshard it first "
+                "(repro_torch.dist.graph.unshard_session)")
+
     def _grow(self, grp: ViewGroup) -> None:
+        self._not_placed("growing a view's job axis")
         extra = grp.capacity
         iv, idl = _inert_state(grp.semiring, grp.graph, extra)
         grp.values = torch.cat([grp.values, iv])
@@ -335,14 +359,30 @@ class GraphSession:
             free = np.nonzero(~grp.active)[0]
         slot = int(free[0])
         v, d = alg.init(grp.graph)
-        grp.values[slot] = v
-        grp.deltas[slot] = d
-        grp.push_scale[slot] = alg.get_push_scale()
+        self._write_slot(grp, slot, v, d, alg.get_push_scale())
         grp.algs[slot] = alg
         grp.active[slot] = True
         self.trace.instant("submit", cat="job", alg=type(alg).__name__,
                            view=str(grp.key), slot=slot)
         return JobHandle(slot=slot, gen=grp.gens[slot], alg=alg, view=grp.key)
+
+    def _write_slot(self, grp: ViewGroup, slot: int, v: torch.Tensor,
+                    d: torch.Tensor, scale: float) -> None:
+        """Set a slot's [B_N, Vb] state and push scale; on a mesh only
+        the rank holding the slot writes its block rows."""
+        spec = self._mesh2d
+        if spec is None:
+            grp.values[slot] = v
+            grp.deltas[slot] = d
+            grp.push_scale[slot] = scale
+            return
+        lay = spec.layout(grp)
+        j0, jl = spec.job_range(grp.capacity, lay)
+        b0, bl = spec.block_range(grp.graph.num_blocks, lay)
+        if j0 <= slot < j0 + jl:
+            grp.values[slot - j0] = v[b0:b0 + bl]
+            grp.deltas[slot - j0] = d[b0:b0 + bl]
+            grp.push_scale[slot - j0] = scale
 
     def _handle_group(self, handle: JobHandle) -> ViewGroup:
         key = handle.view if handle.view is not None else _view_key(handle.alg)
@@ -365,24 +405,47 @@ class GraphSession:
         raise KeyError(f"unknown view for handle {handle}")
 
     def _counts(self, grp: ViewGroup) -> torch.Tensor:
-        """[cap] unconverged-vertex count per slot, on the device."""
+        """[cap] unconverged-vertex count per slot, on the device (this
+        rank's [J_loc] share of it on a mesh)."""
         return grp.alg.unconverged(grp.values, grp.deltas).sum(dim=(1, 2))
+
+    def _host_counts(self, grp: ViewGroup) -> np.ndarray:
+        """[cap] int64 unconverged counts on the host (gathered on a
+        mesh)."""
+        if self._mesh2d is None:
+            return self._counts(grp).cpu().numpy()
+        from repro_torch.dist.mesh2d import gather_counts
+        tot, _ = gather_counts(self._mesh2d, grp, self._counts(grp))
+        return tot.astype(np.int64)
 
     def unconverged_counts(self) -> np.ndarray:
         """[total_capacity] unconverged-vertex count per slot, view groups
         concatenated in creation order (0 for free slots)."""
-        parts = [self._counts(g).cpu().numpy() for g in self.groups.values()]
+        parts = [self._host_counts(g) for g in self.groups.values()]
         return (np.concatenate(parts) if parts
                 else np.zeros(0, dtype=np.int64))
 
     def converged(self, handle: JobHandle) -> bool:
         grp = self._handle_group(handle)
-        counts = self._counts(grp).cpu().numpy()
-        return bool(counts[handle.slot] == 0)
+        return bool(self._host_counts(grp)[handle.slot] == 0)
+
+    def _full_state(self, grp: ViewGroup):
+        """The group's whole [cap, B_N, Vb] (values, deltas): gathered on
+        a mesh (a collective), the tensors themselves otherwise."""
+        if self._mesh2d is None:
+            return grp.values, grp.deltas
+        from repro_torch.dist.mesh2d import gather_state
+        return (gather_state(self._mesh2d, grp, grp.values),
+                gather_state(self._mesh2d, grp, grp.deltas))
 
     def result(self, handle: JobHandle) -> np.ndarray:
         """[n_real] float32 result for one job (valid at any superstep)."""
         grp = self._handle_group(handle)
+        if self._mesh2d is not None:
+            from repro_torch.dist.mesh2d import gather_job
+            v, d = gather_job(self._mesh2d, grp, handle.slot)
+            res = handle.alg.result(v, d)
+            return res.reshape(-1)[:grp.graph.n_real].cpu().numpy()
         res = handle.alg.result(grp.values[handle.slot],
                                 grp.deltas[handle.slot])
         # a copy: on the CPU .numpy() would alias the session's state,
@@ -395,9 +458,7 @@ class GraphSession:
         grp = self._handle_group(handle)
         slot = handle.slot
         iv, idl = _inert_state(grp.semiring, grp.graph, 1)
-        grp.values[slot] = iv[0]
-        grp.deltas[slot] = idl[0]
-        grp.push_scale[slot] = 1.0
+        self._write_slot(grp, slot, iv[0], idl[0], 1.0)
         grp.algs[slot] = None
         grp.active[slot] = False
         grp.gens[slot] += 1
@@ -467,7 +528,10 @@ class GraphSession:
         capacity (0 when off, so a telemetry-off session runs the chunk
         without the series and an on/off pair never shares an entry).
         Repeated run() calls and submit/detach cycles at unchanged
-        capacity reuse the entry."""
+        capacity reuse the entry.  On a mesh the placement's signature
+        and every group's pair-shard shape join the key, so leaving a
+        mesh falls back to the one-device entry and re-entering it
+        reuses the mesh entry: one entry per (policy, placement)."""
         from repro_torch.core.policy import build_device_step
         groups = self.view_groups()
         tel_cap = self.telemetry.capacity if self.telemetry else 0
@@ -478,6 +542,15 @@ class GraphSession:
                tuple(g.overlay.capacity for g in groups),
                self.q, float(self.alpha), int(self.samples),
                self.use_pallas, tel_cap)
+        if self._mesh2d is not None:
+            from repro_torch.dist.mesh2d import build_device_step_2d
+            key = key + (self._mesh2d.signature(),
+                         tuple(self._pair_shards(g).signature()
+                               for g in groups))
+            if key not in self._jit_cache:
+                self._jit_cache[key] = build_device_step_2d(
+                    policy, self, self._mesh2d)
+            return self._jit_cache[key]
         if key not in self._jit_cache:
             self._jit_cache[key] = build_device_step(policy, self)
         return self._jit_cache[key]
@@ -486,8 +559,32 @@ class GraphSession:
         """The view's destination-sorted `BlockPairs`, built lazily from
         the current tiles and cached on the group."""
         if grp.pairs is None:
+            if self._mesh2d is not None:
+                raise RuntimeError("a placed session holds its pair "
+                                   "shards only (_pair_shards)")
             grp.pairs = build_block_pairs(grp.graph)
         return grp.pairs
+
+    def _pair_shards(self, grp: ViewGroup):
+        """This rank's `dist.mesh2d.PairShards` of the view on the current
+        mesh, built at placement."""
+        if self._mesh2d is None or grp.pair_shards is None:
+            raise RuntimeError("the session is not placed on a mesh")
+        return grp.pair_shards[1]
+
+    # -- placement -----------------------------------------------------------
+
+    def _place(self, mesh) -> None:
+        """Place every view group on `mesh` (repro_torch.dist.graph
+        .shard_session): a 1-D mesh shards the job axes, a 2-D one the
+        job axes and the block rows.  None, or the mesh the session is
+        already placed on, keeps the current placement (with its
+        exchange options)."""
+        if mesh is None or (self._mesh2d is not None
+                            and self._mesh2d.mesh is mesh):
+            return
+        from repro_torch.dist.graph import shard_session
+        shard_session(mesh, self)
 
     # -- driving -------------------------------------------------------------
 
@@ -495,13 +592,13 @@ class GraphSession:
             max_supersteps: int = 100000, *, mesh=None) -> RunMetrics:
         """Advance all active jobs until they converge (or the budget ends).
         Jobs submitted after this returns resume from the shared state:
-        call run() again to drive the new mix."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device placement is not ported yet (ROADMAP A11)")
+        call run() again to drive the new mix.  `mesh` (a DeviceMesh,
+        see repro_torch.dist) places the session there first; every rank
+        calls run with the same arguments."""
         if not self.groups:
             raise ValueError("no jobs submitted yet")
         policy = TwoLevel() if policy is None else policy
+        self._place(mesh)
         t_run = self.trace.now_us() if self.trace.enabled else 0.0
         m = policy.run(self, max_supersteps)
         self._drain_stream_stats(m)

@@ -1,0 +1,112 @@
+"""Fault tolerance for graph sessions: checkpoint, restore onto another
+mesh (elastic reshard), and straggler detection.
+
+`checkpoint_session` gathers a session's resumable state to host numpy;
+`restore_session` loads it into a session built with the same
+submissions and places it on a survivor mesh, or on none.  The
+reference's `RestartManager` serves the LM trainer and is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def checkpoint_session(sess) -> dict:
+    """Host snapshot of a GraphSession's resumable state: every view's
+    values/deltas (the convergence state; adjacency is rebuilt from the
+    session's own graph, never checkpointed), the scheduler's stream
+    position and its host generator's state, so a resumed run draws what
+    it would have drawn uninterrupted.  On a mesh the state is gathered
+    first (a collective: every rank calls it), so the snapshot restores
+    onto any placement, a smaller mesh after a shard loss included."""
+    spec = getattr(sess, "_mesh2d", None)
+    groups = sess.view_groups()
+    vals, dels = [], []
+    for g in groups:
+        v, d = g.values, g.deltas
+        if spec is not None:
+            from repro_torch.dist.mesh2d import gather_state
+            v, d = gather_state(spec, g, v), gather_state(spec, g, d)
+        vals.append(v.cpu().numpy().copy())
+        dels.append(d.cpu().numpy().copy())
+    return {"keys": [g.key for g in groups], "values": vals,
+            "deltas": dels, "step": int(sess.scheduler._step),
+            "rng": sess.scheduler.rng.bit_generator.state}
+
+
+def restore_session(sess, snapshot: dict, mesh=None, **shard_kwargs):
+    """Elastic reshard: load `snapshot` into `sess` (built with the same
+    submissions) and place it on the survivor `mesh` (jobs x blocks when
+    it has two named axes, see `dist.graph.shard_session`) or on one
+    device when None.  The scheduler resumes at the snapshot's stream
+    position (and host generator state, when the snapshot has one), so
+    a min-plus run restored onto a different block-shard count reaches
+    the bit-identical fixpoint."""
+    from repro_torch.dist.mesh2d import unshard_session
+    unshard_session(sess)
+    by_key = {g.key: g for g in sess.view_groups()}
+    keys = [tuple(k) for k in snapshot["keys"]]
+    if set(keys) != set(by_key):
+        raise ValueError(f"snapshot views {keys} do not match the "
+                         f"session's {list(by_key)}")
+    for key, v, d in zip(keys, snapshot["values"], snapshot["deltas"]):
+        grp = by_key[key]
+        if tuple(np.shape(v)) != tuple(grp.values.shape):
+            raise ValueError(f"view {key}: snapshot state "
+                             f"{tuple(np.shape(v))} != the session's "
+                             f"{tuple(grp.values.shape)}")
+        grp.values = torch.as_tensor(np.asarray(v, np.float32),
+                                     device=sess.device).clone()
+        grp.deltas = torch.as_tensor(np.asarray(d, np.float32),
+                                     device=sess.device).clone()
+    sess.scheduler._step = int(snapshot["step"])
+    if snapshot.get("rng") is not None:
+        sess.scheduler.rng.bit_generator.state = snapshot["rng"]
+    if mesh is not None:
+        from repro_torch.dist.graph import shard_session
+        shard_session(mesh, sess, **shard_kwargs)
+    return sess
+
+
+@dataclasses.dataclass
+class StragglerReport:
+    step: int
+    duration: float
+    median: float
+    ratio: float
+
+
+class StragglerWatchdog:
+    """Sliding-window step-duration monitor.
+
+    observe(step, duration) returns a StragglerReport when `duration`
+    exceeds threshold x the median of the last `window` durations, or None
+    (including while the window is still filling)."""
+
+    def __init__(self, window: int = 8, threshold: float = 2.0):
+        self.window = max(1, int(window))
+        self.threshold = threshold
+        self._durations: list = []
+
+    def observe(self, step: int,
+                duration: float) -> Optional[StragglerReport]:
+        report = None
+        if len(self._durations) >= self.window:
+            med = statistics.median(self._durations[-self.window:])
+            if med > 0 and duration >= self.threshold * med:
+                report = StragglerReport(step=step, duration=duration,
+                                         median=med,
+                                         ratio=duration / med)
+        if report is None:
+            # straggler steps stay out of the baseline window
+            self._durations.append(float(duration))
+            if len(self._durations) > self.window:
+                self._durations = self._durations[-self.window:]
+        return report

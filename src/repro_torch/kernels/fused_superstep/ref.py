@@ -34,6 +34,17 @@ def scatter_add_drop(base: torch.Tensor, dst: torch.Tensor,
     return ext[:, :bn]
 
 
+def pair_products(d_src: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """[J, P, Vb] source rows times their pair tiles [P, Vb, Vb] ->
+    [J, P, Vb], one job at a time: a GEMM batched over the jobs would
+    pick its blocking (and so a job's summation order) by J, and a job's
+    sums must not depend on how many jobs share the call (a job mesh
+    splits the jobs across ranks and must equal one device bit for
+    bit)."""
+    return torch.stack([torch.bmm(d_src[j].unsqueeze(1), tiles).squeeze(1)
+                        for j in range(d_src.shape[0])])
+
+
 def _flush_pairs(pr: torch.Tensor):
     nu = (pr > 0.0).sum(-1).to(torch.float32)
     return nu, pr.sum(-1)
@@ -56,7 +67,7 @@ def fused_superstep_ref(src, dst, first, last, d, base, tiles, *,
         d = torch.where(src_live.bool()[None, :, None], d, ident)
     src = src.long()
     if semiring == "plus_times":
-        contrib = torch.einsum("jpv,pvw->jpw", d[:, src, :], tiles)
+        contrib = pair_products(d[:, src, :], tiles)
         out = scatter_add_drop(base, dst, contrib)
         a = out.abs()
         pr = torch.where(a >= tolerance, a, 0.0)

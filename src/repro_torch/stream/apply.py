@@ -152,7 +152,9 @@ def compact_group(sess, grp) -> None:
     """Rebuild the view's BlockedGraph from the updated CSR — by
     construction bit-identical to a from-scratch build — and empty the
     overlay.  Job state is untouched (same logical operator).  The stale
-    pair view is released before the rebuild, the old tiles after it."""
+    pair view is released before the rebuild, the old tiles after it.
+    Not ported to a session placed on a mesh (ROADMAP A11b): raises."""
+    sess._not_placed("compact")
     semiring, fill, normalize, symmetrize = grp.key
     grp.pairs = None      # block-pair view follows the rebuilt tiles
     csr_view = sess._csr.symmetrized() if symmetrize else sess._csr
@@ -356,6 +358,7 @@ def _apply_to_group(sess, grp, batch: UpdateBatch, csr_old, csr_new,
 
 
 def apply_updates_to_session(sess, batch: UpdateBatch) -> StreamStats:
+    sess._not_placed("apply_updates")     # ROADMAP A11b
     if sess._csr is None:
         raise ValueError(
             "apply_updates needs the session-owned CSRGraph (sessions "

@@ -819,3 +819,46 @@ def test_serve_harness_on_the_card_matches_the_cpu(cuda):
         assert s["admitted"] == s["completed"] == s["arrivals"] > 0
         logs[dev] = (h.admission_log, h.completion_log)
     assert logs[None] == logs["cpu"]
+
+
+# --- the multi-device engine: ranks sharing the card over gloo -------------
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU with "
+                    "`python -m pytest -m cuda tests/test_torch_cuda.py`")
+    import test_torch_dist_ranks as ranks
+    from repro_torch.dist.world import run_world
+    return run_world(ranks.cuda_world, 2, device="cuda",
+                     store_dir=str(tmp_path_factory.mktemp("mesh")))
+
+
+@pytest.mark.parametrize("policy", ["Fused", "TwoLevel"])
+def test_mesh_1x2_on_the_card_matches_one_device(cuda, mesh_world, policy):
+    """A (1 x 2) blocks mesh of two ranks on the card against the card's
+    one-device run: SSSP bit-equal, PageRank within rtol 1e-3, atol 1e-4;
+    B1 and B2 launched on every rank."""
+    import test_torch_dist_ranks as ranks
+    import repro_torch.core as tc
+    got = mesh_world["fused" if policy == "Fused" else "two_level"]
+    sess, hs = ranks.build_core(device="cuda")
+    m = sess.run(getattr(tc, policy)(), 20000)
+    assert m.converged and got["metrics"]["converged"]
+    want = [sess.result(h) for h in hs]
+    for i in (2, 3):
+        np.testing.assert_array_equal(got["results"][i], want[i])
+    for i in (0, 1):
+        np.testing.assert_allclose(got["results"][i], want[i], rtol=1e-3,
+                                   atol=1e-4)
+    assert got["metrics"]["halo_bytes"] > 0
+    for per_rank in got["launches"]:
+        assert per_rank["plus_times"] > 0 and per_rank["min_plus"] > 0
+
+
+def test_mesh_closed_gate_keeps_the_chunk_carry(cuda, mesh_world):
+    """A 2D device chunk whose last slots are gated: the carry equals,
+    bit for bit, the same chunk with no gate passed to the kernels."""
+    g = mesh_world["gate"]
+    assert all(g["same"]) and g["gates"] == 16 and g["last_closed"]

@@ -355,9 +355,10 @@ def test_engine_shim_properties_and_unported_mesh():
         0.5, 40, 3)
     eng.use_pallas = True
     assert eng.session.use_pallas is True
+    # mesh= is ported (repro_torch.dist) and takes a DeviceMesh
     for call in (lambda: eng.run_two_level(mesh=object()),
                  lambda: eng.run_fused(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
     with pytest.raises(ValueError, match="share one graph view"):
         tc.make_run([ta.SSSP(), ta.PageRank()], tg.chain_graph(20), BLOCK,

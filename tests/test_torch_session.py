@@ -245,15 +245,39 @@ def test_session_needs_explicit_cpu_without_cuda(monkeypatch):
     assert tc.GraphSession(csr, 16, device="cpu", use_pallas=True).use_pallas
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     csr = tg.chain_graph(32)
     # telemetry is ported (repro_torch.obs.telemetry)
     assert tc.GraphSession(csr, 16, device="cpu",
                            telemetry=True).telemetry is not None
     sess = tc.GraphSession(csr, 16, device="cpu")
     h = sess.submit(ta.SSSP())
-    with pytest.raises(NotImplementedError):
+    # mesh= is ported (repro_torch.dist): it takes a DeviceMesh over an
+    # initialized process group, and on a one-rank world equals no mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sess.run(mesh=object())
+    import torch.distributed as dist
+    from repro_torch.dist.graph import make_job_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_job_mesh(device_type="cpu")
+        placed = tc.GraphSession(csr, 16, device="cpu")
+        hp = placed.submit(ta.SSSP())
+        mp = placed.run(mesh=mesh)
+        rp = placed.result(hp)          # a collective on a placed session
+    finally:
+        dist.destroy_process_group()
+    unplaced = tc.GraphSession(csr, 16, device="cpu")
+    hu = unplaced.submit(ta.SSSP())
+    mu = unplaced.run()
+    assert mp.converged and mp.to_dict() | {"wall_time_s": 0} == \
+        mu.to_dict() | {"wall_time_s": 0}
+    np.testing.assert_array_equal(rp, unplaced.result(hu))
+    orphan = tc.GraphSession(csr, 16, device="cpu")
+    orphan.submit(ta.SSSP())
+    with pytest.raises(RuntimeError, match="process group"):
+        orphan.run(mesh=mesh)
     # a non-empty overlay is ported (repro_torch.stream): an all-inert one
     # is an exact no-op on the push
     assert sess.run().converged
