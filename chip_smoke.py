@@ -107,28 +107,52 @@ Phases (any failure exits non-zero before the last line is printed):
    peak device memory.
 8. The multi-device engine at full size (repro_torch.dist), after phase
    7's sessions are freed: ranks are processes sharing the card over
-   gloo (`dist.world.run_world`), each building the session in turn and
-   keeping its slices (`GraphSession.run(mesh=...)`).  Once placed,
-   every rank holds B1/B2 on its own pair shard (local destinations,
-   the shard's run and chunk tables) against the plain version at the
-   mesh path's shapes, d at [J, B_N, Vb] and base/values at [J, B_loc,
-   Vb], at phase 2's bars (`shard_kernels`).  8a: a (1 x 4)
-   blocks mesh with both views and phase 3's four jobs under TwoLevel(),
-   Fused() and Fused() with the int8 frontier exchange; 8b: a (2 x 2)
-   mesh, the min-plus view alone with four SSSP jobs, under
-   TwoLevel(backend="device", steps_per_sync=8), then half the run, a
-   snapshot (`dist.fault.checkpoint_session`), the rest, and the
-   snapshot restored here onto one device and finished; 8c: a (2,) job
-   mesh with the same jobs under TwoLevel(), held bit for bit (results,
-   supersteps, tile_loads, tile_pair_loads) to a one-device run here.
-   Every run is checked as in phase 3 (SSSP bit-equal to Dijkstra),
-   halo_bytes under the frontier bound, B1/B2 launched on every rank;
-   it prints wall, ms per superstep, host syncs, collectives per
-   superstep and their host time, halo bytes per superstep, each
+   gloo (`dist.world.run_world`), each placing an empty session on its
+   mesh and submitting the jobs, so every view is built as the rank's
+   own slices straight from the CSR (`build_view_shard`), all ranks at
+   once.  Once placed, every rank holds B1/B2 on its own pair shard
+   (local destinations, the shard's run and chunk tables) against the
+   plain version at the mesh path's shapes, d at [J, B_N, Vb] and
+   base/values at [J, B_loc, Vb], at phase 2's bars (`shard_kernels`).
+   8a: a (1 x 4) blocks mesh with both views and phase 3's four jobs
+   under TwoLevel(), Fused() and Fused() with the int8 frontier
+   exchange; 8b: a (2 x 2) mesh, the min-plus view alone with four SSSP
+   jobs, under TwoLevel(backend="device", steps_per_sync=8), then half
+   the run, a snapshot (`dist.fault.checkpoint_session`), the rest, and
+   the snapshot restored here onto one device and finished; 8c: a (2,)
+   job mesh with the same jobs under TwoLevel(), held bit for bit
+   (results, supersteps, tile_loads, tile_pair_loads) to a one-device
+   run here.  Every run is checked as in phase 3 (SSSP bit-equal to
+   Dijkstra), halo_bytes under the frontier bound, B1/B2 launched on
+   every rank; it prints wall, ms per superstep, host syncs, collectives
+   per superstep and their host time, halo bytes per superstep, each
    shard's real pairs against pair_cap, each rank's set-up time and
    device memory, the phase's nvidia-smi peak and a gloo all_reduce's
    time with the ranks lined up.  B1/B2 launches over every rank and
    run are the `mesh` entry of `launches_by_path`.
+9. Live updates and the serve front on a placed session, in 8a's world
+   after its runs.  9a: phase 6's traffic on the (1 x 4) session (four
+   `mutation_stream` batches of 768 updates, Fused after 1 and 3,
+   TwoLevel after 2 and 4; the overlay batch under Fused; the overflow
+   batch, both views compacting, under TwoLevel; then `compact()`),
+   each rerun held to phase 3's bars on a plain application of the
+   batches; every rank holds B1/B2 on its edited pair shard after the
+   first batch and on its compacted one after `compact()`, and its
+   compacted slices to a fresh `build_view_shard` of the final CSR.  Per
+   batch: apply_updates seconds on every rank, the collectives it cost,
+   the rerun's wall, supersteps and collectives, each rank's memory;
+   compact() seconds and build peak per rank; phase 9's nvidia-smi peak.
+   9b: the jobs detached, phase 7's load with its horizon cut to 80
+   ticks and its update period to 40 (`MESH_SERVE_LOAD`) served on the
+   same session under TwoLevel(), 8 supersteps a tick, at most 8
+   running: groups grow past capacity 4 and the BFS view is built as a
+   new view on the mesh.  Every request admitted and completed, 8
+   running at the peak, every SSSP/BFS result bit-equal to scipy on the
+   CSR it finished on, the first PageRank/PPR results within phase 3's
+   bars; it prints latency in ticks, ms per tick and per superstep
+   inside run(), collectives per superstep and each rank's memory.
+   B1/B2 launches over the ranks are the `mesh_stream` and `mesh_serve`
+   entries of `launches_by_path`.
 
 Then one JSON line of kernel figures, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -144,13 +168,16 @@ end-to-end numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -195,6 +222,8 @@ SERVE_PT_CHECKED = 3           # PageRank/PPR results held per run
 MESH_RANKS = 4
 MESH_SSSP_SOURCES = (0, 4097, 8192, 49152)   # 8b/8c: the min-plus view only
 MESH_THREADS = 2               # intra-op CPU threads a rank (8 cores, 4 ranks)
+# phase 9: phase 7's load on 8a's mesh, its horizon and update period cut
+MESH_SERVE_LOAD = dict(SERVE_LOAD, ticks=80, update_every=40)
 TELEMETRY_PAIRS = 20           # interleaved off/on timings of telemetry
 HOST_TIMED_STEPS = 8           # supersteps per timed TwoLevel() run
 # back-to-back calls per timed run, so that a run lasts about 1 ms or more
@@ -1263,20 +1292,29 @@ def plain_update(adj, batch):
 
 def plain_csr(adj):
     """The (n, indptr, indices, weights) view the references read."""
-    import types
     return types.SimpleNamespace(n=adj.shape[0], indptr=adj.indptr,
                                  indices=adj.indices, weights=adj.data)
 
 
-def references(csr, handles):
+def references(csr, algs):
     """Each job's plain answer on `csr`: Dijkstra for SSSP, the float64
     power iteration for PageRank/PPR."""
-    sources = [h.alg.source for h in handles if h.alg.semiring == "min_plus"]
+    sources = [a.source for a in algs if a.semiring == "min_plus"]
     dist = iter(sssp_ref(csr, sources).astype(np.float32))
-    return [next(dist) if h.alg.semiring == "min_plus"
-            else pagerank_ref(csr, h.alg.damping, getattr(h.alg, "source",
-                                                          None))
-            for h in handles]
+    return [next(dist) if a.semiring == "min_plus"
+            else pagerank_ref(csr, a.damping, getattr(a, "source", None))
+            for a in algs]
+
+
+def tile_rows(grp):
+    """Each source block's destination blocks that own a tile slot in
+    `grp`, from the group's host mirror of the whole view (`pair_slot`,
+    built by its first apply_updates; on a mesh the ELL rows are
+    sliced)."""
+    rows = [set() for _ in range(grp.graph.num_blocks)]
+    for sb, db in grp.pair_slot:
+        rows[sb].add(db)
+    return rows
 
 
 def new_pairs(sess, grp, rows, per_row, reach):
@@ -1284,8 +1322,7 @@ def new_pairs(sess, grp, rows, per_row, reach):
     each source block of `rows`, `per_row` edges from its first vertex
     `reach` marks (finite SSSP distance) to distinct destination blocks
     outside its ELL row, none an existing edge."""
-    ids = grp.graph.nbr_ids.cpu().numpy()
-    msk = grp.graph.nbr_mask.cpu().numpy()
+    slots = tile_rows(grp)
     n, bn = sess._csr.n, grp.graph.num_blocks
     src, dst = [], []
     for b in rows:
@@ -1294,7 +1331,7 @@ def new_pairs(sess, grp, rows, per_row, reach):
         if not lanes:
             raise RuntimeError(f"block {b} has no reachable vertex")
         u = lanes[0]
-        taken = set(ids[b][msk[b]].tolist())
+        taken = slots[b]
         free = [db for db in range(bn) if db not in taken]
         picked = 0
         for db in free:
@@ -1396,7 +1433,8 @@ def stream_phase(torch, sess, handles, csr, fk):
             raise RuntimeError(f"{label}: RunMetrics did not drain the "
                                f"stream counters")
         check_results(sess, handles, plain_csr(adj),
-                      references(plain_csr(adj), handles), label)
+                      references(plain_csr(adj), [h.alg for h in handles]),
+                      label)
         return st, live
 
     for i, b in enumerate(batches):
@@ -1413,8 +1451,7 @@ def stream_phase(torch, sess, handles, csr, fk):
         raise RuntimeError("the overlay batch left no live overlay entry")
 
     # more new pairs in one block row than its overlay holds: compaction
-    counts = groups[0].graph.nbr_mask.sum(dim=1).cpu().numpy()
-    row = int(np.argmin(counts))
+    row = int(np.argmin([len(r) for r in tile_rows(groups[0])]))
     src, dst = new_pairs(sess, groups[0], [row],
                          sess.overlay_capacity + 1,
                          np.ones(sess._csr.n, dtype=bool))
@@ -1479,6 +1516,40 @@ def peak_running(h) -> int:
     return peak
 
 
+def check_served(done, label):
+    """Each detached result (alg, result, the CSR it finished on) against
+    its plain answer: SSSP/BFS bit-equal to scipy's Dijkstra/BFS, the
+    first `SERVE_PT_CHECKED` PageRank/PPR within phase 3's bars.  Returns
+    (min-plus checked, plus-times checked, CSR versions)."""
+    from scipy.sparse.csgraph import dijkstra
+    import scipy.sparse as sp
+    versions, cache = {}, {}
+    n_min = n_pt = 0
+    for alg, res, g in done:
+        v = versions.setdefault(id(g), len(versions))
+        if alg.semiring == "min_plus":
+            key = (v, alg.name, alg.source)
+            if key not in cache:
+                a = sp.csr_matrix((g.weights.astype(np.float64), g.indices,
+                                   g.indptr), shape=(g.n, g.n))
+                cache[key] = dijkstra(a, directed=True, indices=alg.source,
+                                      unweighted=alg.name == "bfs"
+                                      ).astype(np.float32)
+            np.testing.assert_array_equal(res, cache[key])
+            n_min += 1
+        elif n_pt < SERVE_PT_CHECKED:
+            src = getattr(alg, "source", None)
+            key = (v, alg.name, src)
+            if key not in cache:
+                cache[key] = pagerank_ref(g, alg.damping, src)
+            if not np.isfinite(res).all():
+                raise RuntimeError(f"{label}: non-finite {alg.name}")
+            np.testing.assert_allclose(res, cache[key], rtol=5e-3,
+                                       atol=1e-4)
+            n_pt += 1
+    return n_min, n_pt, len(versions)
+
+
 def serve_run(torch, csr, policy, fk, out_dir):
     """One open-loop harness run of phase 7 on a fresh session; returns
     its B1/B2 launch counts."""
@@ -1489,8 +1560,6 @@ def serve_run(torch, csr, policy, fk, out_dir):
                                  validate_registry_snapshot,
                                  validate_trace_events)
     from repro_torch.serve import ConcurrentServeScheduler
-    from scipy.sparse.csgraph import dijkstra
-    import scipy.sparse as sp
 
     label = f"serve ({policy.name}, backend={policy.backend})"
     mem0 = torch.cuda.memory_allocated()
@@ -1595,31 +1664,7 @@ def serve_run(torch, csr, policy, fk, out_dir):
     reg.register("last_run", runs[-1].to_dict(include_telemetry=True))
     n_sources = validate_registry_snapshot(reg.snapshot())
 
-    # each result against its plain answer on the CSR it finished on
-    versions, cache = {}, {}
-    n_min = n_pt = 0
-    for alg, res, g in done:
-        v = versions.setdefault(id(g), len(versions))
-        if alg.semiring == "min_plus":
-            key = (v, alg.name, alg.source)
-            if key not in cache:
-                a = sp.csr_matrix((g.weights.astype(np.float64), g.indices,
-                                   g.indptr), shape=(g.n, g.n))
-                cache[key] = dijkstra(a, directed=True, indices=alg.source,
-                                      unweighted=alg.name == "bfs"
-                                      ).astype(np.float32)
-            np.testing.assert_array_equal(res, cache[key])
-            n_min += 1
-        elif n_pt < SERVE_PT_CHECKED:
-            src = getattr(alg, "source", None)
-            key = (v, alg.name, src)
-            if key not in cache:
-                cache[key] = pagerank_ref(g, alg.damping, src)
-            if not np.isfinite(res).all():
-                raise RuntimeError(f"{label}: non-finite {alg.name}")
-            np.testing.assert_allclose(res, cache[key], rtol=5e-3,
-                                       atol=1e-4)
-            n_pt += 1
+    n_min, n_pt, n_versions = check_served(done, label)
 
     lat, fams = s["latency_ticks"], s["latency_by_family"]
     steps = max(1, s["supersteps"])
@@ -1647,7 +1692,7 @@ def serve_run(torch, csr, policy, fk, out_dir):
         f"{launches}; counters {s['counters']}; peak device memory "
         f"{peak / 1e9:.2f} GB")
     log(f"{label}: {n_min} SSSP/BFS results bit-equal to scipy on the CSR "
-        f"they finished on ({len(versions)} CSR versions), {n_pt} "
+        f"they finished on ({n_versions} CSR versions), {n_pt} "
         f"PageRank/PPR within rtol 5e-3, atol 1e-4; every run's series "
         f"sums to its totals, {len(runs)} runs' tile_loads {tel_loads} = "
         f"the harness's; trace {n_events} events ({admits} serve.admit) "
@@ -1766,12 +1811,13 @@ def shard_kernels(torch, sess, rank: int) -> dict:
 
 def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
     """One rank of a phase-8 world (every rank runs it; the ranks share
-    the card over gloo).  The ranks build the session in turn behind a
-    barrier, each placing it (keeping its slices, freeing the rest)
-    before the next builds; then every run of `plan` goes through
-    `GraphSession.run(mesh=...)` with the B1/B2 counts set to 0 just
-    before and read just after.  Returns rank 0's results and every
-    rank's figures."""
+    the card over gloo).  Each rank places an empty session on the mesh
+    and submits the jobs, so each view is built as this rank's slices
+    alone (`build_view_shard`: no whole view on any rank), all ranks at
+    once; then every run of `plan` goes through `GraphSession.run(mesh=
+    ...)` with the B1/B2 counts set to 0 just before and read just after,
+    and with `plan["stream"]` phase 9 follows in the same world.  Returns
+    rank 0's results and every rank's figures."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import GraphSession
@@ -1785,27 +1831,19 @@ def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
         dist.all_gather_object(out, x)
         return out
 
-    world = dist.get_world_size()
     mesh = (make_job_mesh() if plan["mesh"] == "jobs"
             else make_mesh2d(*plan["mesh"]))
     mesh_ready = time.time()      # the wall clock: comparable across ranks
     t0 = time.perf_counter()
-    for turn in range(world):
-        if turn == rank:
-            sess = GraphSession(csr, BLOCK, capacity=CAPACITY, seed=0)
-            handles = [sess.submit(a) for a in mesh_algs(plan["views"])]
-            torch.cuda.synchronize()
-            t_views = time.perf_counter()
-            shard_session(mesh, sess)
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.synchronize()
-            build_peak = torch.cuda.max_memory_allocated()
-            log(f"  rank {rank}: views built and placed at "
-                f"{t_views - t0:.1f} / {time.perf_counter() - t0:.1f} s "
-                f"(build peak {build_peak / 1e9:.2f} GB, held "
-                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
-        dist.barrier()
+    sess = GraphSession(csr, BLOCK, capacity=CAPACITY, seed=0)
+    shard_session(mesh, sess)
+    handles = [sess.submit(a) for a in mesh_algs(plan["views"])]
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
+    log(f"  rank {rank}: view slices built at {time.perf_counter() - t0:.1f}"
+        f" s (build peak {build_peak / 1e9:.2f} GB, held "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    dist.barrier()
     setup_s = time.perf_counter() - t0
     shard_err = shard_kernels(torch, sess, rank)
 
@@ -1843,6 +1881,9 @@ def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
                 shard_pairs={sr: ps.shard_pairs for sr, ps in shards.items()},
                 pair_cap={sr: ps.pair_cap for sr, ps in shards.items()},
                 runs=[])
+    # phase 9 replaces the shards (compaction): a name bound here would
+    # keep the old pair tiles alive
+    del shards
 
     def timed(label, policy, budget=MAX_SUPERSTEPS):
         torch.cuda.synchronize()
@@ -1884,8 +1925,229 @@ def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
         info["snapshot"] = checkpoint_session(sess)
         info["snapshot_supersteps"] = pre.supersteps
         timed(label + " resumed", mesh_policy(name))
+    if plan.get("stream"):
+        with (MemoryPoll() if rank == 0 else contextlib.nullcontext()) as mp:
+            info["stream"], mine["stream"], handles = mesh_stream(
+                torch, sess, handles, rank)
+            info["serve"], mine["serve"] = mesh_serve(torch, sess, handles,
+                                                      rank)
+        info["smi_peak_mib_9"] = mp.peak_mib if rank == 0 else None
     info["ranks"] = everyone(mine)
     return info
+
+
+def cuda_census(torch, min_bytes=2 ** 26):
+    """(bytes of the CUDA tensors Python can reach, {shape: count} of those
+    of at least `min_bytes`): who holds what `memory_allocated` counts."""
+    gc.collect()
+    seen, total, big = set(), 0, {}
+    for o in gc.get_objects():
+        if not (isinstance(o, torch.Tensor) and o.is_cuda):
+            continue
+        st = o.untyped_storage()
+        if st.data_ptr() in seen:
+            continue
+        seen.add(st.data_ptr())
+        total += st.nbytes()
+        if st.nbytes() >= min_bytes:
+            key = str(tuple(o.shape))
+            big[key] = big.get(key, 0) + 1
+    return total, big
+
+
+def mesh_stream(torch, sess, handles, rank: int):
+    """Phase 9a in every rank of 8a's world, on its placed session (the
+    four jobs converged by 8a's last run): phase 6's traffic, the four
+    `mutation_stream` batches (Fused after 1 and 3, TwoLevel after 2 and
+    4), the overlay batch (Fused) and the overflow batch (TwoLevel, both
+    views compact), each applied and rerun to convergence; then an
+    explicit compact().  B1/B2 are held against the plain version on
+    this rank's edited pair shard after the first batch and on its
+    compacted one after compact(), whose slices are then held to a fresh
+    `build_view_shard` of the final CSR.  Returns (rank 0's results and
+    figures, this rank's figures, the handles)."""
+    import torch.distributed as dist
+    from repro_torch.core import Fused, TwoLevel
+    from repro_torch.dist import mesh2d as m2
+    from repro_torch.graph import mutation_stream
+    from repro_torch.graph.structure import build_view_shard
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.stream import UpdateBatch
+
+    groups = sess.view_groups()
+    info = {"batches": []}
+    mine = {"batches": [], "shard_err": {}}
+
+    def shard_check(tag):
+        for sr, e in shard_kernels(torch, sess, rank).items():
+            mine["shard_err"][sr] = max(mine["shard_err"].get(sr, 0.0), e)
+        log(f"  rank {rank}: B1/B2 on the {tag} pair shards match plain")
+
+    def step(label, batch, policy):
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        m2.reset_collectives()
+        t0 = time.perf_counter()
+        st = sess.apply_updates(batch)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        coll = dict(m2.COLLECTIVES)
+        apply_peak = torch.cuda.max_memory_allocated()
+        if not info["batches"]:
+            shard_check("edited")
+        live = sum(int(g.overlay.mask.sum()) for g in groups)
+        dist.barrier()
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        m = sess.run(policy, MAX_SUPERSTEPS)
+        wall = time.perf_counter() - t0
+        launches = dict(fk.launches)
+        mine["batches"].append(dict(
+            apply_s=apply_s, apply_collectives=coll["count"],
+            apply_collective_s=coll["seconds"], apply_peak=apply_peak,
+            held=torch.cuda.memory_allocated(), launches=launches))
+        info["batches"].append(dict(
+            label=label, policy=policy.name, stats=dataclasses.asdict(st),
+            live=live, metrics=m.to_dict(), wall=wall,
+            collectives=m.collectives, collective_s=m.collective_s,
+            update=(batch.src, batch.dst, batch.w, batch.op),
+            results=[sess.result(h) for h in handles]))
+        return st, live
+
+    batches = mutation_stream(sess._csr, STREAM_BATCHES,
+                              inserts_per_batch=STREAM_INSERTS,
+                              deletes_per_batch=STREAM_DELETES,
+                              seed=STREAM_SEED)
+    for i, b in enumerate(batches):
+        step(f"9a batch {i + 1}/{len(batches)}", b,
+             Fused() if i % 2 == 0 else TwoLevel())
+    reach = np.isfinite(sess.result(handles[-2]))
+    bn = groups[0].graph.num_blocks
+    src, dst = new_pairs(sess, groups[0], range(7, bn, bn // 8), 1, reach)
+    _, live = step("9a overlay batch", UpdateBatch.inserts(src, dst), Fused())
+    if live == 0:
+        raise RuntimeError("9a: the overlay batch left no live overlay entry")
+    census = {"before compaction": (torch.cuda.memory_allocated(),
+                                    *cuda_census(torch))}
+    row = int(np.argmin([len(r) for r in tile_rows(groups[0])]))
+    src, dst = new_pairs(sess, groups[0], [row], sess.overlay_capacity + 1,
+                         np.ones(sess._csr.n, dtype=bool))
+    st, _ = step(f"9a overflow batch (block row {row})",
+                 UpdateBatch.inserts(src, dst), TwoLevel())
+    if st.compacted_views != len(groups):
+        raise RuntimeError(f"9a: the overflow batch compacted "
+                           f"{st.compacted_views} of {len(groups)} views")
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess.compact()
+    torch.cuda.synchronize()
+    mine["compact_s"] = time.perf_counter() - t0
+    mine["compact_peak"] = torch.cuda.max_memory_allocated()
+    mine["compact_held"] = torch.cuda.memory_allocated()
+    census["after compact()"] = (mine["compact_held"], *cuda_census(torch))
+    for tag, (held, seen, big) in census.items():
+        log(f"  rank {rank}: {tag}: allocated {held / 1e9:.3f} GB, CUDA "
+            f"tensors Python reaches {seen / 1e9:.3f} GB; of 64 MB or more "
+            f"{big}")
+    shard_check("compacted")
+    spec = sess._mesh2d
+    for g in groups:
+        _, fill, normalize, _ = g.key
+        ps = sess._pair_shards(g)
+        fg, fp, counts = build_view_shard(
+            sess._csr, BLOCK, ps.num_shards, ps.shard, fill=fill,
+            normalize=normalize, device=sess.device)
+        same = counts == ps.shard_pairs and all(
+            torch.equal(getattr(g.graph, f), getattr(fg, f))
+            for f in ("tiles", "nbr_ids", "nbr_mask")) and all(
+            torch.equal(getattr(ps.local, f), getattr(fp, f))
+            for f in ("src", "dst", "slot", "first", "last", "src_nnz",
+                      "dst_touched", "tiles", "run_start", "chunk_start",
+                      "chunk_run"))
+        if not same or g.overlay.capacity:
+            raise RuntimeError(f"9a rank {rank}: the compacted {g.semiring} "
+                               f"slices differ from a fresh build")
+        del fg, fp
+    torch.cuda.empty_cache()
+    log(f"  rank {rank}: compacted slices (block rows "
+        f"{spec.block_range(bn, spec.layout(groups[0]))}) bit-equal to a "
+        f"fresh build_view_shard of the final CSR ({sess._csr.nnz} edges)")
+    info["csr_nnz"] = sess._csr.nnz
+    return info, mine, handles
+
+
+def mesh_serve(torch, sess, handles, rank: int):
+    """Phase 9b in every rank of 8a's world: the jobs detached, phase 7's
+    load (horizon and update period cut, MESH_SERVE_LOAD) served on the
+    placed session under TwoLevel(), 8 supersteps a tick, at most 8
+    running: the min-plus and plus-times groups grow past capacity 4 and
+    the BFS (unit) view is built as a new view, as this rank's slices.
+    Rank 0 holds every detached result to its plain answer
+    (`check_served`).  Returns (rank 0's figures, this rank's)."""
+    import torch.distributed as dist
+    from repro_torch.core import TwoLevel
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.obs import LoadgenConfig, OpenLoopHarness
+    from repro_torch.serve import ConcurrentServeScheduler
+
+    for h in handles:
+        sess.detach(h)
+    caps0 = {g.key: g.capacity for g in sess.view_groups()}
+    sched = ConcurrentServeScheduler(sess.scheduler.num_blocks,
+                                     batch_budget=SERVE_MAX_RUNNING, seed=5)
+    h = OpenLoopHarness(sess, sched, LoadgenConfig(**MESH_SERVE_LOAD),
+                        policy=TwoLevel(), max_running=SERVE_MAX_RUNNING,
+                        supersteps_per_tick=SERVE_STEPS_PER_TICK)
+    runs, done = [], []
+    real_run, real_detach = sess.run, sess.detach
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        m = real_run(*a, **kw)          # ends in a host read
+        runs.append((time.perf_counter() - t0, m.supersteps, m.collectives,
+                     m.collective_s))
+        return m
+
+    def detach(handle):
+        res = real_detach(handle)
+        if rank == 0:
+            done.append((handle.alg, res, sess._csr))
+        return res
+    sess.run, sess.detach = run, detach
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        s = h.run()
+        torch.cuda.synchronize()
+    finally:
+        sess.run, sess.detach = real_run, real_detach
+    wall = time.perf_counter() - t0
+    mine = dict(launches=dict(fk.launches),
+                peak=torch.cuda.max_memory_allocated(),
+                held=torch.cuda.memory_allocated(),
+                run_s=sum(r[0] for r in runs))
+    info = dict(summary=s, wall=wall, most=peak_running(h), caps0=caps0,
+                caps1={g.key: g.capacity for g in sess.view_groups()},
+                run_s=sum(r[0] for r in runs),
+                supersteps=sum(r[1] for r in runs),
+                collectives=sum(r[2] for r in runs),
+                collective_s=sum(r[3] for r in runs))
+    if rank == 0:
+        label = "9b serve on (1 x 4)"
+        if not s["admitted"] == s["completed"] == s["arrivals"] > 0:
+            raise RuntimeError(f"{label}: arrivals {s['arrivals']}, admitted "
+                               f"{s['admitted']}, completed {s['completed']}")
+        if info["most"] != SERVE_MAX_RUNNING:
+            raise RuntimeError(f"{label}: at most {info['most']} requests "
+                               f"ran at once, not {SERVE_MAX_RUNNING}")
+        info["checked"] = check_served(done, label)
+    return info, mine
 
 
 def mesh_world(torch, csr, label, plan, out_dir):
@@ -1975,6 +2237,106 @@ def report_mesh(label, out, csr, refs, views):
     return totals
 
 
+def report_stream(out, csr):
+    """Phase 9a's checks and figures from 8a's world: every rerun's
+    results against Dijkstra / the power iteration on a plain application
+    of the batches; per batch the apply_updates seconds (max over ranks),
+    its collectives, the rerun's wall, supersteps and collectives, the
+    compaction seconds and every rank's memory.  Returns the reruns' B1/B2
+    launches summed over the ranks."""
+    st9 = out["stream"]
+    algs = mesh_algs(2)
+    adj = plain_adjacency(csr)
+    totals = {sr: 0 for sr in SEMIRINGS}
+    for i, b in enumerate(st9["batches"]):
+        per = [mine["stream"]["batches"][i] for mine in out["ranks"]]
+        m = b["metrics"]
+        steps = max(1, m["supersteps"])
+        tag = b["label"]
+        apply_s = [p["apply_s"] for p in per]
+        log(f"{tag} ({b['policy']}): apply_updates {max(apply_s):.3f} s "
+            f"(max over ranks; {[round(x, 3) for x in apply_s]}), "
+            f"{per[0]['apply_collectives']} collectives "
+            f"({1e3 * max(p['apply_collective_s'] for p in per):.1f} ms); "
+            f"{b['stats']}; overlay entries live {b['live']}; rerun "
+            f"converged={m['converged']} wall {b['wall']:.3f} s, supersteps "
+            f"{m['supersteps']}, {1e3 * b['wall'] / steps:.3f} ms/superstep, "
+            f"collectives {b['collectives'] / steps:.2f}/superstep "
+            f"({100 * b['collective_s'] / max(b['wall'], 1e-9):.1f}% of "
+            f"wall), tile_loads {m['tile_loads']}, tile_pair_loads "
+            f"{m['tile_pair_loads']}; launches per rank "
+            f"{[p['launches'] for p in per]}; apply peak / held per rank "
+            f"{[round(p['apply_peak'] / 1e9, 2) for p in per]} / "
+            f"{[round(p['held'] / 1e9, 2) for p in per]} GB")
+        if not m["converged"]:
+            raise RuntimeError(f"{tag}: no convergence")
+        for r, p in enumerate(per):
+            for sr in SEMIRINGS:
+                if p["launches"][sr] <= 0:
+                    raise RuntimeError(f"{tag}: rank {r} launched no {sr} "
+                                       f"kernel")
+                totals[sr] += p["launches"][sr]
+        src, dst, w, op = b["update"]
+        adj = plain_update(adj, types.SimpleNamespace(src=src, dst=dst, w=w,
+                                                      op=op))
+        g = plain_csr(adj)
+        check_values(b["results"], algs, g, references(g, algs), tag)
+    if adj.nnz != st9["csr_nnz"]:
+        raise RuntimeError(f"9a: {st9['csr_nnz']} edges on the ranks, "
+                           f"{adj.nnz} in the plain application")
+    log("9a: compact() per rank " + ", ".join(
+        f"{mine['stream']['compact_s']:.3f} s (peak "
+        f"{mine['stream']['compact_peak'] / 1e9:.2f} GB, held "
+        f"{mine['stream']['compact_held'] / 1e9:.2f} GB)"
+        for mine in out["ranks"]))
+    log(f"9a: launches over the reruns (all ranks) {totals}; phase 9 "
+        f"nvidia-smi peak {out['smi_peak_mib_9']} MiB")
+    return totals
+
+
+def report_serve(out):
+    """Phase 9b's figures from 8a's world (rank 0 checked the results);
+    returns the B1/B2 launches summed over the ranks."""
+    sv = out["serve"]
+    s = sv["summary"]
+    steps = max(1, sv["supersteps"])
+    totals = {sr: 0 for sr in SEMIRINGS}
+    for r, mine in enumerate(out["ranks"]):
+        ln = mine["serve"]["launches"]
+        for sr in SEMIRINGS:
+            if ln[sr] <= 0:
+                raise RuntimeError(f"9b: rank {r} launched no {sr} kernel")
+            totals[sr] += ln[sr]
+    grown = [k for k, c in sv["caps1"].items() if c > sv["caps0"].get(k, 0)]
+    new = [k for k in sv["caps1"] if k not in sv["caps0"]]
+    if not new or not any(k in sv["caps0"] for k in grown):
+        raise RuntimeError(f"9b: capacities {sv['caps0']} -> {sv['caps1']}: "
+                           f"no view grew or none was built")
+    lat = s["latency_ticks"]
+    n_min, n_pt, n_versions = sv["checked"]
+    log(f"9b serve on (1 x 4): arrivals {s['arrivals']}, admitted "
+        f"{s['admitted']}, completed {s['completed']}, at most {sv['most']} "
+        f"running; ticks {s['ticks']}, supersteps {s['supersteps']}, updates "
+        f"{s['updates_applied']}; latency ticks p50 {lat['p50']} p99 "
+        f"{lat['p99']} max {lat['max']}; by family " + "; ".join(
+            f"{f} n={x['count']} p50 {x['p50']} p99 {x['p99']}"
+            for f, x in s["latency_by_family"].items()))
+    log(f"9b: wall {sv['wall']:.3f} s, {1e3 * sv['wall'] / max(1, s['ticks']):.3f}"
+        f" ms/tick; inside run() {sv['run_s']:.3f} s, "
+        f"{1e3 * sv['run_s'] / steps:.3f} ms/superstep, collectives "
+        f"{sv['collectives'] / steps:.2f}/superstep "
+        f"({1e3 * sv['collective_s'] / steps:.3f} ms/superstep); capacities "
+        f"{sv['caps0']} -> {sv['caps1']} (grown {grown}, new {new}); "
+        f"launches {totals}; per rank peak / held "
+        f"{[round(m['serve']['peak'] / 1e9, 2) for m in out['ranks']]} / "
+        f"{[round(m['serve']['held'] / 1e9, 2) for m in out['ranks']]} GB, "
+        f"run() s {[round(m['serve']['run_s'], 3) for m in out['ranks']]}")
+    log(f"9b: {n_min} SSSP/BFS results bit-equal to scipy on the CSR they "
+        f"finished on ({n_versions} CSR versions), {n_pt} PageRank/PPR "
+        f"within rtol 5e-3, atol 1e-4")
+    return totals
+
+
 def mesh_phase(torch, csr, refs, fk, out_dir):
     """Phase 8: the multi-device engine at full size, ranks sharing the
     card over gloo.  8a: (1 x 4) blocks mesh, both views, TwoLevel(),
@@ -1995,7 +2357,7 @@ def mesh_phase(torch, csr, refs, fk, out_dir):
         ("8a (1 x 4)", dict(mesh=(1, MESH_RANKS), views=2, runs=[
             ("TwoLevel()", "TwoLevel()", False),
             ("Fused()", "Fused()", False),
-            ("Fused() compress_halo", "Fused()", True)]), refs),
+            ("Fused() compress_halo", "Fused()", True)], stream=True), refs),
         ("8b (2 x 2)", dict(mesh=(2, 2), views=1, runs=[
             ("TwoLevel(device, 8)", "TwoLevel(device, 8)", False)],
             checkpoint=("TwoLevel(device, 8)", "TwoLevel(device, 8)")),
@@ -2010,8 +2372,12 @@ def mesh_phase(torch, csr, refs, fk, out_dir):
                                  plan["views"]).items():
             totals[sr] += n
         for mine in out["ranks"]:
-            for sr, e in mine["shard_err"].items():
+            for sr, e in list(mine["shard_err"].items()) + list(
+                    mine.get("stream", {}).get("shard_err", {}).items()):
                 errs[sr] = max(errs[sr], e)
+        if plan.get("stream"):
+            stream_totals = report_stream(out, csr)
+            serve_totals = report_serve(out)
         outs[label[:2]] = out
     # one device here: 8c's reference run, then 8b's snapshot restored
     t0 = time.perf_counter()
@@ -2047,8 +2413,8 @@ def mesh_phase(torch, csr, refs, fk, out_dir):
     del sess, handles
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
-    return totals, errs
+    log(f"phases 8-9: {time.perf_counter() - t_phase:.1f} s")
+    return totals, stream_totals, serve_totals, errs
 
 
 def main() -> int:
@@ -2185,10 +2551,11 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     serve_launches = serve_phase(torch, csr, fk, out_dir)
 
-    # -- phase 8: the multi-device engine (ranks sharing the card) ---------
+    # -- phases 8-9: the multi-device engine (ranks sharing the card) -----
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_launches, mesh_errs = mesh_phase(torch, csr, refs, fk, out_dir)
+    mesh_launches, mesh_stream_launches, mesh_serve_launches, mesh_errs = \
+        mesh_phase(torch, csr, refs, fk, out_dir)
 
     kernels = []
     for sr in SEMIRINGS:
@@ -2198,12 +2565,15 @@ def main() -> int:
             "source": SOURCE, "replaces": REPLACES[sr],
             "launches": (launches[sr] + dev_launches[sr]
                          + stream_launches[sr] + serve_launches[sr]
-                         + mesh_launches[sr]),
+                         + mesh_launches[sr] + mesh_stream_launches[sr]
+                         + mesh_serve_launches[sr]),
             "launches_by_path": {"host_two_level": launches[sr],
                                  "device_fused": dev_launches[sr],
                                  "stream": stream_launches[sr],
                                  "serve": serve_launches[sr],
-                                 "mesh": mesh_launches[sr]},
+                                 "mesh": mesh_launches[sr],
+                                 "mesh_stream": mesh_stream_launches[sr],
+                                 "mesh_serve": mesh_serve_launches[sr]},
             "max_abs_err": max([f["max_abs_err"], mesh_errs[sr]] + [
                 x["max_abs_err"] for x in sel_figures[sr]]),
             "mesh_shard_max_abs_err": mesh_errs[sr],

@@ -186,7 +186,7 @@ class ConcurrentEngine:
         r = self.run
         values, deltas = r.values, r.deltas
         if self.session._mesh2d is not None:
-            values, deltas = self.session._full_state(
+            values, deltas, _ = self.session._full_state(
                 self.session._sole_group())
         out = []
         for j, a in enumerate(r.algs):

@@ -30,10 +30,12 @@ the CPU.
 the jobs and the graph (a ("jobs", "blocks") one) over the ranks of a
 torch.distributed world (`repro_torch.dist`): every rank builds the same
 session and calls run; each keeps its slices from then on (the session
-stays placed until `dist.graph.unshard_session`).  On a placed session
-`result`, `converged`, `unconverged_counts` and `detach` gather, so
-every rank calls them; submit and detach reuse existing slots (growing a
-view, or a new view, raises), and live updates raise (ROADMAP A11b).
+stays placed until `dist.graph.unshard_session`).  A placed session
+takes everything a one-device session takes: a new view builds only
+this rank's slices from the CSR, a full view's job axis grows, and live
+updates, compaction and the serve front run on the slices.  `result`,
+`converged`, `unconverged_counts`, `detach`, growth and `apply_updates`
+gather, so every rank calls them, in the same order.
 """
 
 from __future__ import annotations
@@ -102,7 +104,8 @@ class ViewGroup:
     # to None whenever the tiles change (stream edits, compaction)
     pairs: Optional[BlockPairs] = None
     # on a mesh (repro_torch.dist): (placement signature, this rank's
-    # PairShards), built at placement from the whole view
+    # PairShards), cut at placement from the whole view or built from the
+    # CSR (a new view, a compaction); stream edits write it in place
     pair_shards: Optional[tuple] = None
 
     @property
@@ -300,13 +303,19 @@ class GraphSession:
             return grp
         if self._csr is None:
             raise ValueError("GraphSession needs a CSRGraph to build from")
-        self._not_placed("a new graph view")
-        g_csr = (self._csr.symmetrized() if alg.graph_symmetrize
-                 else self._csr)
-        g = build_blocked(g_csr, self.block_size, fill=alg.graph_fill,
-                          normalize=alg.graph_normalize, device=self.device)
-        self._install_scheduler(g)
         cap = self._capacity0
+        spec = self._mesh2d
+        if spec is not None:
+            # a placed session builds only this rank's slices of the view
+            from repro_torch.dist.mesh2d import build_group_slices
+            g, shards = build_group_slices(self, spec, key, cap)
+        else:
+            g_csr = (self._csr.symmetrized() if alg.graph_symmetrize
+                     else self._csr)
+            g = build_blocked(g_csr, self.block_size, fill=alg.graph_fill,
+                              normalize=alg.graph_normalize,
+                              device=self.device)
+        self._install_scheduler(g)
         values, deltas = _inert_state(alg.semiring, g, cap)
         grp = ViewGroup(
             key=key, alg=alg, graph=g,
@@ -318,30 +327,32 @@ class GraphSession:
             algs=[None] * cap, active=np.zeros(cap, dtype=bool),
             gens=[0] * cap,
             overlay=empty_overlay(g.num_blocks, device=self.device))
+        if spec is not None:
+            from repro_torch.dist.mesh2d import slice_job_state
+            grp.pair_shards = (spec.signature(), shards)
+            slice_job_state(spec, grp)
         self.groups[key] = grp
         return grp
 
-    def _not_placed(self, what: str) -> None:
-        """Raise for an operation not ported to a placed session."""
-        if self._mesh2d is not None:
-            raise NotImplementedError(
-                f"{what} on a session placed on a mesh is not ported yet "
-                "(ROADMAP A11b); unshard it first "
-                "(repro_torch.dist.graph.unshard_session)")
-
     def _grow(self, grp: ViewGroup) -> None:
-        self._not_placed("growing a view's job axis")
+        """Double the group's job axis.  On a mesh the whole state is
+        gathered (a collective), grown and re-sliced: the layout assigns
+        job rows to ranks by capacity, so rows move."""
         extra = grp.capacity
+        values, deltas, push_scale = self._full_state(grp)
         iv, idl = _inert_state(grp.semiring, grp.graph, extra)
-        grp.values = torch.cat([grp.values, iv])
-        grp.deltas = torch.cat([grp.deltas, idl])
+        grp.values = torch.cat([values, iv])
+        grp.deltas = torch.cat([deltas, idl])
         grp.push_scale = torch.cat(
-            [grp.push_scale, torch.ones(extra, dtype=torch.float32,
-                                        device=self.device)])
+            [push_scale, torch.ones(extra, dtype=torch.float32,
+                                    device=self.device)])
         grp.algs.extend([None] * extra)
         grp.gens.extend([0] * extra)
         grp.active = np.concatenate(
             [grp.active, np.zeros(extra, dtype=bool)])
+        if self._mesh2d is not None:
+            from repro_torch.dist.mesh2d import slice_job_state
+            slice_job_state(self._mesh2d, grp)
 
     # -- job lifecycle -------------------------------------------------------
 
@@ -430,13 +441,13 @@ class GraphSession:
         return bool(self._host_counts(grp)[handle.slot] == 0)
 
     def _full_state(self, grp: ViewGroup):
-        """The group's whole [cap, B_N, Vb] (values, deltas): gathered on
-        a mesh (a collective), the tensors themselves otherwise."""
+        """The group's whole [cap, B_N, Vb] values and deltas and [cap]
+        push_scale: gathered on a mesh (one collective), the tensors
+        themselves otherwise."""
         if self._mesh2d is None:
-            return grp.values, grp.deltas
-        from repro_torch.dist.mesh2d import gather_state
-        return (gather_state(self._mesh2d, grp, grp.values),
-                gather_state(self._mesh2d, grp, grp.deltas))
+            return grp.values, grp.deltas, grp.push_scale
+        from repro_torch.dist.mesh2d import gather_group_state
+        return gather_group_state(self._mesh2d, grp)
 
     def result(self, handle: JobHandle) -> np.ndarray:
         """[n_real] float32 result for one job (valid at any superstep)."""

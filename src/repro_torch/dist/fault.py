@@ -25,15 +25,14 @@ def checkpoint_session(sess) -> dict:
     position and its host generator's state, so a resumed run draws what
     it would have drawn uninterrupted.  On a mesh the state is gathered
     first (a collective: every rank calls it), so the snapshot restores
-    onto any placement, a smaller mesh after a shard loss included."""
-    spec = getattr(sess, "_mesh2d", None)
+    onto any placement, a smaller mesh after a shard loss included.
+    After live updates it still carries job state only, as the
+    reference's does: the graph it converges on is the session's CSR,
+    which the snapshot does not hold."""
     groups = sess.view_groups()
     vals, dels = [], []
     for g in groups:
-        v, d = g.values, g.deltas
-        if spec is not None:
-            from repro_torch.dist.mesh2d import gather_state
-            v, d = gather_state(spec, g, v), gather_state(spec, g, d)
+        v, d, _ = sess._full_state(g)
         vals.append(v.cpu().numpy().copy())
         dels.append(d.cpu().numpy().copy())
     return {"keys": [g.key for g in groups], "values": vals,
@@ -48,7 +47,9 @@ def restore_session(sess, snapshot: dict, mesh=None, **shard_kwargs):
     device when None.  The scheduler resumes at the snapshot's stream
     position (and host generator state, when the snapshot has one), so
     a min-plus run restored onto a different block-shard count reaches
-    the bit-identical fixpoint."""
+    the bit-identical fixpoint.  The snapshot holds no graph: after live
+    updates `sess` must hold the same CSR (the same batches applied), or
+    the restored state belongs to another graph."""
     from repro_torch.dist.mesh2d import unshard_session
     unshard_session(sess)
     by_key = {g.key: g for g in sess.view_groups()}

@@ -24,7 +24,12 @@ replication (identical math) with a one-time `MeshLayoutWarning`.
 
 Every rank builds the same session from the same seed and calls
 ``sess.run(policy, mesh=mesh)``; `sess.result(h)`, `unshard_session` and
-`dist.fault.checkpoint_session` gather, so every rank calls them.
+`dist.fault.checkpoint_session` gather, so every rank calls them.  Live
+updates, compaction, new views and growth run on a placed session as on
+one device (every rank calls them with the same arguments, in the same
+order); on a job mesh every rank edits its whole replicated view, and
+the schedule and results after updates still equal one device bit for
+bit.
 """
 
 from __future__ import annotations

@@ -51,10 +51,18 @@ collective itself moves the dequantized float32 rows.
 Groups whose job axis does not divide the jobs axis, or whose B_N does
 not divide the blocks axis, fall back to replication along that axis
 (identical math, a one-time `MeshLayoutWarning` naming the layout).
+
+A placed session changes like a one-device one.  A view built on the
+mesh (a new view, a compaction) is built as this rank's slices alone,
+straight from the CSR (`build_group_slices`); `repro_torch.stream` edits
+the ELL rows and the pair shard in place and runs its invalidation on
+the group's whole job state (`whole_job_state`); growth gathers, grows
+and re-slices the job rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -72,7 +80,9 @@ from repro_torch.core.do_select import (do_select_device, step_key,
 from repro_torch.core.global_q import accumulate_priority, synthesize_topq
 from repro_torch.core.push import compute_pairs
 from repro_torch.dist.compression import quantize_ef
-from repro_torch.graph.structure import BlockPairs, chunk_table, run_starts
+from repro_torch.graph.structure import (BlockedGraph, BlockPairs,
+                                         build_view_shard, chunk_table,
+                                         run_starts)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fused_superstep.kernel import fused_superstep_call
 from repro_torch.kernels.fused_superstep.ops import (_pick_job_block,
@@ -98,7 +108,9 @@ def reset_collectives() -> None:
 __all__ = [
     "Mesh2DSpec", "GroupLayout", "MeshLayoutWarning", "PairShards",
     "make_mesh2d", "partition_block_pairs", "place_pair_shards",
-    "shard_session_2d", "unshard_session", "build_device_step_2d",
+    "shard_session_2d", "unshard_session", "place_group",
+    "build_group_slices", "gather_group_state", "whole_job_state",
+    "build_device_step_2d",
     "device_inputs_2d", "finish_device_2d", "shared_push_fn_2d",
     "indep_push_fn_2d", "host_halo_bytes", "reset_layout_warnings", "warn_layout_once",
     "check_mesh",
@@ -235,15 +247,29 @@ class Mesh2DSpec:
 
     def layout(self, grp, warn: bool = False) -> GroupLayout:
         """Shard along an axis iff the group's extent divides it."""
-        js = grp.capacity % self.jobs_shards == 0
-        bs = grp.graph.num_blocks % self.block_shards == 0
+        return self.layout_of(grp.key, grp.capacity, grp.graph.num_blocks,
+                              warn)
+
+    def layout_of(self, key, cap: int, bn: int,
+                  warn: bool = False) -> GroupLayout:
+        """`layout` of a view `key` with `cap` job slots over `bn`
+        blocks (a group that does not exist yet)."""
+        js = cap % self.jobs_shards == 0
+        bs = bn % self.block_shards == 0
         if warn and not js and self.jobs_shards > 1:
-            warn_layout_once(grp.key, self.jobs_axis, self.jobs_shards,
-                             grp.capacity, "jobs-replicated")
+            warn_layout_once(key, self.jobs_axis, self.jobs_shards, cap,
+                             "jobs-replicated")
         if warn and not bs and self.block_shards > 1:
-            warn_layout_once(grp.key, self.blocks_axis, self.block_shards,
-                             grp.graph.num_blocks, "blocks-replicated")
+            warn_layout_once(key, self.blocks_axis, self.block_shards, bn,
+                             "blocks-replicated")
         return GroupLayout(jobs_sharded=js, blocks_sharded=bs)
+
+    def pair_shard(self, lay: GroupLayout) -> Tuple[int, int]:
+        """(shards, this rank's shard) of a group's pair view: its block
+        shard of a blocks-sharded group, else the whole view."""
+        if lay.blocks_sharded and self.block_shards > 1:
+            return self.block_shards, self.blocks_index
+        return 1, 0
 
     def job_range(self, cap: int, lay: GroupLayout) -> Tuple[int, int]:
         """(first global job slot, local job count) of this rank."""
@@ -327,6 +353,12 @@ class PairShards:
     shard_pairs: Tuple[int, ...]
     local: BlockPairs
     src_nnz: torch.Tensor
+    # host keys of the real pairs (dst_local * B_N + src, ascending), read
+    # once for the stream's in-place edits; the structure never changes
+    # in place (a compaction builds a new PairShards)
+    _keys: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                    repr=False,
+                                                    compare=False)
 
     def signature(self) -> tuple:
         return (self.num_shards, self.pair_cap, self.block_size,
@@ -337,6 +369,40 @@ class PairShards:
     def tile_bytes(self) -> int:
         """Bytes of this rank's pair tiles."""
         return int(self.local.tiles.numel()) * 4
+
+    def _host_keys(self) -> np.ndarray:
+        if self._keys is None:
+            n = self.shard_pairs[self.shard]     # the inert pad excluded
+            src = self.local.src[:n].cpu().numpy().astype(np.int64)
+            dst = self.local.dst[:n].cpu().numpy().astype(np.int64)
+            self._keys = dst * self.num_blocks + src
+        return self._keys
+
+    def pair_index(self, sb, db) -> np.ndarray:
+        """Local index of the pair (source block sb, GLOBAL destination
+        block db) for each entry, -1 where this shard does not hold it."""
+        sb = np.asarray(sb, dtype=np.int64)
+        dl = np.asarray(db, dtype=np.int64) - self.shard * \
+            self.blocks_per_shard
+        keys = self._host_keys()
+        if len(keys) == 0:
+            return np.full(sb.shape, -1, dtype=np.int64)
+        key = dl * self.num_blocks + sb
+        i = np.minimum(np.searchsorted(keys, key), len(keys) - 1)
+        hit = (dl >= 0) & (dl < self.blocks_per_shard) & (keys[i] == key)
+        return np.where(hit, i, -1)
+
+    def pairs_of_sources(self, sb) -> Tuple[np.ndarray, np.ndarray]:
+        """(local pair indices, which entry of `sb` each belongs to): every
+        pair of this shard whose source block is in `sb`."""
+        sb = np.asarray(sb, dtype=np.int64)
+        src = self._host_keys() % self.num_blocks
+        order = np.argsort(src, kind="stable")
+        lo = np.searchsorted(src[order], sb, side="left")
+        n = np.searchsorted(src[order], sb, side="right") - lo
+        which = np.repeat(np.arange(len(sb)), n)
+        k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        return order[np.repeat(lo, n) + k], which
 
 
 def partition_block_pairs(bp: BlockPairs, n_shards: int, fill: float,
@@ -417,15 +483,70 @@ def _gather_max(spec: Mesh2DSpec, local: torch.Tensor, shape,
     return spec.all_reduce(buf, MAX)
 
 
-def gather_state(spec: Mesh2DSpec, grp, t: torch.Tensor) -> torch.Tensor:
-    """A group's [cap, B_N, Vb] job state from this rank's slice `t`
-    (a collective: every rank calls it)."""
+def gather_group_state(spec: Mesh2DSpec, grp):
+    """A group's whole (values, deltas) [cap, B_N, Vb] and push_scale
+    [cap] from this rank's slices, in one collective (every rank calls
+    it)."""
     lay = spec.layout(grp)
     cap, bn, vb = grp.capacity, grp.graph.num_blocks, grp.graph.block_size
     j0, jl = spec.job_range(cap, lay)
     b0, bl = spec.block_range(bn, lay)
-    return _gather_max(spec, t, (cap, bn, vb),
-                       (slice(j0, j0 + jl), slice(b0, b0 + bl)))
+    n = cap * bn * vb
+    buf = torch.full((2 * n + cap,), -INF, dtype=torch.float32,
+                     device=grp.values.device)
+    st = buf[:2 * n].view(2, cap, bn, vb)
+    st[0, j0:j0 + jl, b0:b0 + bl] = grp.values
+    st[1, j0:j0 + jl, b0:b0 + bl] = grp.deltas
+    buf[2 * n + j0:2 * n + j0 + jl] = grp.push_scale
+    spec.all_reduce(buf, MAX)
+    return st[0].clone(), st[1].clone(), buf[2 * n:].clone()
+
+
+def slice_job_state(spec: Mesh2DSpec, grp) -> None:
+    """Keep this rank's slices of a group's whole job state: job rows
+    [j0, j0 + J_loc) of values/deltas/push_scale and block rows
+    [b0, b0 + B_loc) of values/deltas, under the group's layout."""
+    lay = spec.layout(grp)
+    j0, jl = spec.job_range(grp.capacity, lay)
+    b0, bl = spec.block_range(grp.graph.num_blocks, lay)
+    grp.values = grp.values[j0:j0 + jl, b0:b0 + bl].contiguous()
+    grp.deltas = grp.deltas[j0:j0 + jl, b0:b0 + bl].contiguous()
+    grp.push_scale = grp.push_scale[j0:j0 + jl].contiguous()
+
+
+@contextlib.contextmanager
+def whole_job_state(spec: Mesh2DSpec, grp):
+    """The group's whole job state on every rank inside the block (one
+    gather, a collective, where the layout slices it), this rank's slices
+    of it again after: one-device code that reads any job at any vertex
+    runs unchanged inside, and every rank keeps what it computed for its
+    own slice."""
+    lay = spec.layout(grp)
+    bn = grp.graph.num_blocks
+    if (spec.job_range(grp.capacity, lay)[1] == grp.capacity
+            and spec.block_range(bn, lay)[1] == bn):
+        yield
+        return
+    grp.values, grp.deltas, grp.push_scale = gather_group_state(spec, grp)
+    try:
+        yield
+    finally:
+        slice_job_state(spec, grp)
+
+
+def gather_block_adjacency(spec: Mesh2DSpec, grp):
+    """The whole view's ELL metadata (nbr_ids [B_N, K] int32, nbr_mask
+    [B_N, K] bool, numpy) from this rank's ELL rows (a collective; the
+    ids are below 2^24, exact in float32)."""
+    g = grp.graph
+    bn, k = g.num_blocks, g.nbr_ids.shape[1]
+    b0, bl = spec.block_range(bn, spec.layout(grp))
+    buf = torch.full((2, bn, k), -INF, dtype=torch.float32,
+                     device=g.nbr_ids.device)
+    buf[0, b0:b0 + bl] = g.nbr_ids.to(torch.float32)
+    buf[1, b0:b0 + bl] = g.nbr_mask.to(torch.float32)
+    host = spec.all_reduce(buf, MAX).cpu().numpy()
+    return host[0].astype(np.int32), host[1] > 0
 
 
 def gather_job(spec: Mesh2DSpec, grp, slot: int) -> Tuple[torch.Tensor,
@@ -617,7 +738,8 @@ def _overlay_plus_local(deltas, d_sel, ov, sel, boff: int, b_loc: int,
     contrib = torch.where(ok & (mask > 0), picked * w * mask, 0.0)
     flat = torch.cat([deltas.reshape(j, -1), deltas.new_zeros(j, 1)], 1)
     flat.scatter_add_(1, idx.reshape(j, -1), contrib.reshape(j, -1))
-    return flat[:, :-1].reshape(deltas.shape)
+    # contiguous: the host driver hands it to the next kernel call as is
+    return flat[:, :-1].reshape(deltas.shape).contiguous()
 
 
 def _overlay_min_local(values, d_sel, ov, sel, boff: int, b_loc: int,
@@ -635,7 +757,7 @@ def _overlay_min_local(values, d_sel, ov, sel, boff: int, b_loc: int,
                       values.new_full((j, 1), INF)], 1)
     flat.scatter_reduce_(1, idx.reshape(j, -1), cand.reshape(j, -1),
                          reduce="amin")
-    return flat[:, :-1].reshape(values.shape)
+    return flat[:, :-1].reshape(values.shape).contiguous()
 
 
 def _apply_pairs_local(semiring: str, values, base, raw, d_wide, d_sel,
@@ -1115,18 +1237,62 @@ def host_halo_bytes(spec: Optional[Mesh2DSpec], groups, selection,
 # ---------------------------------------------------------------------------
 
 
+def place_group(session, grp, spec: Mesh2DSpec) -> None:
+    """Place one view group held whole on this rank: keep job rows
+    [j0, j0 + J_loc) of values/deltas/push_scale, block rows
+    [b0, b0 + B_loc) of values/deltas and of the ELL tiles, neighbour ids
+    and mask, and the shard's `PairShards` cut from the view's current
+    pair view (its tile edits and overlay as they are).  The dense
+    operator is dropped, as the reference drops it under a mesh.  Purely
+    local: no collective."""
+    lay = spec.layout(grp, warn=True)
+    g = grp.graph
+    bp = session._pair_data(grp)
+    ps = place_pair_shards(spec, bp, float(grp.alg.graph_fill),
+                           lay.blocks_sharded)
+    slice_job_state(spec, grp)
+    b0, bl = spec.block_range(g.num_blocks, lay)
+    if bl != g.num_blocks:
+        g.tiles = g.tiles[b0:b0 + bl].clone()
+        g.nbr_ids = g.nbr_ids[b0:b0 + bl].clone()
+        g.nbr_mask = g.nbr_mask[b0:b0 + bl].clone()
+    grp.pairs = None
+    grp.pair_shards = (spec.signature(), ps)
+    del bp
+    if session.device.type == "cuda":
+        # hand the freed whole view back to the driver now: the next
+        # view's slices would otherwise be carved out of its cached
+        # segments and pin them (other ranks on the card need them)
+        torch.cuda.empty_cache()
+
+
+def build_group_slices(session, spec: Mesh2DSpec, key,
+                       cap: int) -> Tuple[BlockedGraph, PairShards]:
+    """This rank's slices of view `key` (with `cap` job slots) built
+    straight from the session's CSR (`graph.structure.build_view_shard`):
+    its ELL rows and its `PairShards`, bit-equal to placing a whole build,
+    which is never made.  A new view and a compaction place this way;
+    purely local, no collective."""
+    _, fill, normalize, symmetrize = key
+    csr = session._csr.symmetrized() if symmetrize else session._csr
+    bn = -(-csr.n // session.block_size)
+    n_shards, shard = spec.pair_shard(spec.layout_of(key, cap, bn))
+    g, local, counts = build_view_shard(
+        csr, session.block_size, n_shards, shard, fill=fill,
+        normalize=normalize, device=session.device)
+    return g, PairShards(n_shards, max(1, max(counts)), g.block_size, bn,
+                         bn // n_shards, float(fill), shard, counts, local,
+                         local.src_nnz)
+
+
 def place_session(session, spec: Mesh2DSpec):
-    """Place every view group of `session` on `spec`, keeping this rank's
-    slices: job rows [j0, j0 + J_loc) of values/deltas/push_scale, block
-    rows [b0, b0 + B_loc) of values/deltas and of the ELL tiles,
-    neighbour ids and mask, and the shard's `PairShards` (built from the
-    whole view first, which is then freed).  The dense operator is
-    dropped, as the reference drops it under a mesh.  Purely local: no
-    collective, so ranks may place one after another (the full view of
-    a rank lives only until its own placement).  A session already
-    placed on the same mesh and axes keeps its slices (only the exchange
-    options change); on another placement it is gathered back first (a
-    collective)."""
+    """Place every view group of `session` on `spec` (`place_group`; a
+    session with no view yet builds each view's slices alone when it is
+    first submitted, `build_group_slices`).  Purely local: no collective,
+    so ranks may place one after another (the full view of a rank lives
+    only until its own placement).  A session already placed on the same
+    mesh and axes keeps its slices (only the exchange options change); on
+    another placement it is gathered back first (a collective)."""
     prev = getattr(session, "_mesh2d", None)
     if prev is not None:
         if prev.mesh is spec.mesh and prev.signature()[:5] == \
@@ -1137,28 +1303,7 @@ def place_session(session, spec: Mesh2DSpec):
             return session
         unshard_session(session)
     for grp in session.view_groups():
-        lay = spec.layout(grp, warn=True)
-        g = grp.graph
-        bp = session._pair_data(grp)
-        ps = place_pair_shards(spec, bp, float(grp.alg.graph_fill),
-                               lay.blocks_sharded)
-        j0, jl = spec.job_range(grp.capacity, lay)
-        b0, bl = spec.block_range(g.num_blocks, lay)
-        grp.values = grp.values[j0:j0 + jl, b0:b0 + bl].contiguous()
-        grp.deltas = grp.deltas[j0:j0 + jl, b0:b0 + bl].contiguous()
-        grp.push_scale = grp.push_scale[j0:j0 + jl].contiguous()
-        if bl != g.num_blocks:
-            g.tiles = g.tiles[b0:b0 + bl].clone()
-            g.nbr_ids = g.nbr_ids[b0:b0 + bl].clone()
-            g.nbr_mask = g.nbr_mask[b0:b0 + bl].clone()
-        grp.pairs = None
-        grp.pair_shards = (spec.signature(), ps)
-        del bp
-        if session.device.type == "cuda":
-            # hand the freed whole view back to the driver now: the next
-            # view's slices would otherwise be carved out of its cached
-            # segments and pin them (other ranks on the card need them)
-            torch.cuda.empty_cache()
+        place_group(session, grp, spec)
     session._mesh2d = spec
     return session
 
@@ -1182,23 +1327,25 @@ def shard_session_2d(mesh: DeviceMesh, session,
 def unshard_session(session):
     """Gather every view group back to one-device placement and clear the
     mesh routing (the inverse of `place_session`; a collective: every
-    rank calls it).  Job state is gathered exactly; a view's ELL rows
-    are gathered too (its pair view is rebuilt lazily from them)."""
+    rank calls it).  Job state is gathered exactly.  A view whose ELL
+    rows are sliced over the blocks axis is rebuilt whole from the
+    session's CSR as `compact()` rebuilds it (its overlay folded into the
+    tiles), never gathered; only a session adopted without a CSR gathers
+    its ELL rows.  Every pair view is rebuilt lazily."""
     spec = getattr(session, "_mesh2d", None)
     if spec is None:
         return session
+    rebuild = []
     for grp in session.view_groups():
         lay = spec.layout(grp)
         g = grp.graph
         bn = g.num_blocks
-        cap = grp.capacity
-        j0, jl = spec.job_range(cap, lay)
         b0, bl = spec.block_range(bn, lay)
-        grp.values = gather_state(spec, grp, grp.values)
-        grp.deltas = gather_state(spec, grp, grp.deltas)
-        grp.push_scale = _gather_max(spec, grp.push_scale, (cap,),
-                                     (slice(j0, j0 + jl),))
-        if bl != bn:
+        grp.values, grp.deltas, grp.push_scale = gather_group_state(spec,
+                                                                    grp)
+        if bl != bn and session._csr is not None:
+            rebuild.append(grp)
+        elif bl != bn:
             k = g.tiles.shape[1]
             rows = (slice(b0, b0 + bl),)
             g.tiles = _gather_max(spec, g.tiles, (bn,) + tuple(
@@ -1209,4 +1356,8 @@ def unshard_session(session):
         grp.pairs = None
         grp.pair_shards = None
     session._mesh2d = None
+    if rebuild:
+        from repro_torch.stream.apply import compact_group
+        for grp in rebuild:
+            compact_group(session, grp)
     return session

@@ -327,20 +327,38 @@ def empty_overlay(num_blocks: int, capacity: int = 0,
         mask=torch.zeros(shape, dtype=torch.float32, device=dev))
 
 
-def build_blocked(csr: CSRGraph, block_size: int, *,
-                  fill: float = 0.0,
-                  normalize: Optional[str] = None,
-                  device=None) -> BlockedGraph:
-    """Partition a CSR graph into dense [Vb, Vb] tiles, block-ELL layout,
-    on `device` (None: CUDA).
+@dataclasses.dataclass
+class BlockAdjacency:
+    """A view's block-level structure on the host (numpy), what every
+    slice of it is cut from: the view's edges, their tile, and each
+    tile's (source block, destination block, ELL slot).
 
-    normalize:
-      None          - raw edge weights
-      "out_degree"  - weight / out_degree(src)   (PageRank-style stochastic)
-      "unit"        - every present edge gets weight 1.0
-      "zero"        - every present edge gets weight 0.0 (min-plus label prop)
+      src, dst [E] int64, w [E] float32   the view's edges (normalization
+                                          applied), CSR order
+      edge_tile [E] int64                 each edge's tile
+      tile_sb, tile_db [T] int64          the tiles' blocks, (sb, db)-sorted
+      tile_slot [T] int64                 the tile's ELL slot in row sb
+                                          (its rank among row sb's tiles)
+      k_max                               K, the widest ELL row (>= 1)
     """
-    dev = resolve_device(device)
+
+    n: int
+    block_size: int
+    num_blocks: int
+    k_max: int
+    src: np.ndarray
+    dst: np.ndarray
+    w: np.ndarray
+    edge_tile: np.ndarray
+    tile_sb: np.ndarray
+    tile_db: np.ndarray
+    tile_slot: np.ndarray
+
+
+def block_adjacency(csr: CSRGraph, block_size: int,
+                    normalize: Optional[str] = None) -> BlockAdjacency:
+    """The view of `csr` at `block_size` as a `BlockAdjacency` (see
+    `build_blocked` for `normalize`)."""
     n = csr.n
     vb = block_size
     bn = -(-n // vb)  # ceil
@@ -358,49 +376,154 @@ def build_blocked(csr: CSRGraph, block_size: int, *,
     elif normalize is not None:
         raise ValueError(f"unknown normalize={normalize!r}")
 
-    sb, db = src // vb, dst // vb
-    su, dv = src % vb, dst % vb
-
-    # enumerate distinct (src block, dst block) tile pairs
-    pair_key = sb * bn + db
-    order = np.argsort(pair_key, kind="stable")
-    pair_key_s = pair_key[order]
-    uniq_keys, first_idx = np.unique(pair_key_s, return_index=True)
-    tile_sb = (uniq_keys // bn).astype(np.int32)
-    tile_db = (uniq_keys % bn).astype(np.int32)
-
-    # per-src-block neighbour count -> K
+    # distinct (src block, dst block) tiles, sorted; a tile's slot is its
+    # rank among its source block's tiles (destination-ascending)
+    keys, edge_tile = np.unique((src // vb) * bn + dst // vb,
+                                return_inverse=True)
+    tile_sb, tile_db = keys // bn, keys % bn
     counts = np.bincount(tile_sb, minlength=bn)
-    k_max = max(int(counts.max(initial=0)), 1)
+    row_start = np.cumsum(counts) - counts
+    return BlockAdjacency(
+        n=n, block_size=vb, num_blocks=bn,
+        k_max=max(int(counts.max(initial=0)), 1), src=src, dst=dst, w=w,
+        edge_tile=edge_tile.reshape(-1), tile_sb=tile_sb, tile_db=tile_db,
+        tile_slot=np.arange(len(keys)) - row_start[tile_sb])
 
-    nbr_ids = np.zeros((bn, k_max), dtype=np.int32)
-    nbr_mask = np.zeros((bn, k_max), dtype=bool)
-    tiles = np.full((bn, k_max, vb, vb), fill, dtype=np.float32)
 
-    # slot index of each tile within its src block row
-    slot_of_key = {}
-    next_slot = np.zeros(bn, dtype=np.int64)
-    for tkey, tsb, tdb in zip(uniq_keys, tile_sb, tile_db):
-        s = next_slot[tsb]
-        slot_of_key[int(tkey)] = int(s)
-        nbr_ids[tsb, s] = tdb
-        nbr_mask[tsb, s] = True
-        next_slot[tsb] += 1
-
-    slots = np.fromiter((slot_of_key[int(k)] for k in pair_key),
-                        dtype=np.int64, count=len(pair_key))
-    tiles[sb, slots, su, dv] = w
+def _ell_rows(adj: BlockAdjacency, fill: float, b0: int, b_loc: int,
+              dev: torch.device) -> BlockedGraph:
+    """The ELL rows of source blocks [b0, b0 + b_loc) as a BlockedGraph
+    whose other fields (num_blocks, K, vertex_mask) are the view's."""
+    vb, bn = adj.block_size, adj.num_blocks
+    nbr_ids = np.zeros((b_loc, adj.k_max), dtype=np.int32)
+    nbr_mask = np.zeros((b_loc, adj.k_max), dtype=bool)
+    tiles = np.full((b_loc, adj.k_max, vb, vb), fill, dtype=np.float32)
+    t = np.flatnonzero((adj.tile_sb >= b0) & (adj.tile_sb < b0 + b_loc))
+    nbr_ids[adj.tile_sb[t] - b0, adj.tile_slot[t]] = adj.tile_db[t]
+    nbr_mask[adj.tile_sb[t] - b0, adj.tile_slot[t]] = True
+    sb = adj.src // vb
+    e = np.flatnonzero((sb >= b0) & (sb < b0 + b_loc))
+    tiles[sb[e] - b0, adj.tile_slot[adj.edge_tile[e]], adj.src[e] % vb,
+          adj.dst[e] % vb] = adj.w[e]
 
     vmask = np.zeros((bn, vb), dtype=bool)
-    vmask.reshape(-1)[:n] = True
+    vmask.reshape(-1)[:adj.n] = True
 
     # the ELL tiles dominate host memory (15 GB per view at 2^16 vertices,
     # Vb=64): move them and drop the numpy copy before returning
     tiles_t = torch.from_numpy(tiles).to(dev)
     del tiles
     return BlockedGraph(
-        n_real=n, block_size=vb, num_blocks=bn, max_nbr_blocks=k_max,
+        n_real=adj.n, block_size=vb, num_blocks=bn, max_nbr_blocks=adj.k_max,
         fill=float(fill),
         nbr_ids=torch.from_numpy(nbr_ids).to(dev),
         nbr_mask=torch.from_numpy(nbr_mask).to(dev),
         tiles=tiles_t, vertex_mask=torch.from_numpy(vmask).to(dev))
+
+
+def _pair_slice(adj: BlockAdjacency, fill: float, n_shards: int,
+                shard: int, dev: torch.device):
+    """(pairs, shard_pairs): the dst-sorted pairs whose destinations fall
+    in block shard `shard` of `n_shards` as one BlockPairs (src global,
+    dst local to the shard, the shard's run and chunk tables, src_nnz
+    global, dst_touched [B_loc]; an empty shard keeps one inert pad),
+    and the real pairs of every shard."""
+    vb, bn = adj.block_size, adj.num_blocks
+    b_loc = bn // n_shards
+    lo_b = shard * b_loc
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    order = np.lexsort((adj.tile_sb, adj.tile_db))   # dst-major, src asc.
+    db = adj.tile_db[order]
+    bounds = np.searchsorted(db, np.arange(n_shards + 1) * b_loc)
+    counts = tuple(int(x) for x in np.diff(bounds))
+    lo, hi = int(bounds[shard]), int(bounds[shard + 1])
+    src_nnz = t(np.bincount(adj.tile_sb, minlength=bn))
+    touched = np.zeros(b_loc, bool)
+    if hi == lo:
+        # inert pad pair: an all-fill tile is an exact no-op (plus-times
+        # adds 0.0, min-plus mins +inf), so P stays >= 1
+        return BlockPairs(
+            num_pairs=1, block_size=vb, num_blocks=b_loc,
+            src=t([0]), dst=t([0]), slot=t([0]), first=t([1]), last=t([1]),
+            src_nnz=src_nnz, dst_touched=t(touched, torch.bool),
+            tiles=torch.full((1, vb, vb), fill, dtype=torch.float32,
+                             device=dev),
+            run_start=t([0, 1]), chunk_start=t([0, 1]),
+            chunk_run=t([0])), counts
+    sel = order[lo:hi]
+    sb, dl = adj.tile_sb[sel], db[lo:hi] - lo_b
+    first = np.ones(len(sel), np.int32)
+    first[1:] = (dl[1:] != dl[:-1]).astype(np.int32)
+    last = np.ones(len(sel), np.int32)
+    last[:-1] = first[1:]
+    touched[dl] = True
+    # each edge of the shard's pairs lands in its pair's tile
+    pos = np.full(len(adj.tile_sb), -1, dtype=np.int64)
+    pos[sel] = np.arange(len(sel))
+    p = pos[adj.edge_tile]
+    e = np.flatnonzero(p >= 0)
+    tiles = np.full((len(sel), vb, vb), fill, dtype=np.float32)
+    tiles[p[e], adj.src[e] % vb, adj.dst[e] % vb] = adj.w[e]
+    rs = run_starts(first)
+    chunk_start, chunk_run = chunk_table(rs)
+    tiles_t = torch.from_numpy(tiles).to(dev)
+    del tiles
+    return BlockPairs(
+        num_pairs=len(sel), block_size=vb, num_blocks=b_loc,
+        src=t(sb), dst=t(dl), slot=t(adj.tile_slot[sel]), first=t(first),
+        last=t(last), src_nnz=src_nnz, dst_touched=t(touched, torch.bool),
+        tiles=tiles_t, run_start=t(rs), chunk_start=t(chunk_start),
+        chunk_run=t(chunk_run)), counts
+
+
+def build_blocked(csr: CSRGraph, block_size: int, *,
+                  fill: float = 0.0,
+                  normalize: Optional[str] = None,
+                  device=None) -> BlockedGraph:
+    """Partition a CSR graph into dense [Vb, Vb] tiles, block-ELL layout,
+    on `device` (None: CUDA).
+
+    normalize:
+      None          - raw edge weights
+      "out_degree"  - weight / out_degree(src)   (PageRank-style stochastic)
+      "unit"        - every present edge gets weight 1.0
+      "zero"        - every present edge gets weight 0.0 (min-plus label prop)
+    """
+    dev = resolve_device(device)
+    adj = block_adjacency(csr, block_size, normalize)
+    return _ell_rows(adj, fill, 0, adj.num_blocks, dev)
+
+
+def build_view_shard(csr: CSRGraph, block_size: int, n_shards: int = 1,
+                     shard: int = 0, *, fill: float = 0.0,
+                     normalize: Optional[str] = None, device=None):
+    """Block shard `shard` of `n_shards` of the view `build_blocked` would
+    build, built straight from the CSR without the whole view: (graph,
+    pairs, shard_pairs).
+
+      graph        the ELL rows of source blocks [s*B_loc, (s+1)*B_loc)
+                   (tiles, nbr_ids, nbr_mask [B_loc, K, ...]; num_blocks,
+                   K and vertex_mask those of the whole view)
+      pairs        the dst-sorted `BlockPairs` slice whose destinations
+                   fall in the same range, as `dist.mesh2d.
+                   partition_block_pairs` cuts `build_block_pairs` of the
+                   whole view (without its dense operator)
+      shard_pairs  the real pairs of every shard
+
+    Bit-equal to slicing the whole build; only the host's block-level
+    adjacency of the whole view is computed, the tiles only for the
+    shard.  B_N must divide into `n_shards`."""
+    dev = resolve_device(device)
+    adj = block_adjacency(csr, block_size, normalize)
+    bn = adj.num_blocks
+    if bn % n_shards:
+        raise ValueError(
+            f"B_N={bn} does not divide into {n_shards} block shards")
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} outside [0, {n_shards})")
+    b_loc = bn // n_shards
+    pairs, counts = _pair_slice(adj, fill, n_shards, shard, dev)
+    return _ell_rows(adj, fill, shard * b_loc, b_loc, dev), pairs, counts

@@ -31,10 +31,24 @@ computed in numpy as the reference does, then multiplied in float32; the
 writes are deduplicated first).  Every batch drops the view's cached
 `BlockPairs`, so the next run rebuilds the pair tiles, run and chunk
 tables and arrival counters the fused kernels read.
+
+On a session placed on a mesh (`repro_torch.dist`) the host bookkeeping
+runs identically on every rank; each tile write goes to the ELL row of
+its source block where this rank holds it AND to the pair of this rank's
+pair shard that copies that tile, so the shard stays bit-equal to a
+partition of the rebuilt pair view (a degree rescale multiplies both by
+the same float32 ratio); the replicated overlay takes the same writes
+everywhere; a compaction rebuilds only this rank's slices from the CSR;
+and the invalidation runs the one-device code on the group's whole job
+state, gathered once per view per batch, of which each rank keeps its
+slice.  A batch costs at most two collectives a view: that gather, and
+the first batch after a build or compaction gathers the ELL metadata of
+a view whose rows are sliced (the host mirrors).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -121,17 +135,26 @@ def _csr_arrays(n: int, src, dst, w):
 # ---------------------------------------------------------------------------
 
 
-def _ensure_mirrors(grp) -> None:
+def _ensure_mirrors(grp, spec=None) -> None:
+    """The group's host mirrors of the WHOLE view's block structure: (sb,
+    db) -> ELL slot, and the overlay's used entries.  On a mesh whose
+    blocks axis slices the ELL rows, the metadata is gathered first (a
+    collective)."""
     if grp.pair_slot is not None:
         return
-    # one read of the ELL metadata (B_N x K slots), not one per slot
-    ids = grp.graph.nbr_ids.cpu().numpy()
-    msk = grp.graph.nbr_mask.cpu().numpy()
+    g = grp.graph
+    if g.nbr_ids.shape[0] != g.num_blocks:
+        from repro_torch.dist.mesh2d import gather_block_adjacency
+        ids, msk = gather_block_adjacency(spec, grp)
+    else:
+        # one read of the ELL metadata (B_N x K slots), not one per slot
+        ids = g.nbr_ids.cpu().numpy()
+        msk = g.nbr_mask.cpu().numpy()
     sb, slot = np.nonzero(msk)
     grp.pair_slot = dict(zip(zip(sb.tolist(), ids[sb, slot].tolist()),
                              slot.tolist()))
     cap = grp.overlay.capacity
-    grp.ov_used = np.zeros((ids.shape[0], cap), dtype=bool)
+    grp.ov_used = np.zeros((g.num_blocks, cap), dtype=bool)
     grp.ov_entry = {}
 
 
@@ -153,16 +176,26 @@ def compact_group(sess, grp) -> None:
     construction bit-identical to a from-scratch build — and empty the
     overlay.  Job state is untouched (same logical operator).  The stale
     pair view is released before the rebuild, the old tiles after it.
-    Not ported to a session placed on a mesh (ROADMAP A11b): raises."""
-    sess._not_placed("compact")
+    On a mesh only this rank's ELL rows and pair shard are rebuilt
+    (`dist.mesh2d.build_group_slices`, no collective)."""
     semiring, fill, normalize, symmetrize = grp.key
     grp.pairs = None      # block-pair view follows the rebuilt tiles
-    csr_view = sess._csr.symmetrized() if symmetrize else sess._csr
-    g = build_blocked(csr_view, sess.block_size, fill=fill,
-                      normalize=normalize, device=sess.device)
+    spec = sess._mesh2d
+    if spec is not None:
+        from repro_torch.dist.mesh2d import build_group_slices
+        grp.pair_shards = None
+        g, shards = build_group_slices(sess, spec, grp.key, grp.capacity)
+        grp.pair_shards = (spec.signature(), shards)
+    else:
+        csr_view = sess._csr.symmetrized() if symmetrize else sess._csr
+        g = build_blocked(csr_view, sess.block_size, fill=fill,
+                          normalize=normalize, device=sess.device)
     if g.num_blocks != grp.graph.num_blocks:
         raise ValueError("compaction changed the block count")
     grp.graph = g
+    if spec is not None and sess.device.type == "cuda":
+        # the old slices go back to the driver: ranks share the card
+        torch.cuda.empty_cache()
     grp.overlay = empty_overlay(g.num_blocks, device=sess.device)
     grp.pair_slot = None
     grp.ov_used = None
@@ -188,6 +221,60 @@ def _group_touched_pairs(batch: UpdateBatch,
     return pairs
 
 
+class _TileWriter:
+    """The group's tile edits, routed to what this rank holds: on one
+    device the ELL tiles (the pair view is dropped and rebuilt); on a
+    mesh the ELL rows of its source blocks AND the pairs of its pair
+    shard that copy the edited tiles (edited in place: the placed session
+    has no whole view to rebuild them from)."""
+
+    def __init__(self, sess, grp):
+        g = grp.graph
+        self.tiles = g.tiles
+        spec = sess._mesh2d
+        self.shards = None
+        self.b0, self.bl = 0, g.num_blocks
+        if spec is not None:
+            self.b0, self.bl = spec.block_range(g.num_blocks,
+                                                spec.layout(grp))
+            self.shards = sess._pair_shards(grp)
+
+    def _rows(self, sb):
+        """Local ELL row of each source block, and which are held here."""
+        sb = np.asarray(sb, dtype=np.int64)
+        keep = np.flatnonzero((sb >= self.b0) & (sb < self.b0 + self.bl))
+        return sb[keep] - self.b0, keep
+
+    def scale_rows(self, sb, su, ratio) -> None:
+        """Multiply source vertex (sb, su)'s out-row by `ratio` (float32)."""
+        rows, k = self._rows(sb)
+        if len(k):
+            self.tiles[host_to(self.tiles, rows), :,
+                       host_to(self.tiles, su[k]), :] *= host_to(
+                self.tiles, ratio[k], torch.float32)[:, None, None]
+        if self.shards is not None:
+            pt = self.shards.local.tiles
+            p, which = self.shards.pairs_of_sources(sb)
+            if len(p):
+                pt[host_to(pt, p), host_to(pt, su[which]), :] *= host_to(
+                    pt, ratio[which], torch.float32)[:, None]
+
+    def write(self, sb, slot, db, uo, vo, w) -> None:
+        """tiles[sb, slot, uo, vo] = w (the tile of pair (sb, db))."""
+        rows, k = self._rows(sb)
+        if len(k):
+            idx = tuple(host_to(self.tiles, a)
+                        for a in (rows, slot[k], uo[k], vo[k]))
+            self.tiles[idx] = host_to(self.tiles, w[k], torch.float32)
+        if self.shards is not None:
+            pt = self.shards.local.tiles
+            p = self.shards.pair_index(sb, db)
+            k = np.flatnonzero(p >= 0)
+            if len(k):
+                idx = tuple(host_to(pt, a) for a in (p[k], uo[k], vo[k]))
+                pt[idx] = host_to(pt, w[k], torch.float32)
+
+
 def _apply_structure(sess, grp, pairs, new_w: Dict,
                      deg_o: Optional[np.ndarray],
                      deg_n: Optional[np.ndarray]) -> bool:
@@ -196,7 +283,9 @@ def _apply_structure(sess, grp, pairs, new_w: Dict,
     g = grp.graph
     vb = g.block_size
     normalize = grp.key[2]
-    _ensure_mirrors(grp)
+    spec = sess._mesh2d
+    _ensure_mirrors(grp, spec)
+    tiles = _TileWriter(sess, grp)
 
     # out-degree normalization: a changed degree rescales the source's
     # whole row (tiles + overlay); touched entries are overwritten with
@@ -208,9 +297,7 @@ def _apply_structure(sess, grp, pairs, new_w: Dict,
             s = np.asarray(srcs, dtype=np.int64)
             ratio = (np.maximum(deg_o[s], 1)
                      / np.maximum(deg_n[s], 1)).astype(np.float32)
-            sb, su = host_to(g.tiles, s // vb), host_to(g.tiles, s % vb)
-            g.tiles[sb, :, su, :] *= host_to(g.tiles, ratio,
-                                         torch.float32)[:, None, None]
+            tiles.scale_rows(s // vb, s % vb, ratio)
             by_src = {int(x): float(r) for x, r in zip(s, ratio)}
             hits = [(b, col, by_src[eu])
                     for (eu, ev), (b, col) in grp.ov_entry.items()
@@ -221,7 +308,7 @@ def _apply_structure(sess, grp, pairs, new_w: Dict,
                 w[host_to(w, ob), host_to(w, oc)] *= host_to(
                     w, orat, torch.float32)
 
-    t_b, t_s, t_u, t_v, t_w = [], [], [], [], []
+    t_b, t_s, t_d, t_u, t_v, t_w = [], [], [], [], [], []
     # pending overlay writes keyed on (block, col): a slot freed by a
     # delete can be reclaimed by a later insert in the SAME batch, and a
     # duplicate index in one scatter-set has unspecified order — last
@@ -244,6 +331,7 @@ def _apply_structure(sess, grp, pairs, new_w: Dict,
         if slot is not None:                  # dense-tile write
             t_b.append(sb)
             t_s.append(slot)
+            t_d.append(db)
             t_u.append(uo)
             t_v.append(vo)
             t_w.append(g.fill if w is None else w)
@@ -263,8 +351,7 @@ def _apply_structure(sess, grp, pairs, new_w: Dict,
         ov_writes[(sb, col)] = (uo, v, w, 1.0)
 
     if t_b:
-        idx = tuple(host_to(g.tiles, a) for a in (t_b, t_s, t_u, t_v))
-        g.tiles[idx] = host_to(g.tiles, t_w, torch.float32)
+        tiles.write(*map(np.asarray, (t_b, t_s, t_d, t_u, t_v, t_w)))
     if ov_writes:
         ov = grp.overlay
         b, c = map(np.asarray, zip(*ov_writes))
@@ -303,12 +390,33 @@ def _apply_to_group(sess, grp, batch: UpdateBatch, csr_old, csr_new,
             dirty[u // vb] = True
             dirty[v // vb] = True
 
+    if sess._mesh2d is None:
+        whole = contextlib.nullcontext()
+    else:   # the group's whole job state for the one-device code
+        from repro_torch.dist.mesh2d import whole_job_state
+        whole = whole_job_state(sess._mesh2d, grp)
+    with whole:
+        _invalidate(sess, grp, pairs, csr_old, csr_new, old_w, new_w,
+                    deg_o, deg_n, dirty, stats)
+    stats["reseed_den"] += grp.num_active * grp.graph.n_real
+
+
+def _invalidate(sess, grp, pairs, csr_old, csr_new, old_w, new_w, deg_o,
+                deg_n, dirty: np.ndarray, stats: Dict) -> None:
+    """Invalidate every job's state just enough for the new graph
+    (stream.invalidate), marking the blocks it touches dirty."""
+    semiring, fill, normalize, symmetrize = grp.key
+    vb = grp.graph.block_size
     n = grp.graph.n_real
     if semiring == PLUS_TIMES:
         if symmetrize:
             # the view row of u is raw-out ∪ raw-in: no cheap row diff —
             # recompute the deltas exactly with one full matvec instead
-            inval.full_reseed_plus_times(grp)
+            # (over this rank's pair shard where its ELL rows are sliced)
+            g = grp.graph
+            inval.full_reseed_plus_times(
+                grp, sess._pair_shards(grp)
+                if g.tiles.shape[0] != g.num_blocks else None)
             stats["reseed_num"] += grp.num_active * n
         else:
             u_idx, dst_idx, dw = [], [], []
@@ -349,7 +457,6 @@ def _apply_to_group(sess, grp, batch: UpdateBatch, csr_old, csr_new,
             stats["reseed_num"] += reseeded
             for b in np.unique(np.nonzero(union)[0] // vb):
                 dirty[b] = True
-    stats["reseed_den"] += grp.num_active * n
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +465,9 @@ def _apply_to_group(sess, grp, batch: UpdateBatch, csr_old, csr_new,
 
 
 def apply_updates_to_session(sess, batch: UpdateBatch) -> StreamStats:
-    sess._not_placed("apply_updates")     # ROADMAP A11b
+    """`GraphSession.apply_updates`.  On a mesh every rank calls it with
+    the same batch: the host bookkeeping, the StreamStats and the drained
+    counters are the same on every rank, and so are its collectives."""
     if sess._csr is None:
         raise ValueError(
             "apply_updates needs the session-owned CSRGraph (sessions "

@@ -74,16 +74,30 @@ def adjust_plus_times(grp, u_idx: np.ndarray, dst_idx: np.ndarray,
                                   vals).reshape(shape)
 
 
-def full_reseed_plus_times(grp) -> None:
+def full_reseed_plus_times(grp, shards=None) -> None:
     """Exact d' = b - v + A'v for every active job (symmetrized-view
-    fallback: stages all tiles + overlay once)."""
+    fallback: stages all tiles + overlay once).
+
+    `shards`: on a mesh, this rank's `dist.mesh2d.PairShards`, with the
+    group's WHOLE job state in place (`dist.mesh2d.whole_job_state`).
+    The matvec then runs over the shard's pairs and is complete only on
+    the shard's own destination rows, the ones the rank keeps (its sum
+    order differs from the ELL sweep's: plus-times tolerance)."""
     g, ov = grp.graph, grp.overlay
     bn, vb = g.num_blocks, g.block_size
     cap = grp.capacity
     xs = grp.values * grp.push_scale[:, None, None]            # [J, B_N, Vb]
-    contrib = torch.einsum("jbv,bkvw->jbkw", xs, g.tiles)
-    mv = torch.zeros_like(grp.values).index_add(
-        1, g.nbr_ids.reshape(-1).long(), contrib.reshape(cap, -1, vb))
+    if shards is None:
+        contrib = torch.einsum("jbv,bkvw->jbkw", xs, g.tiles)
+        mv = torch.zeros_like(grp.values).index_add(
+            1, g.nbr_ids.reshape(-1).long(), contrib.reshape(cap, -1, vb))
+    else:
+        lp = shards.local
+        contrib = torch.einsum("jpv,pvw->jpw", xs[:, lp.src.long()],
+                               lp.tiles)
+        mv = torch.zeros_like(grp.values).index_add(
+            1, lp.dst.long() + shards.shard * shards.blocks_per_shard,
+            contrib)
     if ov.capacity:
         rows = torch.arange(bn, device=xs.device)[:, None]
         sel = xs[:, rows, ov.src_u.long()] * ov.w * ov.mask     # [J, B_N, C]

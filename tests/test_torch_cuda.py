@@ -862,3 +862,45 @@ def test_mesh_closed_gate_keeps_the_chunk_carry(cuda, mesh_world):
     bit for bit, the same chunk with no gate passed to the kernels."""
     g = mesh_world["gate"]
     assert all(g["same"]) and g["gates"] == 16 and g["last_closed"]
+
+
+@pytest.fixture(scope="module")
+def mesh_stream_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU with "
+                    "`python -m pytest -m cuda tests/test_torch_cuda.py`")
+    import test_torch_dist_stream_ranks as ranks
+    from repro_torch.dist.world import run_world
+    return run_world(ranks.cuda_world, 2, device="cuda",
+                     store_dir=str(tmp_path_factory.mktemp("mesh_stream")))
+
+
+@pytest.mark.parametrize("tag", ["batch", "compacted"])
+def test_mesh_stream_on_the_card(cuda, mesh_stream_world, tag):
+    """A (1 x 2) mesh on the card takes a structural batch, then
+    compact() and the jobs resubmitted: every rank's B1/B2 on its edited
+    and its compacted pair shard match the plain version (checked in the
+    rank), B1 and B2 run on every rank, and the runs equal the card's
+    one-device run of the same sequence (SSSP bit-equal, PageRank/Katz within rtol 1e-3, atol
+    1e-4)."""
+    import test_torch_dist_stream_ranks as ranks
+    import repro_torch.core as tc
+    sess, hs = ranks.core_session(device="cuda")
+    sess.run(tc.Fused(), 20000)
+    sess.apply_updates(ranks.case_batch(sess._csr, "mutation"))
+    m = sess.run(tc.Fused(), 20000)
+    if tag == "compacted":
+        ranks.compact_and_resubmit(sess, hs)
+        m = sess.run(tc.TwoLevel(), 20000)
+    got = mesh_stream_world[tag]
+    assert m.converged and got["converged"]
+    for per_rank in got["checked"]:
+        assert len(per_rank) == 3 and all(p > 0 for p in per_rank.values())
+    for per_rank in got["launches"]:
+        assert per_rank["plus_times"] > 0 and per_rank["min_plus"] > 0
+    for a, r, h in zip(ranks.core_algs(), got["results"], hs):
+        if a.semiring == "min_plus":
+            np.testing.assert_array_equal(r, sess.result(h))
+        else:
+            np.testing.assert_allclose(r, sess.result(h), rtol=1e-3,
+                                       atol=1e-4)

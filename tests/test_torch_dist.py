@@ -158,14 +158,6 @@ def test_job_mesh_remainder_replicates(world2, refs):
     assert world2["shard_run"] == (4, 16, BLOCK)
 
 
-def test_placed_session_raises_where_unported(world2):
-    """Live updates, compaction, growing a view and a new view raise on
-    a placed session (ROADMAP A11b) instead of running wrong."""
-    msgs = world2["unported"]
-    assert len(msgs) == 4
-    assert all("A11b" in m for m in msgs), msgs
-
-
 # ---------------------------------------------------------------------------
 # jobs x blocks (4 ranks): tests/test_dist_mesh2d.py's session
 # ---------------------------------------------------------------------------

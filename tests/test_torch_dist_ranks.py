@@ -68,8 +68,8 @@ def build_odd():
 
 def build_stream():
     """The reference's STREAM_SCRIPT session after two update batches
-    (live overlay entries, pending dirty-block boosts), before placement:
-    live updates on a placed session are not ported (ROADMAP A11b)."""
+    (live overlay entries, pending dirty-block boosts), before placement
+    (tests/test_torch_dist_stream.py applies updates on a placed one)."""
     import repro_torch.algorithms as ta
     import repro_torch.core as tc
     import repro_torch.graph as tg
@@ -261,25 +261,6 @@ def world2(rank: int, snapshots: dict) -> dict:
         mine[(n, call)] = dict(metrics=_metrics(getattr(eng, call)(20000)),
                                results=eng.results())
     out["one_device"] = {k: v for d in _all_ranks(mine) for k, v in d.items()}
-
-    # what a placed session does not take yet raises (ROADMAP A11b)
-    import repro_torch.algorithms as ta
-    from repro_torch.graph import mutation_stream
-    sess, hs = build_core()
-    sess.run(tc.TwoLevel(), 3, mesh=make_mesh2d(1, 2, device_type="cpu"))
-    raised = []
-    for call in (lambda: sess.apply_updates(next(iter(mutation_stream(
-                     tg.rmat_graph(128, 4, seed=7), 1, inserts_per_batch=2,
-                     deletes_per_batch=1, seed=1)))),
-                 sess.compact,
-                 lambda: [sess.submit(ta.PageRank()) for _ in range(3)],
-                 lambda: sess.submit(ta.BFS(source=0))):
-        try:
-            call()
-            raised.append("")
-        except NotImplementedError as e:
-            raised.append(str(e))
-    out["unported"] = raised
 
     mesh12 = make_mesh2d(1, 2, device_type="cpu")
     for tag, snap in snapshots.items():
