@@ -154,15 +154,40 @@ Phases (any failure exits non-zero before the last line is printed):
    B1/B2 launches over the ranks are the `mesh_stream` and `mesh_serve`
    entries of `launches_by_path`.
 
-Then one JSON line of kernel figures, the card's name and power limit,
-and last {"ok": true, "device": {...}}.
+10. The LM serving path (repro_torch.models, .serve.ServeEngine,
+   .launch.serve), which launches none of the kernels above, after
+   everything before it is freed.  10a: every architecture's smoke
+   config, one seeded CPU init copied to the card, forward_train,
+   prefill and four decode steps: float32 (TF32 off) at rtol = atol =
+   1e-4 with the final cache; bf16 each block fed the CPU's own input
+   and cache at 2e-2, the whole model at 2e-2 or within the CPU run's
+   own one-ulp spread.  10b: qwen2.5-14b at its published widths and all
+   48 layers in bf16 (14.77 G parameters drawn on the card), served
+   through launch.serve's build_engine / make_scheduler / serve: 16
+   requests from 4 streams over 8 groups, batch budget 8, prompts of
+   2048 tokens, 32 greedy decode steps; the first batch's first two
+   sequences held to the port's own forward_train (prefill at 2e-2,
+   decode steps within LM_DECODE_BAR of the logits' std) and the first
+   to the plain float32 forward (models/ref.py, within LM_PLAIN_BAR);
+   prefill ms and decode ms a step beside their bounds, tokens a
+   second, torch ops a decode step, peak memory.  10c: the same widths
+   in float32 at 2 layers, prefill of 600 tokens and 8 decode steps
+   through the ServeEngine against the plain forward at 1e-4.
+
+Then one JSON line of kernel figures, one of the LM figures, the card's
+name and power limit, and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --trace
 
 adds traced reruns of the same four jobs under torch.profiler after the
 checks, one on each backend (the per-layer breakdown: device time by
-kernel, the device's busy share); the untraced runs above give the
-end-to-end numbers.
+kernel, the device's busy share), and in phase 10 a traced decode step
+and prefill; the untraced runs above give the end-to-end numbers.
+
+    python3 chip_smoke.py --phases 10 [--trace]
+
+runs phase 1 and phase 10 alone (for iterating on the LM path; no
+kernels line).
 """
 
 from __future__ import annotations
@@ -619,6 +644,22 @@ def resubmit(torch, sess, handles):
     return out
 
 
+def kernel_rows(prof) -> list:
+    """(device us, calls, name) of each kernel in a torch.profiler run,
+    largest first.  Only the device's own events: an operator's row
+    (aten::mm) carries the device time of the kernels it launched, and
+    counting both would count that time twice."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
 def traced_rerun(torch, sess, handles, policy):
     """Resubmit the jobs and rerun them under torch.profiler: device time
     by kernel and the device's busy share of the run's wall time."""
@@ -630,13 +671,7 @@ def traced_rerun(torch, sess, handles, policy):
         t0 = time.perf_counter()
         m = sess.run(policy, MAX_SUPERSTEPS)
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof)
     busy_us = sum(r[0] for r in rows)
     log(f"traced rerun ({policy.name}, backend={policy.backend}): "
         f"supersteps={m.supersteps} wall {wall:.3f} s, device "
@@ -2417,11 +2452,520 @@ def mesh_phase(torch, csr, refs, fk, out_dir):
     return totals, stream_totals, serve_totals, errs
 
 
+# -- phase 10: the LM serving path -------------------------------------------
+
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+LM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# 10a: every architecture's smoke config, the card against the CPU
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_DECODE, LM_SMOKE_LEN = 2, 20, 4, 32
+# 10b: qwen2.5-14b at its published widths through launch.serve's path
+LM_ARCH = "qwen2.5-14b"
+LM_SERVE_ARGV = ["--arch", LM_ARCH, "--streams", "4", "--requests", "16",
+                 "--groups", "8", "--batch-budget", "8", "--prompt-len",
+                 "2048", "--steps", "32", "--seed", "0", "--device", "cuda"]
+LM_CHECKED_ROWS = 2            # sequences held to forward_train
+# bars of 10b's decode steps, as a share of the logits' standard deviation
+# (the first run on an H100: 0.109 and 0.101).  bf16 rounding departs by
+# one ulp at layer 0 (a decode's [8, 5120] GEMMs round otherwise than the
+# forward's [4160, 5120]) and accumulates, without a jump, to 3% of the
+# hidden state at layer 47; a fault of the cache path (a slot, a
+# position, a head) moves the logits by whole standard deviations.
+LM_DECODE_BAR = 0.25           # decode steps against forward_train
+LM_PLAIN_BAR = 0.25            # the served bf16 logits against float32
+# 10c: the full widths in float32 at a cut depth
+LM_F32_LAYERS, LM_F32_B, LM_F32_PROMPT, LM_F32_DECODE = 2, 2, 600, 8
+
+
+class Bars:
+    """Collects the phase's checks, so one run reports every figure; the
+    phase raises at its end if any check failed."""
+
+    def __init__(self):
+        self.failed = []
+
+    def check(self, ok: bool, what: str) -> None:
+        log(f"  {'ok  ' if ok else 'FAIL'} {what}")
+        if not ok:
+            self.failed.append(what)
+
+    def raise_if_failed(self, phase: str) -> None:
+        if self.failed:
+            raise RuntimeError(f"{phase}: {len(self.failed)} check(s) "
+                               f"failed: {self.failed}")
+
+
+def _within(got, want, tol: float) -> tuple:
+    """(allclose at rtol = atol = tol, max |got - want|), on the CPU in
+    float32."""
+    g, w = got.float().cpu(), want.float().cpu()
+    ok = bool(((g - w).abs() <= tol + tol * w.abs()).all()) and \
+        bool(g.isfinite().all())
+    return ok, float((g - w).abs().max())
+
+
+def _lm_inputs(torch, cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(
+        np.int32))
+    pe = None
+    if cfg.patch_prefix:
+        pe = torch.from_numpy(rng.standard_normal(
+            (b, cfg.patch_prefix, cfg.d_model)).astype(np.float32))
+    return toks, pe
+
+
+def _lm_steps(torch, model, toks, pe, s):
+    """forward_train over all of toks, then prefill of s tokens and a
+    decode step for each token after: {label: logits}, the final cache."""
+    dev = model.device
+
+    def on(t):
+        return None if t is None else t.to(dev)
+    out = {}
+    with torch.inference_mode():
+        out["forward_train"] = model.forward_train(on(toks), on(pe))[0]
+        cache = model.init_cache(toks.shape[0], LM_SMOKE_LEN +
+                                 model.cfg.patch_prefix)
+        out["prefill"], cache = model.prefill(on(toks[:, :s]), cache, on(pe))
+        for j in range(toks.shape[1] - s):
+            out[f"decode {j}"], cache = model.decode_step(
+                on(toks[:, s + j:s + j + 1]), cache)
+    return out, cache
+
+
+def _block_walk(torch, cpu, gpu, toks, pe, s, bars, label):
+    """bf16, block by block: each block on the card fed the CPU run's own
+    input and cache (forward, prefill, each decode step), its output and
+    cache held at the bf16 bar.  Returns the largest |difference|."""
+    from repro_torch.models import model as TM
+    cfg = cpu.cfg
+    b, worst = toks.shape[0], 0.0
+    caches = [m.init_cache(b, LM_SMOKE_LEN + cfg.patch_prefix)["layers"]
+              for m in (cpu, gpu)]
+    steps = [("forward", toks, pe, None, None),
+             ("prefill", toks[:, :s], pe, caches, 0)]
+    steps += [(f"decode {j}", toks[:, s + j:s + j + 1], None, caches,
+               s + cfg.patch_prefix + j) for j in range(toks.shape[1] - s)]
+    with torch.inference_mode():
+        for what, tk, p, cc, pos0 in steps:
+            x = cpu._embed(tk, p)
+            n = x.shape[1]
+            pos = (torch.arange(n, dtype=torch.int32) + (pos0 or 0)
+                   ).expand(b, n)
+            for i, (bc, bg) in enumerate(zip(cpu.blocks, gpu.blocks)):
+                c_c = None if cc is None else cc[0][i]
+                c_g = None if cc is None else cc[1][i]
+                y, _, _, _ = TM.apply_block(bc.kind, x, bc, cfg, c_c, pos,
+                                            pos0)
+                yg, _, _, _ = TM.apply_block(bg.kind, x.to(gpu.device), bg,
+                                             cfg, c_g, pos.to(gpu.device),
+                                             pos0)
+                ok, err = _within(yg, y, LM_TOL["bfloat16"])
+                worst = max(worst, err)
+                if not ok:
+                    bars.check(False, f"10a {label} {what} block {i}: max "
+                                      f"|d| {err:.3e}")
+                if cc is not None:
+                    for k in c_c:
+                        ok, err = _within(c_g[k], c_c[k], LM_TOL["bfloat16"])
+                        worst = max(worst, err)
+                        if not ok:
+                            bars.check(False, f"10a {label} {what} block {i}"
+                                              f" cache {k}: {err:.3e}")
+                        c_g[k].copy_(c_c[k])
+                x = y
+    return worst
+
+
+def lm_smoke_phase(torch, bars) -> dict:
+    """10a: every architecture at its smoke size, one seeded CPU init
+    copied to the card.  float32 (TF32 off): forward_train, prefill and
+    four decode steps, logits and the final cache at rtol = atol = 1e-4.
+    bf16: each block fed the CPU's own input and cache at 2e-2 (a bf16
+    op that differs on CUDA beyond its rounding shows there), and the
+    whole model's logits at 2e-2 or, where the random smoke model
+    amplifies last-bit differences past that, no further than the CPU
+    run's own logits move under a one-ulp change of one embedding
+    weight."""
+    from repro_torch import configs
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models import LM
+    card = resolve_device(None)
+    figures = {}
+    t_phase = time.perf_counter()
+    for name in configs.ARCH_NAMES:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_smoke(name),
+                                      param_dtype=dtype)
+            cpu = LM(cfg, device="cpu", seed=0)
+            gpu = LM(cfg, device="meta")
+            gpu.load_state_dict({k: v.to(card) for k, v in
+                                 cpu.state_dict().items()}, assign=True)
+            toks, pe = _lm_inputs(torch, cfg, LM_SMOKE_B,
+                                  LM_SMOKE_S + LM_SMOKE_DECODE)
+            want, c_cpu = _lm_steps(torch, cpu, toks, pe, LM_SMOKE_S)
+            got, c_gpu = _lm_steps(torch, gpu, toks, pe, LM_SMOKE_S)
+            label = f"{name} {dtype}"
+            tol = LM_TOL[dtype]
+            errs = {k: _within(got[k], want[k], tol) for k in want}
+            worst = max(e for _, e in errs.values())
+            if dtype == "float32":
+                for k, (ok, err) in errs.items():
+                    if not ok:
+                        bars.check(False, f"10a {label} {k}: max |d| "
+                                          f"{err:.3e} (bar {tol})")
+                for i, (lc, lg) in enumerate(zip(c_cpu["layers"],
+                                                 c_gpu["layers"])):
+                    for k in lc:
+                        ok, err = _within(lg[k], lc[k], tol)
+                        worst = max(worst, err)
+                        if not ok:
+                            bars.check(False, f"10a {label} cache layer {i}"
+                                              f" {k}: {err:.3e}")
+                fig = {"max_abs_err": worst}
+            else:
+                block_err = _block_walk(torch, cpu, gpu, toks, pe,
+                                        LM_SMOKE_S, bars, label)
+                e2e_ok = all(ok for ok, _ in errs.values())
+                spread = None
+                if not e2e_ok:
+                    emb = cpu.embed.data
+                    tok = int(toks[0, 3, 0] if cfg.n_codebooks else toks[0, 3])
+                    row = emb[0] if cfg.n_codebooks else emb
+                    orig = row[tok, 5].clone()
+                    row[tok, 5] = (orig.view(torch.int16) + 1).view(
+                        torch.bfloat16)
+                    with torch.inference_mode():
+                        bumped = cpu.forward_train(toks, pe)[0]
+                    row[tok, 5] = orig
+                    spread = _within(bumped, want["forward_train"], 0.0)[1]
+                    e2e_ok = worst <= spread
+                bars.check(e2e_ok, f"10a {label} end to end: max |d| "
+                                   f"{worst:.3e} (bar {tol}" + (
+                                       "" if spread is None else
+                                       f"; beyond it, the CPU's own one-ulp "
+                                       f"spread {spread:.3e}") + ")")
+                fig = {"max_abs_err": worst, "block_max_abs_err": block_err,
+                       "one_ulp_spread": spread}
+            fig["s"] = round(time.perf_counter() - t0, 3)
+            figures[label] = fig
+            log(f"10a {label}: max |d| {worst:.3e} in {fig['s']:.2f} s")
+            del cpu, gpu
+    log(f"10a: {len(figures)} cases in {time.perf_counter() - t_phase:.1f} s")
+    return figures
+
+
+class ServeObserver:
+    """Times each batch of launch.serve's loop on the card (a sync at each
+    hook) and keeps the first batch's logits of LM_CHECKED_ROWS rows."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.batches = []
+        self.first = None
+
+    def _now(self):
+        self.torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def start(self, admitted, prompts):
+        self.cur = {"b": len(admitted), "t": [self._now()]}
+        if self.first is None:
+            self.first = {"prompts": prompts[:LM_CHECKED_ROWS].clone(),
+                          "logits": []}
+
+    def logits(self, i, logits):
+        self.cur["t"].append(self._now())
+        if len(self.batches) == 0:
+            self.first["logits"].append(
+                logits[:LM_CHECKED_ROWS, -1].float().clone())
+
+    def end(self, tokens):
+        t = self.cur["t"]
+        self.cur.update(prefill_ms=1e3 * (t[1] - t[0]),
+                        decode_ms=[1e3 * (b - a) for a, b in
+                                   zip(t[1:], t[2:])])
+        if len(self.batches) == 0:
+            self.first["tokens"] = tokens[:LM_CHECKED_ROWS].clone()
+        self.batches.append(self.cur)
+
+
+def _first_departing_layers(torch, model, seq, pos):
+    """Diagnostic for a step outside the bar: each layer's output at
+    position `pos` from forward_train over `seq` and from a prefill of the
+    tokens before it plus one decode step, as max |d| over max |h|."""
+    from repro_torch.models import model as TM
+    taps = {"train": [], "decode": []}
+    orig, mode = TM.apply_block, {"k": "train"}
+
+    def tap(kind, x, p, cfg, cache, positions, pos0, x32=None):
+        out = orig(kind, x, p, cfg, cache, positions, pos0, x32)
+        if mode["k"] in taps:
+            taps[mode["k"]].append(out[0][:, pos if mode["k"] == "train"
+                                          else -1].float().clone())
+        return out
+    TM.apply_block = tap
+    try:
+        with torch.inference_mode():
+            model.forward_train(seq)
+            cache = model.init_cache(seq.shape[0], pos + 8)
+            mode["k"] = "prefill"
+            model.prefill(seq[:, :pos], cache)
+            mode["k"] = "decode"
+            model.decode_step(seq[:, pos:pos + 1], cache)
+    finally:
+        TM.apply_block = orig
+    for i, (a, b) in enumerate(zip(taps["train"], taps["decode"])):
+        log(f"    layer {i}: max |d| / max |h| = "
+            f"{float((a - b).abs().max() / a.abs().max()):.3e}")
+
+
+def lm_serve_phase(torch, trace: bool, bars) -> dict:
+    """10b: qwen2.5-14b at its published widths, all 48 layers, bf16,
+    served by repro_torch.launch.serve's own functions: 16 requests from 4
+    streams over 8 groups, batch budget 8, prompts of 2048 tokens, 32
+    greedy decode steps.  The first batch's first two sequences are held
+    to the port's own no-cache forward_train over the same tokens at the
+    bf16 bar, and the first of them to the plain float32 forward."""
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.ref import plain_forward
+    args = lserve.build_parser().parse_args(LM_SERVE_ARGV)
+    lserve.set_numerics()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = lserve.build_engine(args, args.device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, cfg = engine.model, engine.model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    non_embed = n_params - cfg.vocab_size * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    log(f"10b {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocabulary {cfg.vocab_size}: "
+        f"{n_params:,} parameters ({non_embed:,} outside embed and head), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, drawn on the card "
+        f"in {init_s:.2f} s")
+    rng = np.random.default_rng(args.seed)
+    sched = lserve.make_scheduler(args, rng)
+    obs = ServeObserver(torch)
+    t0 = time.perf_counter()
+    served = lserve.serve(engine, sched, rng, prompt_len=args.prompt_len,
+                          steps=args.steps, observer=obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bars.check(served == args.requests,
+               f"10b served {served} of {args.requests} requests")
+    b, s, n = obs.batches[0]["b"], args.prompt_len, args.steps
+    prefill_ms = [x["prefill_ms"] for x in obs.batches]
+    decode_ms = [statistics.median(x["decode_ms"]) for x in obs.batches]
+    tokens = b * s
+    attn_flops = 4 * b * cfg.n_heads * cfg.head_dim * cfg.n_layers * (
+        s * (s + 1) // 2)
+    prefill_bound = 2 * non_embed * tokens / BF16_FLOPS
+    prefill_bound_attn = (2 * non_embed * tokens + attn_flops) / BF16_FLOPS
+    kv_bytes = (2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim * 2
+                * (s + n // 2))
+    weight_bytes = (n_params - cfg.vocab_size * cfg.d_model) * 2
+    decode_bound = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S
+    cache_gb = 2 * cfg.n_layers * b * engine.max_len * cfg.n_kv_heads * \
+        cfg.head_dim * 2 / 1e9
+    log(f"10b served {served} requests in {len(obs.batches)} batches of "
+        f"{[x['b'] for x in obs.batches]}, KV max_len {engine.max_len} "
+        f"({cache_gb:.2f} GB a batch): wall {wall:.3f} s, "
+        f"{served * n / wall:.1f} generated tokens/s")
+    log(f"10b prefill of {b} x {s} tokens: {prefill_ms} ms (bound "
+        f"{1e3 * prefill_bound:.1f} ms: 2 x {non_embed / 1e9:.2f} G "
+        f"parameters x {tokens} tokens at {BF16_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"{1e3 * prefill_bound_attn:.1f} ms with the causal attention's "
+        f"{attn_flops / 1e12:.1f} TFLOP)")
+    log(f"10b decode step, batch {b}: median {decode_ms} ms (bound "
+        f"{1e3 * decode_bound:.2f} ms: {weight_bytes / 1e9:.2f} GB of "
+        f"weights and head + {kv_bytes / 1e9:.2f} GB of cache at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); per-step range "
+        f"{min(min(x['decode_ms']) for x in obs.batches):.3f}-"
+        f"{max(max(x['decode_ms']) for x in obs.batches):.3f} ms")
+    log(f"10b peak device memory {peak:.2f} GB")
+
+    # the cache path against the port's own no-cache forward
+    first = obs.first
+    seq = torch.cat([first["prompts"], first["tokens"]], dim=1)
+    with torch.inference_mode():
+        full = model.forward_train(seq)[0]
+    std = float(full.float().std())
+    ok, pre_err = _within(first["logits"][0], full[:, s - 1],
+                          LM_TOL["bfloat16"])
+    bars.check(ok, f"10b prefill's last logits against forward_train "
+                   f"(the same chunks): max |d| {pre_err:.3e} (bar "
+                   f"{LM_TOL['bfloat16']})")
+    errs = [_within(lg, full[:, s - 1 + j], 0.0)[1]
+            for j, lg in enumerate(first["logits"]) if j > 0]
+    dec_err = max(errs)
+    if dec_err > LM_DECODE_BAR * std:
+        log("  10b a decode step outside the bar: layer by layer")
+        _first_departing_layers(torch, model, seq[:1],
+                                s - 1 + 1 + int(np.argmax(errs)))
+    bars.check(dec_err <= LM_DECODE_BAR * std,
+               f"10b {n} decode steps x {LM_CHECKED_ROWS} rows against "
+               f"forward_train: max |d| {dec_err:.4f} = "
+               f"{dec_err / std:.4f} of the logits' std {std:.4f} (bar "
+               f"{LM_DECODE_BAR}); within 2e-2 at "
+               f"{sum(e <= LM_TOL['bfloat16'] for e in errs)} of {n} steps")
+    del full
+
+    # the plain float32 forward of the first sequence, one layer at a time
+    t0 = time.perf_counter()
+    plain = plain_forward(model, seq[:1])[0]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    served_logits = torch.stack([lg[0] for lg in first["logits"]])
+    d = (served_logits.float() - plain[s - 1:s - 1 + len(first["logits"])]
+         ).abs()
+    plain_err = float(d.max())
+    bars.check(plain_err <= LM_PLAIN_BAR * std,
+               f"10b bf16 served logits against the plain float32 forward "
+               f"({plain_s:.2f} s): max |d| {plain_err:.4f}, "
+               f"{plain_err / std:.4f} of the logits' std {std:.4f} (bar "
+               f"{LM_PLAIN_BAR}); mean |d| {float(d.mean()):.5f}")
+    del plain, seq, d
+    figures = {
+        "arch": LM_ARCH, "n_params": n_params, "non_embedding": non_embed,
+        "layers": cfg.n_layers, "init_s": init_s, "served": served,
+        "batches": [x["b"] for x in obs.batches], "prompt_len": s,
+        "decode_steps": n, "wall_s": wall,
+        "tokens_per_s": served * n / wall,
+        "prefill_ms": prefill_ms, "prefill_bound_ms": 1e3 * prefill_bound,
+        "prefill_bound_with_attention_ms": 1e3 * prefill_bound_attn,
+        "decode_ms_median": decode_ms, "decode_bound_ms": 1e3 * decode_bound,
+        "peak_gb": peak, "prefill_vs_forward_max_abs_err": pre_err,
+        "decode_vs_forward_max_abs_err": dec_err,
+        "vs_plain_f32_max_abs_err": plain_err, "logits_std": std,
+        "vs_plain_f32_ratio_to_std": plain_err / std}
+
+    # torch ops a decode step, and (--trace) its device-time breakdown
+    cache = engine.new_cache(b)
+    tok = torch.zeros((b, 16), dtype=torch.int32, device=model.device)
+    engine.prefill(tok, cache)
+    step = tok[:, :1]
+    engine.decode(step, cache)
+    with OpCount() as ops:
+        engine.decode(step, cache)
+    figures["ops_per_decode_step"] = ops.n
+    log(f"10b torch ops a decode step: {ops.n} "
+        f"({ops.n / cfg.n_layers:.1f} a layer)")
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.decode(step, cache)
+            torch.cuda.synchronize()
+            wall_step = time.perf_counter() - t0
+        rows = kernel_rows(prof)
+        busy = sum(r[0] for r in rows) / 1e3
+        log(f"10b traced decode step: wall {1e3 * wall_step:.3f} ms, device "
+            f"busy {busy:.3f} ms = {100 * busy / (1e3 * wall_step):.1f}%")
+        for dev_us, count, key in rows[:15]:
+            log(f"  {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:90]}")
+        figures["traced_decode"] = {"wall_ms": 1e3 * wall_step,
+                                    "busy_ms": busy}
+        # one prefill of a batch of 8 x 2048, on a fresh cache
+        prompts = torch.zeros((b, s), dtype=torch.int32, device=model.device)
+        cache2 = engine.new_cache(b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.prefill(prompts, cache2)
+            torch.cuda.synchronize()
+            wall_pre = time.perf_counter() - t0
+        rows = kernel_rows(prof)
+        busy = sum(r[0] for r in rows) / 1e3
+        log(f"10b traced prefill of {b} x {s}: wall {1e3 * wall_pre:.1f} ms,"
+            f" device busy {busy:.1f} ms = {100 * busy / (1e3 * wall_pre):.1f}%")
+        for dev_us, count, key in rows[:15]:
+            log(f"  {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:90]}")
+        figures["traced_prefill"] = {"wall_ms": 1e3 * wall_pre,
+                                     "busy_ms": busy}
+        del cache2, prompts
+    del cache, engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figures
+
+
+def lm_f32_phase(torch, bars) -> dict:
+    """10c: qwen2.5-14b's published widths in float32 cut to 2 layers:
+    prefill of 600 tokens (two q chunks, the second padded) and 8 decode
+    steps on given tokens through the ServeEngine, against the plain
+    float32 forward over the same tokens at rtol = atol = 1e-4."""
+    from repro_torch import configs
+    from repro_torch.models import LM
+    from repro_torch.models.ref import plain_forward
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(configs.get(LM_ARCH), param_dtype="float32",
+                              n_layers=LM_F32_LAYERS)
+    t0 = time.perf_counter()
+    model = LM(cfg, device=None, seed=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks, _ = _lm_inputs(torch, cfg, LM_F32_B,
+                         LM_F32_PROMPT + LM_F32_DECODE + 1, seed=2)
+    toks = toks.to(model.device)
+    # prefill, then decode steps on the given tokens, through the engine
+    eng = ServeEngine(model, max_len=LM_F32_PROMPT + LM_F32_DECODE + 8)
+    cache = eng.new_cache(LM_F32_B)
+    steps = [eng.prefill(toks[:, :LM_F32_PROMPT], cache)[0][:, -1]]
+    for j in range(LM_F32_DECODE):
+        steps.append(eng.decode(
+            toks[:, LM_F32_PROMPT + j:LM_F32_PROMPT + j + 1], cache)[0][:, -1])
+    plain = plain_forward(model, toks)
+    worst, oks = 0.0, []
+    for j, lg in enumerate(steps):
+        ok, err = _within(lg, plain[:, LM_F32_PROMPT - 1 + j], 1e-4)
+        worst = max(worst, err)
+        oks.append(ok)
+    bars.check(all(oks),
+               f"10c {LM_F32_LAYERS} layers in float32 ({n_params:,} "
+               f"parameters): prefill of {LM_F32_B} x {LM_F32_PROMPT} and "
+               f"{LM_F32_DECODE} decode steps against the plain forward, "
+               f"max |d| {worst:.3e} (bar 1e-4), "
+               f"{time.perf_counter() - t0:.2f} s")
+    del model, plain, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": LM_F32_LAYERS, "n_params": n_params,
+            "max_abs_err": worst}
+
+
+def lm_phase(torch, trace: bool) -> dict:
+    """Phase 10: 10a, 10b, 10c; raises at its end if any check failed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bars = Bars()
+    t0 = time.perf_counter()
+    out = {"smoke": lm_smoke_phase(torch, bars)}
+    out["serve"] = lm_serve_phase(torch, trace, bars)
+    out["f32_depth"] = lm_f32_phase(torch, bars)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 10 in {out['phase_s']:.1f} s")
+    bars.raise_if_failed("phase 10")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
+    ap.add_argument("--phases", choices=("all", "10"), default="all",
+                    help="'10': phase 1 and the LM phase alone (for "
+                         "iterating; no kernels line)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2456,6 +3000,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
+    if args.phases == "10":
+        lm = lm_phase(torch, args.trace)
+        print(json.dumps({"lm": lm}), flush=True)
+        print(card_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- the slice's graph and session (two views) -------------------------
     t0 = time.perf_counter()
@@ -2557,6 +3109,9 @@ def main() -> int:
     mesh_launches, mesh_stream_launches, mesh_serve_launches, mesh_errs = \
         mesh_phase(torch, csr, refs, fk, out_dir)
 
+    # -- phase 10: the LM serving path (launches none of the kernels) -------
+    lm = lm_phase(torch, args.trace)
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -2599,7 +3154,9 @@ def main() -> int:
         "name": "priority_pairs", "route": "cuda", "source": B4_SOURCE,
         "replaces": B4_REPLACES, "kernel_ms": b4["ms"], "timing": TIMING,
         **b4})
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"lm": lm}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

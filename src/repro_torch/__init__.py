@@ -11,7 +11,13 @@ parity test can drive both packages:
                             GraphSession, the engine shim and paper API
   repro_torch.kernels     - hand-written CUDA kernels: the fused superstep,
                             the multi-job block SpMM, the pair reduction
-  repro_torch.convert     - carry a reference run's graph/state into the port
+  repro_torch.models      - the LM architectures (dense, GQA, MoE, RG-LRU,
+                            xLSTM, codebook and patch-prefix frontends)
+  repro_torch.configs     - the ten architectures' configs and smoke sizes
+  repro_torch.serve       - request admission and the LM ServeEngine
+  repro_torch.launch      - the serving driver
+  repro_torch.convert     - carry a reference run's graph/state, weights and
+                            caches into the port
 
 Every entry point takes an explicit ``device``: ``None`` means CUDA and
 raises when no CUDA device is present (pass ``device="cpu"`` to run the

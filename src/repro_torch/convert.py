@@ -1,17 +1,18 @@
-"""Carry a reference run's graph and job state into the port.
+"""Carry a reference run's graph, job state, weights and caches into the port.
 
-This system has no weights; what a run carries is its graph and the
-mid-run job state, and on an evolving graph the view's live-update
-overlay and its host mirrors.  These functions take the reference's
-fields as numpy arrays (from `repro.graph.CSRGraph`, `BlockedGraph`,
-`BlockPairs`, `TileOverlay` and a `repro.core.GraphSession` view group)
-and build the port's objects on a device, so a run begun in the
-reference can continue in the port, mid-stream included.
+What a graph run carries is its graph and the mid-run job state, and on
+an evolving graph the view's live-update overlay and its host mirrors.
+These functions take the reference's fields as numpy arrays (from
+`repro.graph.CSRGraph`, `BlockedGraph`, `BlockPairs`, `TileOverlay` and a
+`repro.core.GraphSession` view group) and build the port's objects on a
+device, so a run begun in the reference can continue in the port,
+mid-stream included.  The language models' parameters and caches come
+over the same way (`lm_params_from_repro`, `lm_cache_from_repro`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,7 @@ from repro_torch.core.session import GraphSession, ViewGroup
 from repro_torch.graph.structure import (BlockedGraph, BlockPairs, CSRGraph,
                                          TileOverlay, chunk_table, run_starts)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.config import ModelConfig
 from repro_torch.stream.apply import _ensure_mirrors
 
 
@@ -166,3 +168,68 @@ def snapshot_from_repro(snapshot: dict) -> dict:
             "deltas": [np.array(d, dtype=np.float32)
                        for d in snapshot["deltas"]],
             "step": int(snapshot["step"]), "rng": None}
+
+
+# -- language models -----------------------------------------------------------
+
+def _lm_tensor(a, device) -> torch.Tensor:
+    """A tensor on `device` holding a copy of the numpy array `a`; a
+    bfloat16 array (numpy's extension type) keeps its bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _stack_layers(cfg: ModelConfig, tree: Dict[str, Any]
+                  ) -> Iterator[Tuple[int, Dict[str, Any]]]:
+    """(layer, its entry) over the reference's stacked `blocks` (pattern
+    position i of cycle c is layer c * len(pattern) + i) and its `rem`."""
+    period = len(cfg.block_pattern)
+    for i, stacked in enumerate(tree["blocks"]):
+        for c in range(cfg.pattern_cycles):
+            yield c * period + i, _index(stacked, c)
+    for i, entry in enumerate(tree["rem"]):
+        yield cfg.pattern_cycles * period + i, entry
+
+
+def _index(tree, c):
+    if isinstance(tree, dict):
+        return {k: _index(v, c) for k, v in tree.items()}
+    return np.asarray(tree)[c]
+
+
+def _flat(prefix: str, tree: Dict[str, Any]) -> Iterator[Tuple[str, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(f"{prefix}{k}.", v)
+        else:
+            yield prefix + k, v
+
+
+def lm_params_from_repro(cfg: ModelConfig, params: Dict[str, Any], *,
+                         device=None) -> Dict[str, torch.Tensor]:
+    """The port's `LM` state dict from the reference's `LM(cfg).init`
+    pytree (leaves as numpy arrays): the [n_cycles, ...] stacks of
+    `params["blocks"]` unstacked into one entry a layer.  Load it with
+    `LM(cfg, device="meta").load_state_dict(state, assign=True)`."""
+    dev = resolve_device(device)
+    state = {name: _lm_tensor(params[name], dev)
+             for name in ("embed", "final_norm", "head") if name in params}
+    for layer, entry in _stack_layers(cfg, params):
+        for name, a in _flat(f"blocks.{layer}.", entry):
+            state[name] = _lm_tensor(a, dev)
+    return state
+
+
+def lm_cache_from_repro(cfg: ModelConfig, cache: Dict[str, Any], *,
+                        device=None) -> Dict[str, Any]:
+    """The port's cache (`LM.init_cache`'s layout) from the reference's
+    (leaves as numpy arrays), so a decode begun in the reference can go
+    on in the port."""
+    dev = resolve_device(device)
+    layers = [None] * cfg.n_layers
+    for layer, entry in _stack_layers(cfg, cache):
+        layers[layer] = {k: _lm_tensor(v, dev) for k, v in entry.items()}
+    return {"pos": int(np.asarray(cache["pos"])), "layers": layers}

@@ -12,6 +12,8 @@
                  another mesh (elastic reshard), the straggler watchdog
   compression  - int8 quantization with error feedback (the compressed
                  frontier exchange)
+  act          - the models' activation-sharding hooks (identity outside a
+                 sharding context; the rules themselves are not ported)
 
 The reference (`repro.dist`) is single-controller SPMD: `shard_map` over
 a `jax.sharding.Mesh`.  Here every rank is a process holding its own
@@ -20,4 +22,4 @@ process group.  Submodules are imported by their call sites, so
 importing `repro_torch.dist` touches no process group.
 """
 
-__all__ = ["graph", "mesh2d", "fault", "compression", "world"]
+__all__ = ["graph", "mesh2d", "fault", "compression", "world", "act"]

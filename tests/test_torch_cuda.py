@@ -904,3 +904,86 @@ def test_mesh_stream_on_the_card(cuda, mesh_stream_world, tag):
         else:
             np.testing.assert_allclose(r, sess.result(h), rtol=1e-3,
                                        atol=1e-4)
+
+
+# -- the LM serving path: the card against the CPU ----------------------------
+
+def _lm_pair(name, dtype, device):
+    """One seeded CPU init of the smoke config and its copy on `device`."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(configs.get_smoke(name), param_dtype=dtype)
+    cpu = LM(cfg, device="cpu", seed=0)
+    gpu = LM(cfg, device="meta")
+    gpu.load_state_dict({k: v.to(device) for k, v in
+                         cpu.state_dict().items()}, assign=True)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(
+        np.int32))
+    return cfg, cpu, gpu, toks
+
+
+def _lm_run(model, toks, s=20):
+    out = []
+    with torch.inference_mode():
+        toks = toks.to(model.device)
+        out.append(model.forward_train(toks)[0])
+        cache = model.init_cache(toks.shape[0], 32)
+        out.append(model.prefill(toks[:, :s], cache)[0])
+        for j in range(toks.shape[1] - s):
+            out.append(model.decode_step(toks[:, s + j:s + j + 1], cache)[0])
+    return [o.float().cpu() for o in out], cache
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-14b", "recurrentgemma-9b"])
+def test_lm_float32_card_matches_cpu(cuda, name):
+    """float32 (TF32 off): forward_train, prefill and four decode steps,
+    logits and the final cache at rtol = atol = 1e-4."""
+    cfg, cpu, gpu, toks = _lm_pair(name, "float32", cuda)
+    want, c_cpu = _lm_run(cpu, toks)
+    got, c_gpu = _lm_run(gpu, toks)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    for lc, lg in zip(c_cpu["layers"], c_gpu["layers"]):
+        for k in lc:
+            np.testing.assert_allclose(lg[k].float().cpu().numpy(),
+                                       lc[k].float().numpy(), rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-14b", "recurrentgemma-9b"])
+def test_lm_bf16_card_matches_cpu(cuda, name):
+    """bf16: every block on the card fed the CPU's own block input at the
+    bf16 bar of 2e-2, and the whole model's logits at 2e-2 or, where the
+    random smoke model amplifies last-bit differences past it, no further
+    than the CPU's own logits move under a one-ulp change of one
+    embedding weight."""
+    from repro_torch.models import model as TM
+    cfg, cpu, gpu, toks = _lm_pair(name, "bfloat16", cuda)
+    with torch.inference_mode():
+        x = cpu._embed(toks)
+        pos = torch.arange(toks.shape[1], dtype=torch.int32).expand(2, -1)
+        for bc, bg in zip(cpu.blocks, gpu.blocks):
+            y = TM.apply_block(bc.kind, x, bc, cfg, None, pos, None)[0]
+            yg = TM.apply_block(bg.kind, x.to(cuda), bg, cfg, None,
+                                pos.to(cuda), None)[0]
+            np.testing.assert_allclose(yg.float().cpu().numpy(),
+                                       y.float().numpy(), rtol=2e-2,
+                                       atol=2e-2)
+            x = y
+    want, _ = _lm_run(cpu, toks)
+    got, _ = _lm_run(gpu, toks)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(bool(((g - w).abs() <= 2e-2 + 2e-2 * w.abs()).all())
+               for g, w in zip(got, want)):
+        row = cpu.embed.data
+        tok = int(toks[0, 3])
+        orig = row[tok, 5].clone()
+        row[tok, 5] = (orig.view(torch.int16) + 1).view(torch.bfloat16)
+        with torch.inference_mode():
+            bumped = cpu.forward_train(toks)[0].float()
+        row[tok, 5] = orig
+        spread = float((bumped - want[0]).abs().max())
+        assert err <= spread, (err, spread)
