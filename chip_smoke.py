@@ -174,20 +174,46 @@ Phases (any failure exits non-zero before the last line is printed):
    in float32 at 2 layers, prefill of 600 tokens and 8 decode steps
    through the ServeEngine against the plain forward at 1e-4.
 
-Then one JSON line of kernel figures, one of the LM figures, the card's
-name and power limit, and last {"ok": true, "device": {...}}.
+11. LM training (repro_torch.models' LM.loss, .train, .data,
+   .dist.fault.RestartManager, .launch.train), which launches none of
+   the kernels above either.  11a: every architecture's smoke config,
+   one seeded CPU init copied to the card, LM.loss, every gradient and
+   one make_train_step step with accum_steps=2: float32 (TF32 off) loss
+   at 1e-5, each gradient leaf and the step's mu at 1e-4 of its largest
+   entry plus 1e-7 of the model's largest, stepped parameters at 1e-5
+   plus lr x the difference of the two sides' AdamW directions (read
+   from their moments); bf16 loss at 2e-2.  11b: minicpm-2b at its published widths, 40
+   layers, bf16, seeded weights drawn on the card, launch.train's AdamW
+   (WSD), SyntheticTokens(seed=0) batches of 8 x 2048, 12 steps through
+   make_train_step: each step's loss, grad norm, lr, s and tokens/s
+   beside the 0.29 s bound, peak memory split into state and the rest,
+   the step's parts timed one by one; the loss must fall and every grad
+   norm be finite (a first step past 75 GB halves the batch, said so).
+   11c, in a child process (`--phases 11c`) that sets
+   CUBLAS_WORKSPACE_CONFIG before CUDA starts: launch.train's
+   RestartManager loop at the same widths cut to 2 layers, a checkpoint
+   every 4 steps under build/chip_smoke/ckpt (removed after), a failure
+   injected at step 6, under deterministic algorithms: one restart, the replayed losses bit-equal to their
+   first pass, the final state equal to an uninterrupted run's; the
+   checkpoint's GB and its save and restore s.
+
+Then one JSON line of kernel figures, one of the LM figures, one of the
+training figures, the card's name and power limit, and last {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --trace
 
 adds traced reruns of the same four jobs under torch.profiler after the
 checks, one on each backend (the per-layer breakdown: device time by
-kernel, the device's busy share), and in phase 10 a traced decode step
-and prefill; the untraced runs above give the end-to-end numbers.
+kernel, the device's busy share), in phase 10 a traced decode step and
+prefill, and in phase 11 one traced 11b step; the untraced runs above
+give the end-to-end numbers.
 
     python3 chip_smoke.py --phases 10 [--trace]
+    python3 chip_smoke.py --phases 11 [--trace]
 
-runs phase 1 and phase 10 alone (for iterating on the LM path; no
-kernels line).
+run phase 1 and phase 10 (the LM serving path) or phase 11 (training)
+alone, for iterating; no kernels line.
 """
 
 from __future__ import annotations
@@ -198,6 +224,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2957,15 +2984,615 @@ def lm_phase(torch, trace: bool) -> dict:
     return out
 
 
+# -- phase 11: LM training ----------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"
+# 11a: every architecture's smoke config, one train step card against CPU
+TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_LR = 4, 20, 3e-4
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5, "bf16_loss": 2e-2}
+# every gradient leaf is held at 1e-4 of its largest entry plus 1e-7 of
+# the model's largest (about one float32 ulp of it: xLSTM's input-gate
+# biases, which the stabilizer cancels to rounding noise of ~1e-7 against
+# ~18, first run on an H100).  The first AdamW step moves a weight by
+# lr x g/(|g| + eps), g the step's clipped gradient: where |g| is near eps
+# or its sign differs between card and CPU, gradients within their bar
+# still move the weight differently.  So each stepped weight is held to
+# 1e-5 plus lr x the difference of the two sides' AdamW directions, read
+# from each side's own moments (mu, nu), which are held to the gradient
+# bar themselves
+TRAIN_NOISE_FLOOR = 1e-7
+# 11b: minicpm-2b at its published widths, launch.train's AdamW (WSD)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 12
+TRAIN_PEAK_CAP = 75e9          # above it the batch is halved (and said so)
+# 11c: the restart loop at the same widths, cut to 2 layers, in a child
+# process: cuBLAS reads its workspace setting once, when CUDA starts, and
+# the deterministic one slows the other phases' GEMMs
+TRAIN_RESTART_LAYERS, TRAIN_RESTART_STEPS = 2, 8
+TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 4, 6
+RESTART_CUBLAS = ":4096:8"
+RESTART_TAG = "11c-result: "
+
+
+def _train_batch(torch, cfg, b, s, seed=0):
+    toks, pe = _lm_inputs(torch, cfg, b, s, seed)
+    batch = {"tokens": toks}
+    if pe is not None:
+        batch["patch_embeds"] = pe.to(torch.bfloat16)
+    return batch
+
+
+def _loss_grads(torch, model, batch):
+    """(loss, {name: grad}) of one batch on the model's device."""
+    batch = {k: v.to(model.device) for k, v in batch.items()}
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def _one_step(torch, model, batch, lr):
+    """One make_train_step step with accum_steps=2 from a fresh state:
+    (loss, grad_norm, lr, {name: stepped parameter}, {name: mu},
+    {name: AdamW direction (mu/c1) / (sqrt(nu/c2) + eps)}), on the CPU."""
+    from repro_torch.train import AdamWConfig, make_init_state, \
+        make_train_step
+    from repro_torch.tree import leaves, members
+    opt = AdamWConfig(peak_lr=lr, warmup_steps=1, total_steps=10)
+    state = make_init_state(model, opt)()
+    step = make_train_step(model, opt, accum_steps=2)
+    state, m = step(state, {k: v.to(model.device) for k, v in batch.items()})
+    assert state["opt"]["step"] == 1
+    names = {id(p): n for n, p in model.named_parameters()}
+    mus, dirs = {}, {}
+    for lp, lm, ln in zip(leaves(state["params"]), leaves(state["opt"]["mu"]),
+                          leaves(state["opt"]["nu"])):
+        for p, mu, nu in zip(members(lp), members(lm), members(ln)):
+            mu, nu = mu.float().cpu(), nu.float().cpu()
+            mus[names[id(p)]] = mu
+            dirs[names[id(p)]] = (mu / (1 - opt.b1)) / (
+                torch.sqrt(nu / (1 - opt.b2)) + opt.eps)
+    return (float(m["loss"]), float(m["grad_norm"]), float(m["lr"]),
+            {n: p.detach().float().cpu() for n, p in
+             model.named_parameters()}, mus, dirs)
+
+
+def _leaf_bars(grads: dict) -> dict:
+    """{name: 1e-4 of the leaf's largest |entry| + TRAIN_NOISE_FLOOR of the
+    model's largest}."""
+    top = max(float(g.float().abs().max()) for g in grads.values())
+    return {n: TRAIN_TOL["grad"] * float(g.float().abs().max())
+            + TRAIN_NOISE_FLOOR * top for n, g in grads.items()}
+
+
+def train_smoke_phase(torch, bars) -> dict:
+    """11a: every architecture at its smoke size, one seeded CPU init
+    copied to the card: LM.loss, every gradient and one make_train_step
+    step with accum_steps=2.  float32 (TF32 off): loss at 1e-5, each
+    gradient leaf and the step's mu within 1e-4 of its largest entry
+    (plus the floor above), the stepped parameters at 1e-5 plus lr x the
+    difference of the two sides' AdamW directions; bf16: the loss at
+    2e-2."""
+    from repro_torch import configs
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models import LM
+    card = resolve_device(None)
+    figures = {}
+    for name in configs.ARCH_NAMES:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_smoke(name),
+                                      param_dtype=dtype)
+            cpu = LM(cfg, device="cpu", seed=0)
+            gpu = LM(cfg, device="meta")
+            gpu.load_state_dict({k: v.to(card, copy=True) for k, v in
+                                 cpu.state_dict().items()}, assign=True)
+            batch = _train_batch(torch, cfg, TRAIN_SMOKE_B, TRAIN_SMOKE_S)
+            label = f"{name} {dtype}"
+            lc, gc = _loss_grads(torch, cpu, batch)
+            lg, gg = _loss_grads(torch, gpu, batch)
+            fig = {"loss_cpu": float(lc), "loss_card": float(lg)}
+            if dtype == "bfloat16":
+                ok, err = _within(lg, lc, TRAIN_TOL["bf16_loss"])
+                bars.check(ok, f"11a {label} loss {float(lg):.5f} against "
+                               f"{float(lc):.5f}: |d| {err:.3e} (bar 2e-2)")
+                fig["loss_err"] = err
+            else:
+                ok, err = _within(lg, lc, TRAIN_TOL["loss"])
+                bars.check(ok, f"11a {label} loss: |d| {err:.3e} (bar 1e-5)")
+                bar = _leaf_bars(gc)
+                worst = 0.0
+                for n, g in gc.items():
+                    e = float((gg[n].float().cpu() - g.float()).abs().max())
+                    worst = max(worst, e / max(bar[n], 1e-30))
+                    if e > bar[n]:
+                        bars.check(False, f"11a {label} grad {n}: |d| "
+                                          f"{e:.3e} > {bar[n]:.3e}")
+                sc = _one_step(torch, cpu, batch, TRAIN_SMOKE_LR)
+                sg = _one_step(torch, gpu, batch, TRAIN_SMOKE_LR)
+                ok_l, e_l = _within(torch.tensor(sg[0]), torch.tensor(sc[0]),
+                                    TRAIN_TOL["loss"])
+                bars.check(sg[2] == sc[2], f"11a {label} step lr "
+                                           f"{sg[2]!r} against {sc[2]!r}")
+                # the step's accumulated gradient (in mu) at the gradient bar
+                mu_bar = _leaf_bars(sc[4])
+                mu_worst = 0.0
+                for n, mu in sc[4].items():
+                    e = float((sg[4][n] - mu).abs().max())
+                    mu_worst = max(mu_worst, e / max(mu_bar[n], 1e-30))
+                    if e > mu_bar[n]:
+                        bars.check(False, f"11a {label} step mu {n}: |d| "
+                                          f"{e:.3e} > {mu_bar[n]:.3e}")
+                lr = sc[2]
+                p_worst, n_apart, n_flip, a_worst, a_over = 0.0, 0, 0, 0.0, 0.0
+                for n, p in sc[3].items():
+                    d = (sg[3][n] - p).abs()
+                    base = TRAIN_TOL["param"] * (1 + p.abs())
+                    spread = lr * (sg[5][n] - sc[5][n]).abs()
+                    apart = spread > TRAIN_TOL["param"]
+                    n_apart += int(apart.sum())
+                    n_flip += int((torch.sign(sg[4][n]) !=
+                                   torch.sign(sc[4][n])).sum())
+                    p_worst = max(p_worst, float(
+                        torch.where(apart, 0.0, d).max()))
+                    if bool(apart.any()):
+                        a_worst = max(a_worst, float(d[apart].max()))
+                        a_over = max(a_over, float(
+                            (d - spread)[apart].max()))
+                    if not bool((d <= base + spread).all()):
+                        bars.check(False, f"11a {label} stepped {n}: |d| "
+                                          f"{float(d.max()):.3e} beyond "
+                                          f"1e-5 + lr x direction spread")
+                bars.check(ok_l and worst <= 1.0 and mu_worst <= 1.0,
+                           f"11a {label}: loss |d| {err:.3e}, grads at "
+                           f"{worst:.3f} of their bars, step loss |d| "
+                           f"{e_l:.3e}, step mu at {mu_worst:.3f} of the "
+                           f"gradient bar, stepped params max |d| "
+                           f"{p_worst:.3e} (bar 1e-5) where the two AdamW "
+                           f"directions agree to 1e-5/lr; {n_apart} weights "
+                           f"where they differ more ({n_flip} step "
+                           f"gradients of opposite sign): max |d| "
+                           f"{a_worst:.3e}, at most {a_over:.3e} beyond "
+                           f"lr x the direction difference (bar 1e-5), "
+                           f"grad_norm {sg[1]:.5f} / {sc[1]:.5f}")
+                fig.update(loss_err=err, grad_share_of_bar=worst,
+                           mu_share_of_bar=mu_worst, param_err=p_worst,
+                           direction_apart=n_apart, sign_flips=n_flip,
+                           apart_param_err=a_worst,
+                           apart_beyond_spread=a_over)
+            fig["s"] = time.perf_counter() - t0
+            figures[label] = fig
+            del cpu, gpu
+    return figures
+
+
+def _state_gb(model, grads_dtype_bytes: int) -> dict:
+    n = sum(p.numel() for p in model.parameters())
+    pb = sum(p.numel() * p.element_size() for p in model.parameters())
+    return {"params_gb": pb / 1e9, "grads_gb": n * grads_dtype_bytes / 1e9,
+            "moments_gb": 2 * 4 * n / 1e9}
+
+
+def _train_bound(cfg, n_params, b, s) -> dict:
+    """The least time a step can take at 989 TFLOP/s bf16: 6 x parameters
+    x tokens for the weights, 3 x the causal attention's forward FLOPs,
+    and with remat the recomputed forward (2 x non-embedding parameters
+    x tokens + the attention forward again)."""
+    tokens = b * s
+    weights = 6 * n_params * tokens
+    attn_fwd = 4 * b * cfg.n_heads * cfg.head_dim * cfg.n_layers * (
+        s * (s + 1) // 2)
+    non_embed = n_params - cfg.vocab_size * cfg.d_model
+    remat = 2 * non_embed * tokens + attn_fwd
+    return {"flops": weights + 3 * attn_fwd,
+            "bound_s": (weights + 3 * attn_fwd) / BF16_FLOPS,
+            "bound_remat_s": (weights + 3 * attn_fwd + remat) / BF16_FLOPS}
+
+
+def _timed(torch, fn, reps=1):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps, out
+
+
+def _train_components(torch, model, batch, opt_cfg, opt_state) -> dict:
+    """Device-synced host times of one step's parts at 11b's widths: the
+    loss forward, its backward (the recomputed forward inside), AdamW over
+    the whole state, one layer's attention forward and forward+backward,
+    and the chunked cross-entropy forward+backward."""
+    from repro_torch.models import layers as L
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.tree import Stacked, tree_map
+    cfg = model.cfg
+    out = {}
+    for p in model.parameters():
+        p.grad = None
+    out["loss_forward_s"], loss = _timed(torch, lambda: model.loss(batch))
+    out["backward_s"], _ = _timed(torch, loss.backward)
+    params = model.param_tree()
+
+    def grad(p):
+        return Stacked(grad(t) for t in p) if isinstance(p, Stacked) \
+            else p.grad
+    grads = tree_map(grad, params)
+    out["adamw_s"], _ = _timed(
+        torch, lambda: adamw_update(opt_cfg, grads, opt_state, params))
+    del grads
+    for p in model.parameters():
+        p.grad = None
+    b, s = batch["tokens"].shape[:2]
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((b, s, cfg.n_heads, cfg.head_dim), generator=gen,
+                           device=dev, dtype=torch.float32).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+
+    def attn():
+        return L.flash_attention(q, k, v, pos, pos, q_chunk=cfg.q_chunk,
+                                 kv_chunk=cfg.kv_chunk, triangular=True)
+    with torch.no_grad():
+        attn()
+        out["attention_forward_s_per_layer"], _ = _timed(
+            torch, lambda: attn(), 3)
+
+    def fwd_bwd():
+        o = attn()
+        o.float().sum().backward()
+    fwd_bwd()
+    out["attention_fwd_bwd_s_per_layer"], _ = _timed(torch, fwd_bwd, 3)
+    del q, k, v
+    x = torch.randn((b, s - 1, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16)
+    x.requires_grad_(True)
+    labels = batch["tokens"][:, 1:].long()
+
+    def ce():
+        total, _ = model.chunked_nll(x, labels)
+        total.backward()
+    ce()
+    out["cross_entropy_fwd_bwd_s"], _ = _timed(torch, ce, 2)
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def _kernel_kinds(rows) -> dict:
+    """Device ms of a trace's kernel rows by kind: float32 GEMMs on FFMA
+    (the attention's scores and p @ v, TF32 off), bf16 GEMMs on the
+    tensor cores (the weights, the head), copies and casts, reductions,
+    the other elementwise kernels."""
+    kinds = {"float32 FFMA GEMM": 0.0, "bf16 tensor-core GEMM": 0.0,
+             "copies and casts": 0.0, "reductions": 0.0,
+             "other elementwise": 0.0}
+    for dev_us, _, key in rows:
+        k = key.lower()
+        if "gemm" in k and ("f32f32" in k or "sgemm" in k or "ffma" in k):
+            kind = "float32 FFMA GEMM"
+        elif "gemm" in k or "nvjet" in k or "cutlass" in k:
+            kind = "bf16 tensor-core GEMM"
+        elif "copy" in k:
+            kind = "copies and casts"
+        elif "reduce" in k:
+            kind = "reductions"
+        else:
+            kind = "other elementwise"
+        kinds[kind] += dev_us / 1e3
+    return kinds
+
+
+def train_full_phase(torch, trace: bool, bars) -> dict:
+    """11b: minicpm-2b at its published widths, all 40 layers, bf16,
+    seeded weights drawn on the card, launch.train's AdamW (WSD, peak
+    3e-4, warmup 1, 12 steps), SyntheticTokens(seed=0) batches of 8 x
+    2048 through make_train_step: each step's loss, grad norm, lr, s and
+    tokens/s beside the bound; the loss must fall (the mean of the last
+    five below the first five) and every grad norm be finite."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import LM
+    from repro_torch.train import make_init_state, make_train_step
+    lserve.set_numerics()
+    cfg = configs.get(TRAIN_ARCH)
+    args = ltrain.build_parser().parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seed", "0"])
+    opt_cfg = ltrain.opt_config(args)
+    batch_size, cut = TRAIN_B, None
+    while True:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = LM(cfg, device=None, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        data = SyntheticTokens(cfg.vocab_size, batch_size, TRAIN_S, seed=0,
+                               device=model.device)
+        state = make_init_state(model, opt_cfg)()
+        step = make_train_step(model, opt_cfg)
+        rows, over = [], False
+        try:
+            for i in range(TRAIN_STEPS):
+                batch = data(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                rows.append({"step": i + 1, "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "lr": float(m["lr"]), "s": dt})
+                if i == 0 and torch.cuda.max_memory_allocated() > \
+                        TRAIN_PEAK_CAP:
+                    over = True
+                    break
+        except torch.cuda.OutOfMemoryError:
+            over = True
+        if not over:
+            break
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, state, step
+        if batch_size == 1:
+            raise RuntimeError("11b does not fit at batch 1")
+        cut = (f"batch {batch_size} -> {batch_size // 2}: the first step "
+               f"peaked at {peak:.2f} GB (cap {TRAIN_PEAK_CAP / 1e9:.0f})")
+        log(f"11b CUT {cut}")
+        batch_size //= 2
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bound = _train_bound(cfg, n_params, batch_size, TRAIN_S)
+    tokens = batch_size * TRAIN_S
+    log(f"11b {TRAIN_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocabulary {cfg.vocab_size}, tied: {n_params:,} parameters, "
+        f"drawn on the card in {init_s:.2f} s; batches of {batch_size} x "
+        f"{TRAIN_S}; bound {bound['bound_s']:.3f} s a step "
+        f"({bound['flops'] / 1e12:.1f} TFLOP at {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s), {bound['bound_remat_s']:.3f} s with remat's forward")
+    for r in rows:
+        log(f"  step {r['step']:2d}: loss {r['loss']:.5f} grad_norm "
+            f"{r['grad_norm']:.4f} lr {r['lr']:.3e} {r['s']:.3f} s "
+            f"{tokens / r['s']:.0f} tokens/s, {bound['bound_s'] / r['s']:.3f}"
+            f" of the bound")
+    losses = [r["loss"] for r in rows]
+    steady = [r["s"] for r in rows[1:]]
+    falls = float(np.mean(losses[-5:])) < float(np.mean(losses[:5]))
+    bars.check(falls, f"11b loss falls: mean of the last five "
+                      f"{np.mean(losses[-5:]):.5f} < first five "
+                      f"{np.mean(losses[:5]):.5f}")
+    bars.check(all(np.isfinite(r["grad_norm"]) and np.isfinite(r["loss"])
+                   for r in rows), "11b every grad norm and loss finite")
+    st = _state_gb(model, 2)
+    state_gb = st["params_gb"] + st["grads_gb"] + st["moments_gb"]
+    log(f"11b peak device memory {peak:.2f} GB: state {state_gb:.2f} GB "
+        f"(params {st['params_gb']:.2f} + grads {st['grads_gb']:.2f} + "
+        f"moments {st['moments_gb']:.2f}), the rest {peak - state_gb:.2f} GB")
+    med = statistics.median(steady)
+    log(f"11b median step (2-{TRAIN_STEPS}) {med:.3f} s: "
+        f"{tokens / med:.0f} tokens/s, {bound['bound_s'] / med:.3f} of the "
+        f"{bound['bound_s']:.3f} s bound")
+    figures = {"arch": TRAIN_ARCH, "n_params": n_params,
+               "layers": cfg.n_layers, "batch": batch_size,
+               "seq_len": TRAIN_S, "cut": cut, "init_s": init_s,
+               "steps": rows, "median_step_s": med,
+               "tokens_per_s": tokens / med, "bound_s": bound["bound_s"],
+               "bound_remat_s": bound["bound_remat_s"],
+               "share_of_bound": bound["bound_s"] / med, "peak_gb": peak,
+               "state_gb": state_gb, "rest_gb": peak - state_gb, **st}
+
+    # where the step's time goes, part by part (device-synced host clock)
+    batch = data(0)
+    parts = _train_components(torch, model, batch, opt_cfg, state["opt"])
+    for k, v in parts.items():
+        log(f"  11b {k}: {v:.4f}")
+    figures["parts"] = parts
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows_k = kernel_rows(prof)
+        busy = sum(r[0] for r in rows_k) / 1e6
+        log(f"11b traced step: wall {wall:.3f} s, device busy {busy:.3f} s "
+            f"= {100 * busy / wall:.1f}%")
+        for dev_us, count, key in rows_k[:20]:
+            log(f"  {dev_us / 1e3:10.3f} ms  {count:7d} calls  {key[:90]}")
+        kinds = _kernel_kinds(rows_k)
+        for kind, ms in kinds.items():
+            log(f"  11b traced step by kind: {kind} {ms:.1f} ms")
+        figures["traced_step"] = {"wall_s": wall, "busy_s": busy,
+                                  "by_kind_ms": kinds,
+                                  "top": [(r[0] / 1e3, r[1], r[2][:90])
+                                          for r in rows_k[:20]]}
+    del model, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figures
+
+
+def _restart_run(torch, cfg, ckpt, fail_at):
+    """launch.train's loop at `cfg` with a failure injected at `fail_at`
+    (None: uninterrupted): its result dict."""
+    from repro_torch.launch import train as ltrain
+    args = ltrain.build_parser().parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_RESTART_STEPS),
+         "--batch", str(TRAIN_B), "--seq-len", str(TRAIN_S),
+         "--save-every", str(TRAIN_SAVE_EVERY), "--ckpt-dir", str(ckpt),
+         "--seed", "0", "--device", "cuda"])
+    pending = {fail_at} if fail_at is not None else set()
+
+    def hook(step):
+        if step in pending:
+            pending.remove(step)
+            raise RuntimeError(f"injected failure at step {step}")
+    return ltrain.train(args, cfg=cfg, failure_hook=hook)
+
+
+def train_restart_phase(torch, out_dir, bars) -> dict:
+    """11c: launch.train's loop with RestartManager at 11b's widths cut to
+    2 layers, a checkpoint every 4 steps, a failure injected at step 6,
+    under deterministic algorithms: one restart, the replayed steps'
+    losses bit-equal to their first pass, the final state equal to an
+    uninterrupted run's; the checkpoint's GB and save/restore s."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.tree import leaves, members
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              n_layers=TRAIN_RESTART_LAYERS)
+    root = out_dir / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    det_reason, rtol = None, 0.0
+    torch.use_deterministic_algorithms(True)
+    try:
+        # a step that fails would be restarted by the loop: probe the
+        # path's ops first, so a missing deterministic kernel shows here
+        from repro_torch.models import LM
+        probe = LM(cfg, device=None, seed=0)
+        toks = _train_batch(torch, cfg, 1, 256)["tokens"].to(probe.device)
+        try:
+            probe.loss({"tokens": toks}).backward()
+        except RuntimeError as e:
+            if "deterministic" not in str(e):
+                raise
+            det_reason = str(e).splitlines()[0]
+            log(f"11c an op has no deterministic CUDA version "
+                f"({det_reason}): rtol 1e-3 instead of bit-equal")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            rtol = 1e-3
+        del probe
+        a = _restart_run(torch, cfg, root / "a", TRAIN_FAIL_AT)
+        b = _restart_run(torch, cfg, root / "b", None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bars.check(a["restarts"] == 1 and a["steps"] == TRAIN_RESTART_STEPS,
+               f"11c {a['restarts']} restart(s), {a['steps']} steps")
+    first, replay = {}, []
+    for s, loss in a["history"]:
+        if s in first:
+            replay.append((s, first[s], loss))
+        else:
+            first[s] = loss
+    want = dict(b["history"])
+
+    def same(x, y):
+        return x == y if rtol == 0.0 else abs(x - y) <= rtol * abs(y)
+    bars.check(bool(replay) and all(same(l2, l1) for _, l1, l2 in replay),
+               f"11c replayed steps {[s for s, _, _ in replay]}: losses "
+               f"{[(l1, l2) for _, l1, l2 in replay]} "
+               + ("bit-equal to their first pass" if rtol == 0.0
+                  else f"within rtol {rtol}"))
+    bars.check(all(same(first[s], want[s]) for s in want),
+               f"11c every step's loss equal to the uninterrupted run's")
+    worst = 0.0
+    for la, lb in zip(leaves(a["state"]), leaves(b["state"])):
+        for x, y in zip(members(la), members(lb)):
+            if isinstance(x, int):
+                worst = max(worst, float(x != y))
+            else:
+                worst = max(worst, float((x.detach().float() -
+                                          y.detach().float()).abs().max()))
+    bars.check(worst <= (0.0 if rtol == 0.0 else 1e-3),
+               f"11c final state against the uninterrupted run: max |d| "
+               f"{worst:.3e}")
+    # checkpoint size and IO
+    d = root / "io"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ck.save_checkpoint(str(d), a["steps"], a["state"])
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    t0 = time.perf_counter()
+    got, _ = ck.restore_checkpoint(str(d), ck.spec_of(a["state"]))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_io = all(torch.equal(x, y) if not isinstance(x, int) else x == y
+                  for la, lb in zip(leaves(got), leaves(a["state"]))
+                  for x, y in zip(members(la), members(lb)))
+    bars.check(same_io, "11c a saved checkpoint restores bit for bit")
+    n_params = sum(p.numel() for p in a["model"].parameters())
+    log(f"11c {TRAIN_RESTART_LAYERS} layers ({n_params:,} parameters): "
+        f"checkpoint {size / 1e9:.3f} GB, save {save_s:.2f} s "
+        f"({size / 1e9 / save_s:.2f} GB/s), restore {restore_s:.2f} s; "
+        f"run with the failure {a['seconds']:.1f} s, without "
+        f"{b['seconds']:.1f} s")
+    del a, b, got
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": TRAIN_RESTART_LAYERS, "n_params": n_params,
+            "restarts": 1, "replayed": replay, "ckpt_gb": size / 1e9,
+            "save_s": save_s, "restore_s": restore_s,
+            "deterministic_fallback": det_reason, "state_max_abs": worst}
+
+
+def restart_child(out_dir, bars) -> dict:
+    """11c in a child process (`--phases 11c`) with cuBLAS's
+    deterministic workspace; its lines are relayed, its failed checks
+    added to `bars`."""
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--phases", "11c"], capture_output=True,
+                         text=True, timeout=900)
+    result = None
+    for line in res.stdout.splitlines():
+        if line.startswith(RESTART_TAG):
+            result = json.loads(line[len(RESTART_TAG):])
+        else:
+            log(line)
+    sys.stderr.write(res.stderr)          # the restart manager's own line
+    if res.returncode != 0 or result is None:
+        log(res.stderr[-4000:])
+        raise RuntimeError(f"11c's child process failed (exit "
+                           f"{res.returncode})")
+    for what in result["failed"]:
+        bars.failed.append(what)
+    return result["figures"]
+
+
+def train_phase(torch, trace: bool, out_dir) -> dict:
+    """Phase 11: 11a, 11b, 11c; raises at its end if any check failed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    bars = Bars()
+    t0 = time.perf_counter()
+    out = {"smoke": train_smoke_phase(torch, bars)}
+    log(f"11a in {time.perf_counter() - t0:.1f} s")
+    out["full"] = train_full_phase(torch, trace, bars)
+    out["restart"] = restart_child(out_dir, bars)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 11 in {out['phase_s']:.1f} s")
+    bars.raise_if_failed("phase 11")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
-    ap.add_argument("--phases", choices=("all", "10"), default="all",
-                    help="'10': phase 1 and the LM phase alone (for "
-                         "iterating; no kernels line)")
+    ap.add_argument("--phases", choices=("all", "10", "11", "11c"),
+                    default="all",
+                    help="'10' / '11': phase 1 and the LM serving / "
+                         "training phase alone (for iterating; no kernels "
+                         "line); '11c': phase 11c alone, the child process "
+                         "phase 11 starts")
     args = ap.parse_args()
     t_script = time.perf_counter()
+    if args.phases == "11c":
+        # 11c's bit-equal replay needs cuBLAS's deterministic workspace,
+        # set before CUDA starts; only this child process runs with it
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = RESTART_CUBLAS
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2976,6 +3603,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(root / "src"))
+    out_dir = root / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.phases == "11c":
+        from repro_torch.launch import serve as lserve
+        lserve.set_numerics()
+        bars = Bars()
+        figures = train_restart_phase(torch, out_dir, bars)
+        print(RESTART_TAG + json.dumps({"figures": figures,
+                                        "failed": bars.failed}), flush=True)
+        return 0
     from repro_torch.algorithms import (PageRank, PersonalizedPageRank,
                                         SSSP)
     from repro_torch.core import Fused, GraphSession, TwoLevel
@@ -3000,9 +3637,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases == "10":
-        lm = lm_phase(torch, args.trace)
-        print(json.dumps({"lm": lm}), flush=True)
+    if args.phases in ("10", "11"):
+        if args.phases == "10":
+            print(json.dumps({"lm": lm_phase(torch, args.trace)}),
+                  flush=True)
+        else:
+            print(json.dumps({"train": train_phase(torch, args.trace,
+                                                   out_dir)}), flush=True)
         print(card_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3099,8 +3740,6 @@ def main() -> int:
     del sess, groups, handles
     gc.collect()
     torch.cuda.empty_cache()
-    out_dir = root / "build" / "chip_smoke"
-    out_dir.mkdir(parents=True, exist_ok=True)
     serve_launches = serve_phase(torch, csr, fk, out_dir)
 
     # -- phases 8-9: the multi-device engine (ranks sharing the card) -----
@@ -3111,6 +3750,9 @@ def main() -> int:
 
     # -- phase 10: the LM serving path (launches none of the kernels) -------
     lm = lm_phase(torch, args.trace)
+
+    # -- phase 11: LM training (launches none of the kernels) ---------------
+    train = train_phase(torch, args.trace, out_dir)
 
     kernels = []
     for sr in SEMIRINGS:
@@ -3157,6 +3799,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,12 @@ parity test can drive both packages:
                             xLSTM, codebook and patch-prefix frontends)
   repro_torch.configs     - the ten architectures' configs and smoke sizes
   repro_torch.serve       - request admission and the LM ServeEngine
-  repro_torch.launch      - the serving driver
-  repro_torch.convert     - carry a reference run's graph/state, weights and
-                            caches into the port
+  repro_torch.train       - AdamW, LR schedules, the train step, checkpoints
+  repro_torch.data        - deterministic step-indexed batches, prefetch
+  repro_torch.tree        - JAX-order pytrees (the reference's leaf order)
+  repro_torch.launch      - the serving and training drivers, meshes
+  repro_torch.convert     - carry a reference run's graph/state, weights,
+                            caches and train state into the port
 
 Every entry point takes an explicit ``device``: ``None`` means CUDA and
 raises when no CUDA device is present (pass ``device="cpu"`` to run the

@@ -1,6 +1,6 @@
 """MiniCPM-2B [arXiv:2404.06395; hf]: dense llama-like, MHA, tied embeddings,
-trained with the WSD schedule (the reference's
-repro.train.optimizer.wsd_schedule; training is not ported yet)."""
+trained with the WSD schedule (`repro_torch.train.optimizer.wsd_schedule`,
+which `launch/train.py` picks for it)."""
 
 from repro_torch.models.config import ModelConfig
 

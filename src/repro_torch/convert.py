@@ -7,7 +7,9 @@ These functions take the reference's fields as numpy arrays (from
 `repro.core.GraphSession` view group) and build the port's objects on a
 device, so a run begun in the reference can continue in the port,
 mid-stream included.  The language models' parameters and caches come
-over the same way (`lm_params_from_repro`, `lm_cache_from_repro`).
+over the same way (`lm_params_from_repro`, `lm_cache_from_repro`), and a
+training run's state and gradients (`train_state_from_repro`,
+`grads_from_repro`).
 """
 
 from __future__ import annotations
@@ -233,3 +235,42 @@ def lm_cache_from_repro(cfg: ModelConfig, cache: Dict[str, Any], *,
     for layer, entry in _stack_layers(cfg, cache):
         layers[layer] = {k: _lm_tensor(v, dev) for k, v in entry.items()}
     return {"pos": int(np.asarray(cache["pos"])), "layers": layers}
+
+
+def grads_from_repro(cfg: ModelConfig, grads: Dict[str, Any], *,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The reference's gradient tree (`jax.grad` of `LM.loss`, leaves as
+    numpy arrays) under the port's parameter names, as the model's
+    `.grad`s hold them (the mapping of `lm_params_from_repro`)."""
+    return lm_params_from_repro(cfg, grads, device=device)
+
+
+def _param_tree_from_repro(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """A reference parameter-shaped tree (numpy leaves) in the layout of
+    `LM.param_tree()`: each leaf of `blocks` unstacked over the cycles
+    into a `Stacked`, every other leaf a tensor."""
+    from repro_torch.tree import Stacked, tree_map
+
+    def one(a):
+        return _lm_tensor(a, device)
+
+    out = {k: tree_map(one, v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = tree_map(
+        lambda a: Stacked(_lm_tensor(s, device) for s in np.asarray(a)),
+        tree["blocks"])
+    return out
+
+
+def train_state_from_repro(cfg: ModelConfig, state: Dict[str, Any], *,
+                           device=None) -> Dict[str, Any]:
+    """The port's train state from the reference's `{"params", "opt":
+    {"mu", "nu", "step"}}` (leaves as numpy arrays): parameters and
+    moments in `LM.param_tree()`'s layout, the step a host int.
+    `train_step.bind_params` (the step does it itself) makes the
+    parameters a model's."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    return {"params": _param_tree_from_repro(state["params"], dev),
+            "opt": {"mu": _param_tree_from_repro(opt["mu"], dev),
+                    "nu": _param_tree_from_repro(opt["nu"], dev),
+                    "step": int(np.asarray(opt["step"]))}}

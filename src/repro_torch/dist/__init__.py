@@ -8,12 +8,14 @@
                  of the ELL tiles and of the pair view sharded over a
                  ("jobs", "blocks") DeviceMesh, only the frontier
                  exchanged per superstep
-  fault        - checkpoint / restore of a session's resumable state onto
-                 another mesh (elastic reshard), the straggler watchdog
+  fault        - the training restart loop (`RestartManager`), checkpoint /
+                 restore of a session's resumable state onto another mesh
+                 (elastic reshard), the straggler watchdog
   compression  - int8 quantization with error feedback (the compressed
-                 frontier exchange)
+                 frontier exchange and data-parallel gradient)
+  sharding     - the sharding rules: logical axes to mesh axes, placements
   act          - the models' activation-sharding hooks (identity outside a
-                 sharding context; the rules themselves are not ported)
+                 sharding context, the rules' answers inside one)
 
 The reference (`repro.dist`) is single-controller SPMD: `shard_map` over
 a `jax.sharding.Mesh`.  Here every rank is a process holding its own
@@ -22,4 +24,5 @@ process group.  Submodules are imported by their call sites, so
 importing `repro_torch.dist` touches no process group.
 """
 
-__all__ = ["graph", "mesh2d", "fault", "compression", "world", "act"]
+__all__ = ["graph", "mesh2d", "fault", "compression", "world", "act",
+           "sharding"]

@@ -1,21 +1,96 @@
-"""Fault tolerance for graph sessions: checkpoint, restore onto another
-mesh (elastic reshard), and straggler detection.
+"""Fault tolerance: the checkpoint-resume restart loop, checkpoint and
+restore of graph sessions onto another mesh (elastic reshard), and
+straggler detection.
+
+`RestartManager` wraps a training loop with the standard preemption
+contract: periodic (async) checkpoints, and on any step failure the loop
+restores the latest checkpoint and replays forward.  With deterministic
+data (data_fn keyed by step) and deterministic kernels the recovered run
+is bit-identical to an uninterrupted one.
 
 `checkpoint_session` gathers a session's resumable state to host numpy;
 `restore_session` loads it into a session built with the same
-submissions and places it on a survivor mesh, or on none.  The
-reference's `RestartManager` serves the LM trainer and is not ported
-yet.
+submissions and places it on a survivor mesh, or on none.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import statistics
-from typing import Optional
+import sys
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
+                                          restore_checkpoint,
+                                          save_checkpoint, spec_of)
+
+
+class RestartManager:
+    """Run a step loop to completion across simulated/real preemptions."""
+
+    def __init__(self, directory: str, *, save_every: int = 10,
+                 max_restarts: int = 100):
+        self.directory = directory
+        self.save_every = max(1, int(save_every))
+        self.max_restarts = max_restarts
+        self._ckpt = AsyncCheckpointer(directory)
+
+    def _restore(self, like: Any, shardings: Any) -> Tuple[Any, int]:
+        state, step = restore_checkpoint(self.directory, like, shardings)
+        return state, int(step)
+
+    def run(self, init_state: Any,
+            step_fn: Callable[[Any, Any], Tuple[Any, Any]],
+            data_fn: Callable[[int], Any],
+            total_steps: int, *,
+            failure_hook: Optional[Callable[[int], None]] = None,
+            shardings: Any = None) -> Tuple[Any, int, int]:
+        """Returns (final_state, steps_completed, restarts).
+
+        step_fn(state, batch) -> (state, metrics); data_fn(step) -> batch
+        must be deterministic in `step` for exact recovery.  failure_hook
+        (tests / chaos injection) runs before each step and may raise.
+        Checkpoints land every `save_every` completed steps; a crash between
+        checkpoints replays at most save_every - 1 steps.
+        """
+        like = spec_of(init_state)
+        if latest_step(self.directory) is None:
+            # durable step-0 snapshot BEFORE the first step: the step
+            # updates the state's tensors in place, so after step 1
+            # init_state holds step 1's values; a failure before the first
+            # periodic checkpoint must restore from disk, never from memory
+            save_checkpoint(self.directory, 0, init_state)
+            state, step = init_state, 0   # still step 0's values here
+        else:
+            state, step = self._restore(like, shardings)
+        restarts = 0
+        while step < total_steps:
+            try:
+                if failure_hook is not None:
+                    failure_hook(step)
+                batch = data_fn(step)
+                state, _ = step_fn(state, batch)
+                step += 1
+                if step % self.save_every == 0 or step == total_steps:
+                    self._ckpt.save(step, state)
+            except KeyboardInterrupt:
+                raise
+            except Exception as e:
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                # surface every failure: a deterministic step bug replays
+                # identically and would otherwise burn max_restarts in silence
+                print(f"[restart-manager] step {step} failed ({e!r}); "
+                      f"restart {restarts}/{self.max_restarts}",
+                      file=sys.stderr)
+                self._ckpt.wait()  # never restore a half-written checkpoint
+                state, step = self._restore(like, shardings)
+        self._ckpt.wait()
+        return state, step, restarts
 
 
 def checkpoint_session(sess) -> dict:

@@ -5,7 +5,12 @@ remainder, held as one `nn.ModuleList` of `n_layers` blocks in stack order
 (the reference stacks each pattern position over the cycles and scans;
 `convert.lm_params_from_repro` unstacks).  One code path serves train (no
 cache), prefill (cache written) and decode (cache read and updated, one
-token).
+token).  `loss` is the training objective: the reference's chunked
+cross-entropy, each chunk under `torch.utils.checkpoint`, and with
+`cfg.remat` each cycle of the pattern recomputed in the backward pass, as
+the reference's `jax.remat(cycle)`.  `param_tree` gives the parameters in
+the reference's stacked layout (`repro_torch.tree`), the layout of the
+optimizer state and of checkpoints.
 
 Parameters keep the reference's dict keys as their names and its [in, out]
 layout, so `x @ p.wq` reads as the reference's `x @ p["wq"]`.  The cache
@@ -19,7 +24,9 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.act import constrain
 from repro_torch.kernels.common import resolve_device
@@ -31,6 +38,7 @@ from repro_torch.models.recurrent import (init_rglru, init_rglru_cache,
 from repro_torch.models.xlstm import (init_mlstm, init_mlstm_cache,
                                       init_slstm, init_slstm_cache,
                                       mlstm_block, slstm_block)
+from repro_torch.tree import Stacked
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -39,9 +47,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Params(nn.Module):
     """Parameters under the reference's dict keys: a tensor becomes a
-    parameter (no gradient: the port only serves), a nested dict a
-    submodule, so `moe.experts.w1` names what the reference keeps at
-    p["moe"]["experts"]["w1"]."""
+    trainable parameter, a nested dict a submodule, so `moe.experts.w1`
+    names what the reference keeps at p["moe"]["experts"]["w1"].  Serving
+    runs under `torch.inference_mode()` (`serve.ServeEngine`), so it
+    records no graph."""
 
     def __init__(self, tensors: Dict[str, Any]):
         super().__init__()
@@ -49,11 +58,17 @@ class Params(nn.Module):
             if isinstance(t, dict):
                 self.add_module(name, Params(t))
             else:
-                self.register_parameter(
-                    name, nn.Parameter(t, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(t))
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameters as the reference's nested dict."""
+        out: Dict[str, Any] = dict(self._parameters)
+        for name, mod in self._modules.items():
+            out[name] = mod.tree()
+        return out
 
 
 class Block(Params):
@@ -258,15 +273,13 @@ class LM(nn.Module):
             shape = (cfg.n_codebooks, cfg.vocab_size, cfg.d_model)
         else:
             shape = (cfg.vocab_size, cfg.d_model)
-        self.embed = nn.Parameter(L.normal(gen, shape, 0.02, dtype, device),
-                                  requires_grad=False)
+        self.embed = nn.Parameter(L.normal(gen, shape, 0.02, dtype, device))
         pattern = cfg.block_pattern
         self.blocks = nn.ModuleList(
             Block(kind, _INIT[kind](gen, cfg, dtype, device))
             for kind in (pattern[i % len(pattern)]
                          for i in range(cfg.n_layers)))
-        self.final_norm = nn.Parameter(L.vector(cfg.d_model, 1.0, device),
-                                       requires_grad=False)
+        self.final_norm = nn.Parameter(L.vector(cfg.d_model, 1.0, device))
         head = None
         if not cfg.tie_embeddings:
             if cfg.n_codebooks:
@@ -275,12 +288,41 @@ class LM(nn.Module):
             else:
                 head = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
                                     device)
-            head = nn.Parameter(head, requires_grad=False)
+            head = nn.Parameter(head)
         self.head = head
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The parameters in the reference's tree: {"blocks": one dict a
+        pattern position, each leaf a `Stacked` of that position's
+        parameter over the cycles; "embed"; "final_norm"; "head" where
+        untied; "rem": one dict a remainder layer}.  Its leaves are this
+        module's own parameters, so JAX's flatten order and paths hold for
+        the optimizer state and checkpoints built over it."""
+        cfg = self.cfg
+        period = len(cfg.block_pattern)
+        n_cyc = cfg.pattern_cycles
+
+        def stack(trees):
+            first = trees[0]
+            if isinstance(first, dict):
+                return {k: stack([t[k] for t in trees]) for k in first}
+            return Stacked(trees)
+
+        blocks = tuple(
+            stack([self.blocks[c * period + i].tree() for c in range(n_cyc)])
+            for i in range(period)) if n_cyc else ()
+        tree: Dict[str, Any] = {
+            "blocks": blocks, "embed": self.embed,
+            "final_norm": self.final_norm,
+            "rem": tuple(self.blocks[n_cyc * period + i].tree()
+                         for i in range(cfg.pattern_remainder))}
+        if self.head is not None:
+            tree["head"] = self.head
+        return tree
 
     # -- caches -----------------------------------------------------------------
 
@@ -322,23 +364,49 @@ class LM(nn.Module):
         The reference scans the pattern over the cycles and unrolls the
         remainder: a block reads its predecessor's unrounded sum
         (`layers.residual`) except where a scan iteration or the remainder
-        begins, whose input went through the scan's carry (rounded)."""
+        begins, whose input went through the scan's carry (rounded).  So
+        each cycle starts from the rounded stream, and with `cfg.remat`
+        (and a graph being recorded) a cycle is recomputed in the backward
+        pass, as the reference's `jax.remat(cycle)`."""
         cfg = self.cfg
         period = len(cfg.block_pattern)
         scanned = cfg.pattern_cycles * period
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat and caches is None and torch.is_grad_enabled()
+        for start in range(0, scanned, period):
+            layers = range(start, start + period)
+            if remat:
+                x, aux_total = checkpoint(self._cycle_carry, layers, x,
+                                          aux_total, positions,
+                                          use_reentrant=False)
+            else:
+                x, aux_total, _ = self._cycle(layers, x, aux_total, caches,
+                                              positions, pos0)
         x32 = None
-        for i, blk in enumerate(self.blocks):
-            if (i < scanned and i % period == 0) or i == scanned:
-                x32 = None
+        if cfg.pattern_remainder:
+            x, aux_total, x32 = self._cycle(range(scanned, cfg.n_layers), x,
+                                            aux_total, caches, positions,
+                                            pos0)
+        return x, aux_total, x32
+
+    def _cycle(self, layers, x, aux_total, caches, positions, pos0):
+        """The blocks `layers` in order from the rounded stream `x`:
+        (x, aux_total plus theirs, the last block's unrounded sum)."""
+        x32 = None
+        for i in layers:
+            blk = self.blocks[i]
             c_i = caches[i] if caches is not None else None
-            x, _, aux, x32 = apply_block(blk.kind, x, blk, cfg, c_i,
+            x, _, aux, x32 = apply_block(blk.kind, x, blk, self.cfg, c_i,
                                          positions, pos0, x32)
             if aux is not None:
                 aux_total = aux_total + aux
-        if not cfg.pattern_remainder:
-            x32 = None
         return x, aux_total, x32
+
+    def _cycle_carry(self, layers, x, aux_total, positions):
+        """One cycle without a cache: the scan's carry (x, aux_total)."""
+        x, aux_total, _ = self._cycle(layers, x, aux_total, None, positions,
+                                      None)
+        return x, aux_total
 
     # -- public entry points ------------------------------------------------------------
 
@@ -350,6 +418,71 @@ class LM(nn.Module):
                                  device=x.device).expand(b, s)
         x, aux, x32 = self._run_blocks(x, None, positions, None)
         return self._head(x, x32), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Chunked cross-entropy: the [B, S, V] logits are never whole in
+        memory.  The head product and the cross-entropy run per chunk of
+        256 positions, each recomputed in the backward pass (the
+        reference's `jax.remat` body), with float32 logits.
+
+        batch: {tokens [B, S(, n_cb)] int32, (patch_embeds [B, P, D])}.
+        Returns the float32 scalar mean negative log-likelihood of the
+        next token (over the codebooks' mean) plus 0.01 x the MoE
+        load-balance loss."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(tokens, batch.get("patch_embeds"))
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        x, aux, x32 = self._run_blocks(x, None, positions, None)
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps, x32)
+        if cfg.patch_prefix:
+            x = x[:, cfg.patch_prefix:]
+        x = x[:, :-1]
+        labels = tokens[:, 1:].long()
+        total, count = self.chunked_nll(x, labels)
+        return total / torch.clamp(count, min=1.0) + 0.01 * aux
+
+    def chunked_nll(self, x, labels):
+        """(sum of the next-token NLL, count of real positions) of hidden
+        states x [B, T, D] against labels [B, T(, n_cb)]: the head product
+        and the cross-entropy per chunk of 256 positions, each recomputed
+        in the backward pass (the reference's `jax.remat` body), the tail
+        chunk padded with zero weights."""
+        chunk = max(1, min(256, x.shape[1]))
+        n_chunk = -(-x.shape[1] // chunk)
+        pad = n_chunk * chunk - x.shape[1]
+        weights = torch.ones(x.shape[:2], dtype=torch.float32,
+                             device=x.device)
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, 0) * (labels.dim() - 2) + (0, pad))
+            weights = F.pad(weights, (0, pad))
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n_chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            total = total + checkpoint(self._chunk_nll, x[:, sl],
+                                       labels[:, sl], weights[:, sl],
+                                       use_reentrant=False)
+        return total, weights.sum()
+
+    def _chunk_nll(self, xc, lc, wc):
+        """Sum over a chunk of the weighted next-token NLL (float32)."""
+        cfg = self.cfg
+        if cfg.n_codebooks:
+            logits = torch.einsum("bsd,cdv->bscv", xc, self.head).float()
+            logits = constrain(logits, "dp", "tp", None, None)
+        else:
+            head = self.embed.T if cfg.tie_embeddings else self.head
+            logits = constrain((xc @ head).float(), "dp", "tp", None)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        nll = logz - gold
+        if cfg.n_codebooks:
+            nll = torch.mean(nll, dim=-1)
+        return torch.sum(nll * wc)
 
     def prefill(self, tokens, cache, patch_embeds=None):
         """Writes the cache; returns (last-token logits, cache)."""

@@ -987,3 +987,146 @@ def test_lm_bf16_card_matches_cpu(cuda, name):
         row[tok, 5] = orig
         spread = float((bumped - want[0]).abs().max())
         assert err <= spread, (err, spread)
+
+
+# -- LM training (phase 11's checks at smoke size) ------------------------------
+
+def _train_pair(name, cuda):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(configs.get_smoke(name), param_dtype="float32")
+    cpu = LM(cfg, device="cpu", seed=0)
+    gpu = LM(cfg, device="meta")
+    gpu.load_state_dict({k: v.to(cuda, copy=True) for k, v in
+                         cpu.state_dict().items()}, assign=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 20)).astype(np.int32))
+    return cfg, cpu, gpu, {"tokens": toks}
+
+
+def _grads(model, batch):
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss({k: v.to(model.device) for k, v in batch.items()})
+    loss.backward()
+    out = {n: p.grad.detach().float().cpu() for n, p in
+           model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), out
+
+
+@pytest.mark.parametrize("name", ["minicpm-2b", "xlstm-350m"])
+def test_train_step_card_matches_cpu(cuda, name):
+    """float32 (TF32 off), chip_smoke.py 11a's bars: the loss at 1e-5,
+    each gradient leaf, and the step's accumulated gradient (in mu),
+    within 1e-4 of its largest entry plus 1e-7 of the model's largest
+    (about one float32 ulp of it: xLSTM's input-gate biases are rounding
+    noise), and one make_train_step step (accum_steps=2) leaving each
+    parameter within 1e-5 plus lr x the difference of the two sides'
+    AdamW directions (mu/c1) / (sqrt(nu/c2) + eps): AdamW's first step
+    moves a weight by lr x g/(|g| + eps), which gradients within their
+    bar still move apart where |g| is near eps or of opposite sign."""
+    from repro_torch.train import AdamWConfig, make_init_state, \
+        make_train_step
+    from repro_torch.tree import leaves, members
+    cfg, cpu, gpu, batch = _train_pair(name, cuda)
+    lc, gc_ = _grads(cpu, batch)
+    lg, gg = _grads(gpu, batch)
+    assert abs(lg - lc) <= 1e-5 + 1e-5 * abs(lc)
+
+    def leaf_bars(tree):
+        top = max(float(g.abs().max()) for g in tree.values())
+        return {n: 1e-4 * float(g.abs().max()) + 1e-7 * top
+                for n, g in tree.items()}
+    for n, bar in leaf_bars(gc_).items():
+        assert float((gg[n] - gc_[n]).abs().max()) <= bar, n
+    opt = AdamWConfig(peak_lr=3e-4, warmup_steps=1, total_steps=10)
+    mus, dirs, lrs = [], [], []
+    for m in (cpu, gpu):
+        step = make_train_step(m, opt, accum_steps=2)
+        state, metrics = step(make_init_state(m, opt)(),
+                              {k: v.to(m.device) for k, v in batch.items()})
+        lrs.append(float(metrics["lr"]))
+        names = {id(p): n for n, p in m.named_parameters()}
+        mu_of, dir_of = {}, {}
+        for lp, lm, ln in zip(leaves(state["params"]),
+                              leaves(state["opt"]["mu"]),
+                              leaves(state["opt"]["nu"])):
+            for p, mu, nu in zip(members(lp), members(lm), members(ln)):
+                mu, nu = mu.cpu(), nu.cpu()
+                mu_of[names[id(p)]] = mu
+                dir_of[names[id(p)]] = (mu / (1 - opt.b1)) / (
+                    torch.sqrt(nu / (1 - opt.b2)) + opt.eps)
+        mus.append(mu_of)
+        dirs.append(dir_of)
+    assert lrs[0] == lrs[1]
+    lr = lrs[0]
+    for n, bar in leaf_bars(mus[0]).items():
+        assert float((mus[1][n] - mus[0][n]).abs().max()) <= bar, n
+    for (n, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        want = pc.detach()
+        d = (pg.detach().cpu() - want).abs()
+        tol = 1e-5 * (1 + want.abs()) + lr * (dirs[1][n] - dirs[0][n]).abs()
+        assert bool((d <= tol).all()), (n, float(d.max()))
+
+
+RESTART_SCRIPT = r"""
+import os, sys
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+import torch
+from repro_torch import configs
+from repro_torch.launch import train as lt
+from repro_torch.tree import leaves, members
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.use_deterministic_algorithms(True)
+cfg = configs.get_smoke("minicpm-2b")
+def run(ckpt, fail):
+    args = lt.build_parser().parse_args(
+        ["--arch", "minicpm-2b", "--smoke", "--steps", "8", "--batch", "4",
+         "--seq-len", "64", "--save-every", "4", "--ckpt-dir", ckpt,
+         "--device", "cuda"])
+    pending = {fail} if fail is not None else set()
+    def hook(step):
+        if step in pending:
+            pending.remove(step)
+            raise RuntimeError("injected")
+    return lt.train(args, failure_hook=hook)
+a = run(sys.argv[1] + "/a", 6)
+b = run(sys.argv[1] + "/b", None)
+assert a["restarts"] == 1 and b["restarts"] == 0, (a["restarts"], b["restarts"])
+first = {}
+replayed = 0
+for s, loss in a["history"]:
+    if s in first:
+        assert loss == first[s], (s, loss, first[s])
+        replayed += 1
+    first[s] = loss
+assert replayed == 2, a["history"]
+assert first == dict(b["history"])
+for la, lb in zip(leaves(a["state"]), leaves(b["state"])):
+    for x, y in zip(members(la), members(lb)):
+        assert (x == y) if isinstance(x, int) else torch.equal(x, y)
+print("RESTART-OK")
+"""
+
+
+def test_train_restart_loop_on_the_card(cuda, tmp_path):
+    """launch.train's loop at smoke size on the card, a failure injected at
+    step 6 with checkpoints every 4 steps, under deterministic algorithms
+    (in a subprocess: cuBLAS reads CUBLAS_WORKSPACE_CONFIG at its first
+    use): one restart, the replayed losses bit-equal to their first pass,
+    the final state equal to an uninterrupted run's."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    res = subprocess.run([sys.executable, "-c", RESTART_SCRIPT,
+                          str(tmp_path)], capture_output=True, text=True,
+                         timeout=600, env=env)
+    assert res.returncode == 0 and "RESTART-OK" in res.stdout, \
+        res.stderr[-3000:]

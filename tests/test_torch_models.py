@@ -175,14 +175,20 @@ def test_moe_drops_past_capacity():
 
 
 def test_act_hooks():
+    """Outside a context the hooks are the identity; inside one they
+    answer from the sharding rules, and a split over a mesh axis of more
+    than one device raises (tests/test_torch_train.py holds the rules)."""
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_mesh
     x = torch.ones(2)
     assert act.constrain(x, "dp") is x
     assert act.axis_size("tp") == 1 and act.is_serve() is False
-    with act.activation_sharding(object(), serve=True):
-        for call in (lambda: act.constrain(x, "dp"),
-                     lambda: act.axis_size("tp"), act.is_serve):
-            with pytest.raises(NotImplementedError):
-                call()
+    rules = ShardingRules(make_mesh((2, 1), ("data", "model")), "dp")
+    with act.activation_sharding(rules, serve=True):
+        assert act.axis_size("tp") == 1 and act.axis_size("dp") == 2
+        assert act.is_serve() is True
+        with pytest.raises(NotImplementedError):
+            act.constrain(x, "dp")
     assert act.axis_size("tp") == 1
 
 
