@@ -197,9 +197,42 @@ Phases (any failure exits non-zero before the last line is printed):
    first pass, the final state equal to an uninterrupted run's; the
    checkpoint's GB and its save and restore s.
 
+12. LM training over several ranks (repro_torch.dist.sharding's
+   placements, .dist.comm, .dist.pipeline, FSDP in .train), which
+   launches none of the kernels above either; ranks share the card over
+   gloo through `run_world`, as in phase 8.  12-0: which gloo
+   collectives take CPU and CUDA tensors in float32 and bf16, printed
+   only (a collective that kills a rank is recorded, the rest run in a
+   new world).  12a, in a (2, 1) world: minicpm-2b's and mixtral-8x7b's
+   float32 smoke configs (TF32 off, the MoE in two groups) on the card
+   against the same world on CPU tensors at 11a's bars (loss, the
+   gathered gradients, one make_train_step step with accum_steps=2), and
+   a 2-stage pipeline of the smoke blocks against their sequential loss
+   and gradients at the reference's bars (1e-5; rtol 1e-4, atol 1e-5).
+   12b, the same world: minicpm-2b at its published widths, 40 layers,
+   bf16, FSDP-DP through launch.train's `setup` and step (11b's AdamW,
+   its total_steps included), SyntheticTokens(seed=0) batches of 8 x
+   2048 (4 x 2048 a rank), 4 steps, each loss within 2e-2 of phase 11b's
+   same step (or of a one-device run of its first four steps here when
+   phase 12 runs alone) and its grad norm within 2e-2 relative; per step
+   s, tokens/s, the collectives' calls, bytes and host s (the host
+   copies apart) and their share of the step; each rank's peak.  The
+   restart loop's full-width checkpoints (2 x 32.7 GB) stay out of 12b;
+   12d runs the loop.  12c: a ("pod",) world of 4 ranks, the 40 blocks
+   in 4 stages of 10 (each block under a checkpoint, the model's remat),
+   the batch in 4 microbatches, the loss the final norm and the chunked
+   cross-entropy with the tied head, held within 2e-2 of the 40 blocks
+   run in sequence on rank 0; s a step, bytes a tick, each rank's peak.
+   12d, in a child process with cuBLAS's deterministic workspace (`--phases
+   12d`): launch.train's loop at the same widths cut to 2 layers in a
+   (2, 1) world, a checkpoint every 4 steps, a failure injected at step 6
+   on every rank: one restart, the replayed losses bit-equal; the world's
+   last checkpoint restored on one device and a checkpoint of the
+   gathered state restored onto the world, each bit for bit.
+
 Then one JSON line of kernel figures, one of the LM figures, one of the
-training figures, the card's name and power limit, and last {"ok": true,
-"device": {...}}.
+training figures, one of the multi-rank training figures, the card's
+name and power limit, and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --trace
 
@@ -211,9 +244,10 @@ give the end-to-end numbers.
 
     python3 chip_smoke.py --phases 10 [--trace]
     python3 chip_smoke.py --phases 11 [--trace]
+    python3 chip_smoke.py --phases 12
 
-run phase 1 and phase 10 (the LM serving path) or phase 11 (training)
-alone, for iterating; no kernels line.
+run phase 1 and phase 10 (the LM serving path), phase 11 (training) or
+phase 12 (training over ranks) alone, for iterating; no kernels line.
 """
 
 from __future__ import annotations
@@ -2986,6 +3020,9 @@ def lm_phase(torch, trace: bool) -> dict:
 
 # -- phase 11: LM training ----------------------------------------------------
 
+#: the device of phases 11c and 12 (a CPU rehearsal of their control
+#: flow sets "cpu")
+CARD = "cuda"
 TRAIN_ARCH = "minicpm-2b"
 # 11a: every architecture's smoke config, one train step card against CPU
 TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_LR = 4, 20, 3e-4
@@ -3068,6 +3105,72 @@ def _leaf_bars(grads: dict) -> dict:
             + TRAIN_NOISE_FLOOR * top for n, g in grads.items()}
 
 
+def _hold_step(torch, bars, label, err, gc, gg, sc, sg) -> dict:
+    """11a's bars on one float32 model, CPU against card: every gradient
+    leaf ({name: tensor}, gc / gg) within 1e-4 of its largest entry plus
+    the floor; one make_train_step step's results (`_one_step`'s tuples,
+    sc / sg): loss at 1e-5, the lr equal, mu at the gradient bar, each
+    stepped weight at 1e-5 plus lr x the two sides' AdamW directions'
+    difference.  `err` is the loss's |d|.  Returns the figures."""
+    bar = _leaf_bars(gc)
+    worst = 0.0
+    for n, g in gc.items():
+        e = float((gg[n].float().cpu() - g.float()).abs().max())
+        worst = max(worst, e / max(bar[n], 1e-30))
+        if e > bar[n]:
+            bars.check(False, f"{label} grad {n}: |d| "
+                              f"{e:.3e} > {bar[n]:.3e}")
+    ok_l, e_l = _within(torch.tensor(sg[0]), torch.tensor(sc[0]),
+                        TRAIN_TOL["loss"])
+    bars.check(sg[2] == sc[2], f"{label} step lr "
+                               f"{sg[2]!r} against {sc[2]!r}")
+    # the step's accumulated gradient (in mu) at the gradient bar
+    mu_bar = _leaf_bars(sc[4])
+    mu_worst = 0.0
+    for n, mu in sc[4].items():
+        e = float((sg[4][n] - mu).abs().max())
+        mu_worst = max(mu_worst, e / max(mu_bar[n], 1e-30))
+        if e > mu_bar[n]:
+            bars.check(False, f"{label} step mu {n}: |d| "
+                              f"{e:.3e} > {mu_bar[n]:.3e}")
+    lr = sc[2]
+    p_worst, n_apart, n_flip, a_worst, a_over = 0.0, 0, 0, 0.0, 0.0
+    for n, p in sc[3].items():
+        d = (sg[3][n] - p).abs()
+        base = TRAIN_TOL["param"] * (1 + p.abs())
+        spread = lr * (sg[5][n] - sc[5][n]).abs()
+        apart = spread > TRAIN_TOL["param"]
+        n_apart += int(apart.sum())
+        n_flip += int((torch.sign(sg[4][n]) !=
+                       torch.sign(sc[4][n])).sum())
+        p_worst = max(p_worst, float(
+            torch.where(apart, 0.0, d).max()))
+        if bool(apart.any()):
+            a_worst = max(a_worst, float(d[apart].max()))
+            a_over = max(a_over, float(
+                (d - spread)[apart].max()))
+        if not bool((d <= base + spread).all()):
+            bars.check(False, f"{label} stepped {n}: |d| "
+                              f"{float(d.max()):.3e} beyond "
+                              f"1e-5 + lr x direction spread")
+    bars.check(ok_l and worst <= 1.0 and mu_worst <= 1.0,
+               f"{label}: loss |d| {err:.3e}, grads at "
+               f"{worst:.3f} of their bars, step loss |d| "
+               f"{e_l:.3e}, step mu at {mu_worst:.3f} of the "
+               f"gradient bar, stepped params max |d| "
+               f"{p_worst:.3e} (bar 1e-5) where the two AdamW "
+               f"directions agree to 1e-5/lr; {n_apart} weights "
+               f"where they differ more ({n_flip} step "
+               f"gradients of opposite sign): max |d| "
+               f"{a_worst:.3e}, at most {a_over:.3e} beyond "
+               f"lr x the direction difference (bar 1e-5), "
+               f"grad_norm {sg[1]:.5f} / {sc[1]:.5f}")
+    return dict(loss_err=err, grad_share_of_bar=worst,
+                mu_share_of_bar=mu_worst, param_err=p_worst,
+                direction_apart=n_apart, sign_flips=n_flip,
+                apart_param_err=a_worst, apart_beyond_spread=a_over)
+
+
 def train_smoke_phase(torch, bars) -> dict:
     """11a: every architecture at its smoke size, one seeded CPU init
     copied to the card: LM.loss, every gradient and one make_train_step
@@ -3103,66 +3206,11 @@ def train_smoke_phase(torch, bars) -> dict:
             else:
                 ok, err = _within(lg, lc, TRAIN_TOL["loss"])
                 bars.check(ok, f"11a {label} loss: |d| {err:.3e} (bar 1e-5)")
-                bar = _leaf_bars(gc)
-                worst = 0.0
-                for n, g in gc.items():
-                    e = float((gg[n].float().cpu() - g.float()).abs().max())
-                    worst = max(worst, e / max(bar[n], 1e-30))
-                    if e > bar[n]:
-                        bars.check(False, f"11a {label} grad {n}: |d| "
-                                          f"{e:.3e} > {bar[n]:.3e}")
-                sc = _one_step(torch, cpu, batch, TRAIN_SMOKE_LR)
-                sg = _one_step(torch, gpu, batch, TRAIN_SMOKE_LR)
-                ok_l, e_l = _within(torch.tensor(sg[0]), torch.tensor(sc[0]),
-                                    TRAIN_TOL["loss"])
-                bars.check(sg[2] == sc[2], f"11a {label} step lr "
-                                           f"{sg[2]!r} against {sc[2]!r}")
-                # the step's accumulated gradient (in mu) at the gradient bar
-                mu_bar = _leaf_bars(sc[4])
-                mu_worst = 0.0
-                for n, mu in sc[4].items():
-                    e = float((sg[4][n] - mu).abs().max())
-                    mu_worst = max(mu_worst, e / max(mu_bar[n], 1e-30))
-                    if e > mu_bar[n]:
-                        bars.check(False, f"11a {label} step mu {n}: |d| "
-                                          f"{e:.3e} > {mu_bar[n]:.3e}")
-                lr = sc[2]
-                p_worst, n_apart, n_flip, a_worst, a_over = 0.0, 0, 0, 0.0, 0.0
-                for n, p in sc[3].items():
-                    d = (sg[3][n] - p).abs()
-                    base = TRAIN_TOL["param"] * (1 + p.abs())
-                    spread = lr * (sg[5][n] - sc[5][n]).abs()
-                    apart = spread > TRAIN_TOL["param"]
-                    n_apart += int(apart.sum())
-                    n_flip += int((torch.sign(sg[4][n]) !=
-                                   torch.sign(sc[4][n])).sum())
-                    p_worst = max(p_worst, float(
-                        torch.where(apart, 0.0, d).max()))
-                    if bool(apart.any()):
-                        a_worst = max(a_worst, float(d[apart].max()))
-                        a_over = max(a_over, float(
-                            (d - spread)[apart].max()))
-                    if not bool((d <= base + spread).all()):
-                        bars.check(False, f"11a {label} stepped {n}: |d| "
-                                          f"{float(d.max()):.3e} beyond "
-                                          f"1e-5 + lr x direction spread")
-                bars.check(ok_l and worst <= 1.0 and mu_worst <= 1.0,
-                           f"11a {label}: loss |d| {err:.3e}, grads at "
-                           f"{worst:.3f} of their bars, step loss |d| "
-                           f"{e_l:.3e}, step mu at {mu_worst:.3f} of the "
-                           f"gradient bar, stepped params max |d| "
-                           f"{p_worst:.3e} (bar 1e-5) where the two AdamW "
-                           f"directions agree to 1e-5/lr; {n_apart} weights "
-                           f"where they differ more ({n_flip} step "
-                           f"gradients of opposite sign): max |d| "
-                           f"{a_worst:.3e}, at most {a_over:.3e} beyond "
-                           f"lr x the direction difference (bar 1e-5), "
-                           f"grad_norm {sg[1]:.5f} / {sc[1]:.5f}")
-                fig.update(loss_err=err, grad_share_of_bar=worst,
-                           mu_share_of_bar=mu_worst, param_err=p_worst,
-                           direction_apart=n_apart, sign_flips=n_flip,
-                           apart_param_err=a_worst,
-                           apart_beyond_spread=a_over)
+                fig.update(_hold_step(torch, bars, f"11a {label}", err, gc, gg,
+                                      _one_step(torch, cpu, batch,
+                                                TRAIN_SMOKE_LR),
+                                      _one_step(torch, gpu, batch,
+                                                TRAIN_SMOKE_LR)))
             fig["s"] = time.perf_counter() - t0
             figures[label] = fig
             del cpu, gpu
@@ -3430,7 +3478,7 @@ def _restart_run(torch, cfg, ckpt, fail_at):
         ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_RESTART_STEPS),
          "--batch", str(TRAIN_B), "--seq-len", str(TRAIN_S),
          "--save-every", str(TRAIN_SAVE_EVERY), "--ckpt-dir", str(ckpt),
-         "--seed", "0", "--device", "cuda"])
+         "--seed", "0", "--device", CARD])
     pending = {fail_at} if fail_at is not None else set()
 
     def hook(step):
@@ -3538,23 +3586,23 @@ def train_restart_phase(torch, out_dir, bars) -> dict:
             "deterministic_fallback": det_reason, "state_max_abs": worst}
 
 
-def restart_child(out_dir, bars) -> dict:
-    """11c in a child process (`--phases 11c`) with cuBLAS's
-    deterministic workspace; its lines are relayed, its failed checks
-    added to `bars`."""
+def child_phase(phase: str, tag: str, bars) -> dict:
+    """Phase `phase` (11c or 12d) in a child process (`--phases phase`)
+    with cuBLAS's deterministic workspace; its lines are relayed, its
+    failed checks added to `bars`; returns its figures."""
     res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--phases", "11c"], capture_output=True,
+                          "--phases", phase], capture_output=True,
                          text=True, timeout=900)
     result = None
     for line in res.stdout.splitlines():
-        if line.startswith(RESTART_TAG):
-            result = json.loads(line[len(RESTART_TAG):])
+        if line.startswith(tag):
+            result = json.loads(line[len(tag):])
         else:
             log(line)
     sys.stderr.write(res.stderr)          # the restart manager's own line
     if res.returncode != 0 or result is None:
         log(res.stderr[-4000:])
-        raise RuntimeError(f"11c's child process failed (exit "
+        raise RuntimeError(f"{phase}'s child process failed (exit "
                            f"{res.returncode})")
     for what in result["failed"]:
         bars.failed.append(what)
@@ -3570,28 +3618,674 @@ def train_phase(torch, trace: bool, out_dir) -> dict:
     out = {"smoke": train_smoke_phase(torch, bars)}
     log(f"11a in {time.perf_counter() - t0:.1f} s")
     out["full"] = train_full_phase(torch, trace, bars)
-    out["restart"] = restart_child(out_dir, bars)
+    out["restart"] = child_phase("11c", RESTART_TAG, bars)
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase 11 in {out['phase_s']:.1f} s")
     bars.raise_if_failed("phase 11")
     return out
 
 
+# -- phase 12: LM training over several ranks ---------------------------------
+
+DIST_RANKS = 2                 # 12-0, 12a, 12b: a (2, 1) world on the card
+DIST_STEPS = 4                 # 12b: held to the one-device run's first four
+DIST_TOL = 2e-2                # 12b/12c: losses; 12b's grad norm, relative
+PIPE_RANKS, PIPE_MICRO = 4, 4  # 12c: a ("pod",) world, 4 stages of 10
+PIPE_TOL = {"loss": 1e-5, "rtol": 1e-4, "atol": 1e-5}   # 12a's pipeline
+DIST_TAG = "12d-result: "
+PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "broadcast", "all_to_all_single", "batch_isend_irecv")
+PROBE_TIMEOUT_S = 60
+
+
+def _probe_one(torch, dist, grp, dev, dtype, op) -> str:
+    """One gloo collective on two small tensors: "ok", "wrong result" or
+    the error's first line."""
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.full((n * 4,), float(r + 1), dtype=dtype, device=dev)
+    try:
+        if op == "all_reduce":
+            dist.all_reduce(x, group=grp)
+            ok = float(x[0]) == n * (n + 1) / 2
+        elif op == "all_gather_into_tensor":
+            o = torch.empty(n * n * 4, dtype=dtype, device=dev)
+            dist.all_gather_into_tensor(o, x, group=grp)
+            ok = float(o[-1]) == n
+        elif op == "reduce_scatter_tensor":
+            o = torch.empty(4, dtype=dtype, device=dev)
+            dist.reduce_scatter_tensor(o, x, group=grp)
+            ok = float(o[0]) == n * (n + 1) / 2
+        elif op == "broadcast":
+            dist.broadcast(x, 0, group=grp)
+            ok = float(x[0]) == 1
+        elif op == "all_to_all_single":
+            o = torch.empty_like(x)
+            dist.all_to_all_single(o, x, group=grp)
+            ok = float(o[-1]) == n
+        else:
+            o = torch.empty_like(x)
+            for w in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (r + 1) % n, grp),
+                    dist.P2POp(dist.irecv, o, (r - 1) % n, grp)]):
+                w.wait()
+            ok = float(o[0]) == (r - 1) % n + 1
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return "ok" if ok else "wrong result"
+    except Exception as e:        # recorded: what the probe is for
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+
+
+def probe_rank(rank: int, cases: list, progress: str) -> None:
+    """12-0 on a rank: each (dtype, op) of `cases` on CUDA tensors, on a
+    new group with a short timeout.  Rank 0 writes each case's name to
+    `progress` before it runs and its result after, so the results of a
+    world that a collective kills are kept and the case that killed it
+    is known."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    for dtype, op in cases:
+        key = f"{dtype} {op}"
+        if rank == 0:
+            with open(progress, "a") as f:
+                f.write(key + "\n")
+        # a group of its own: a refused op can leave its group's
+        # connections broken for the ops after it
+        grp = dist.new_group(list(range(dist.get_world_size())),
+                             timeout=datetime.timedelta(
+                                 seconds=PROBE_TIMEOUT_S))
+        res = _probe_one(torch, dist, grp, CARD, getattr(torch, dtype), op)
+        if rank == 0:
+            with open(progress, "a") as f:
+                f.write(f"{key}\t{res}\n")
+        dist.barrier()
+
+
+def probe_phase(out_dir) -> dict:
+    """12-0: which gloo collectives take CUDA tensors, in float32 and
+    bf16, in (2, 1) worlds on the card, the point-to-point ones last.  A
+    collective that kills a rank is recorded and the cases after it run
+    in a new world.  Printed only: the port's path stages CUDA tensors
+    through the host."""
+    from repro_torch.dist.world import run_world
+    ops = [op for op in PROBE_OPS if op != "batch_isend_irecv"]
+    cases = [(dtype, op) for op in ops + ["batch_isend_irecv"]
+             for dtype in ("float32", "bfloat16")]
+    progress = out_dir / "probe_progress.txt"
+    out = {}
+    while cases:
+        progress.unlink(missing_ok=True)
+        died = None
+        try:
+            run_world(probe_rank, DIST_RANKS, device=CARD,
+                      store_dir=str(out_dir / "world12p"),
+                      args=(cases, str(progress)))
+        except RuntimeError as e:
+            died = "the rank died: " + str(e).splitlines()[0][:100]
+        lines = progress.read_text().splitlines() if progress.exists() \
+            else []
+        started = [ln for ln in lines if "\t" not in ln]
+        for ln in lines:
+            if "\t" in ln:
+                key, res = ln.split("\t", 1)
+                out[key] = res
+        if died is None:
+            break
+        if not started or started[-1] in out:
+            raise RuntimeError(f"12-0's world failed before a probe: {died}")
+        out[started[-1]] = died
+        cases = cases[len(started):]
+    return out
+
+
+def _named(model, tree) -> dict:
+    """{parameter name: float32 CPU tensor} of a whole tree in the
+    model's layout (a Stacked leaf member by member)."""
+    from repro_torch.tree import leaves, members
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {}
+    for own, leaf in zip(leaves(model.param_tree()), leaves(tree)):
+        for o, t in zip(members(own), members(leaf)):
+            out[names[id(o)]] = t.detach().float().cpu()
+    return out
+
+
+def _dist_smoke_side(torch, cfg, batch, dev) -> tuple:
+    """One side of 12a on this world: (loss, {name: gathered grad}, the
+    step tuple of `_one_step`: one make_train_step step with accum 2)."""
+    from repro_torch.dist import act
+    from repro_torch.dist.sharding import (ShardingRules, batch_shardings,
+                                           gather, param_shardings, reshard)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import (_batch_axes, _value_and_grad,
+                                              bind_params)
+    cpu = LM(cfg, device="cpu", seed=0)
+    model = LM(cfg, device="meta")
+    model.load_state_dict({k: v.to(dev, copy=True) for k, v in
+                           cpu.state_dict().items()}, assign=True)
+    rules = ShardingRules(make_host_mesh(device=dev), "dp")
+    sh = param_shardings(rules, model.param_tree())
+
+    def placed_batch():
+        b = {k: v.to(dev) for k, v in batch.items()}
+        return reshard(b, batch_shardings(rules, b))
+    params = reshard(model.param_tree(), sh)
+    bind_params(model, params)
+    b = placed_batch()
+    with act.activation_sharding(rules):
+        loss, grads = _value_and_grad(model, params, b, *_batch_axes(b))
+    grads = _named(model, gather(grads))
+    opt = AdamWConfig(peak_lr=TRAIN_SMOKE_LR, warmup_steps=1, total_steps=10)
+    params = reshard(model.param_tree(), sh)
+    state = {"params": params, "opt": adamw_init(params)}
+    step = make_train_step(model, opt, accum_steps=2)
+    with act.activation_sharding(rules):
+        state, m = step(state, placed_batch())
+    whole = gather(state)
+    mus = _named(model, whole["opt"]["mu"])
+    nus = _named(model, whole["opt"]["nu"])
+    dirs = {n: (mus[n] / (1 - opt.b1)) / (torch.sqrt(nus[n] / (1 - opt.b2))
+                                          + opt.eps) for n in mus}
+    return (float(loss), grads,
+            (float(m["loss"]), float(m["grad_norm"]), float(m["lr"]),
+             _named(model, whole["params"]), mus, dirs))
+
+
+def _dist_pipeline_smoke(torch) -> dict:
+    """12a's pipeline: minicpm-2b's float32 smoke blocks in 2 stages on
+    the card, each block under a checkpoint, against the same blocks in
+    sequence: the losses and every block gradient's worst |d| over its
+    bar (atol + rtol x |want|)."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch import configs
+    from repro_torch.dist import comm
+    from repro_torch.dist.pipeline import make_pipelined_loss
+    from repro_torch.dist.sharding import Placement, reshard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import ParamView, apply_block
+    from repro_torch.tree import leaves, tree_map
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    dev = torch.device(CARD)
+    cfg = dataclasses.replace(configs.get_smoke(TRAIN_ARCH),
+                              param_dtype="float32")
+    model = LM(cfg, device=dev, seed=0)
+    per, kind = cfg.n_layers // n, model.blocks[0].kind
+    mesh = make_mesh((n,), ("pod",), [dev] * n)
+    toks = _train_batch(torch, cfg, TRAIN_SMOKE_B, TRAIN_SMOKE_S)[
+        "tokens"].to(dev)
+    labels = toks[:, 1:].long()
+    x = model._embed(toks).detach()
+
+    def run(p, h, j):
+        pos = torch.arange(h.shape[1], dtype=torch.int32,
+                           device=dev).expand(h.shape[0], h.shape[1])
+        return apply_block(kind, h, ParamView(tree_map(lambda v: v[j], p)),
+                           cfg, None, pos, None)[0]
+
+    def stage_fn(p, h):
+        for j in range(per):
+            h = checkpoint(run, p, h, j, use_reentrant=False)
+        return h
+
+    def loss_fn(out, labels):
+        hn = L.rmsnorm(out, model.final_norm, cfg.norm_eps)
+        total, count = model.chunked_nll(hn[:, :-1], labels)
+        return total / count
+    trees = [model.blocks[i].tree() for i in range(cfg.n_layers)]
+    stacked = tree_map(lambda *vs: torch.stack(vs).detach().reshape(
+        (n, per) + tuple(vs[0].shape)), *trees)
+    placed = reshard(stacked, tree_map(lambda v: Placement(
+        mesh, ("pod",) + (None,) * (v.dim() - 1)), stacked))
+    for v in leaves(placed):
+        v.requires_grad_(True)
+    lp = make_pipelined_loss(mesh, stage_fn, loss_fn, "pod",
+                             n_micro=2)(placed, x, labels)
+    lp.backward()
+    got = [comm.all_gather(v.grad, 0, None, n).reshape(
+        (cfg.n_layers,) + tuple(v.shape[2:])) for v in leaves(placed)]
+    whole = tree_map(lambda v: v.reshape((cfg.n_layers,) + tuple(v.shape[2:]))
+                     .clone().requires_grad_(True), stacked)
+    h = x
+    for i in range(cfg.n_layers):
+        h = run(whole, h, i)
+    ls = loss_fn(h, labels)
+    ls.backward()
+    worst = max(float(((g - w.grad).abs() / (PIPE_TOL["atol"] + PIPE_TOL[
+        "rtol"] * w.grad.abs())).max()) for g, w in zip(got, leaves(whole)))
+    return {"loss_pipelined": float(lp.detach()),
+            "loss_sequential": float(ls.detach()), "grad_worst": worst,
+            "leaves": len(got)}
+
+
+def _dist_full(torch) -> dict:
+    """12b on this rank: launch.train's set-up and step at minicpm-2b's
+    published widths (11b's AdamW, its total_steps included), DIST_STEPS
+    steps of the global batch of 8 x 2048: per step the loss, grad norm,
+    s and the collectives' calls, bytes, host s and copy s; this rank's
+    peak."""
+    import torch.distributed as dist
+    from repro_torch.dist import comm
+    from repro_torch.launch import train as ltrain
+    # --steps sets only the schedule's total_steps (11b's): the loop
+    # below runs DIST_STEPS of it
+    args = ltrain.build_parser().parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+         str(TRAIN_B), "--seq-len", str(TRAIN_S), "--seed", "0",
+         "--device", CARD])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comm.reset_stats()
+    run = ltrain.setup(args)
+    torch.cuda.synchronize()
+    setup = {"s": time.perf_counter() - t0, "collective_s":
+             comm.STATS["seconds"]}
+    state, rows = run["state"], []
+    for i in range(DIST_STEPS):
+        batch = run["data"](i)
+        torch.cuda.synchronize()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        state, m = run["step"](state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        rows.append({"step": i + 1, "loss": loss, "grad_norm": gn,
+                     "lr": float(m["lr"]), "s": time.perf_counter() - t0,
+                     **{f"collective_{k}": v for k, v in
+                        comm.STATS.items()}})
+    peaks = [torch.zeros(1, dtype=torch.float64)
+             for _ in range(dist.get_world_size())]
+    dist.all_gather(peaks, torch.tensor(
+        [torch.cuda.max_memory_allocated() / 1e9], dtype=torch.float64))
+    n_params = sum(p.numel() for p in run["model"].parameters())
+    del run, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "peaks_gb": [float(p) for p in peaks],
+            "setup": setup, "n_params": n_params}
+
+
+def dist_rank(rank: int) -> dict:
+    """A rank of phase 12's (2, 1) world on the card: 12a, then 12b."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve as lserve
+    lserve.set_numerics()
+    out = {"smoke": {}}
+    for name in ("minicpm-2b", "mixtral-8x7b"):
+        cfg = dataclasses.replace(configs.get_smoke(name),
+                                  param_dtype="float32")
+        batch = _train_batch(torch, cfg, TRAIN_SMOKE_B, TRAIN_SMOKE_S)
+        out["smoke"][name] = {dev: _dist_smoke_side(torch, cfg, batch, dev)
+                              for dev in ("cpu", CARD)}
+    out["pipeline"] = _dist_pipeline_smoke(torch)
+    out["full"] = _dist_full(torch)
+    return out
+
+
+def pipe_rank(rank: int) -> dict:
+    """12c on a rank of a ("pod",) world of PIPE_RANKS on the card:
+    minicpm-2b at its published widths drawn from the seed, this rank's
+    stage of 40 / PIPE_RANKS blocks stacked and placed P("pod"), the
+    global batch of 8 x 2048 in PIPE_MICRO microbatches, the loss the
+    final norm and the chunked cross-entropy with the tied head; one
+    forward and backward.  Rank 0 then runs the 40 blocks in sequence
+    (no grad) for the loss it is held to."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist import comm
+    from repro_torch.dist.pipeline import make_pipelined_loss
+    from repro_torch.dist.sharding import Placement, with_placement
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import ParamView, apply_block
+    from repro_torch.tree import leaves, tree_map
+    lserve.set_numerics()
+    dev = torch.device(CARD)
+    cfg = configs.get(TRAIN_ARCH)
+    model = LM(cfg, device=dev, seed=0)
+    per = cfg.n_layers // PIPE_RANKS
+    mesh = make_mesh((PIPE_RANKS,), ("pod",), [dev] * PIPE_RANKS)
+    trees = [model.blocks[i].tree()
+             for i in range(rank * per, (rank + 1) * per)]
+
+    def stage_leaf(*vs):
+        t = torch.stack([v.detach() for v in vs]).unsqueeze(0)
+        return with_placement(t.requires_grad_(True), Placement(
+            mesh, ("pod",) + (None,) * (t.dim() - 1)))
+    params = tree_map(stage_leaf, *trees)
+    del trees
+    if rank != 0:
+        del model.blocks        # this rank's stage is its own copy
+        gc.collect()
+        torch.cuda.empty_cache()
+    toks = SyntheticTokens(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0,
+                           device=dev)(0)["tokens"]
+    labels = toks[:, 1:].long()
+    with torch.no_grad():
+        x = model._embed(toks)
+
+    def run(p, h, j):
+        pos = torch.arange(h.shape[1], dtype=torch.int32,
+                           device=dev).expand(h.shape[0], h.shape[1])
+        return apply_block("attn", h, ParamView(tree_map(lambda v: v[j], p)),
+                           cfg, None, pos, None)[0]
+
+    def stage_fn(p, h):
+        for j in range(per):      # the model's remat: a cycle is a block
+            h = checkpoint(run, p, h, j, use_reentrant=False)
+        return h
+
+    def loss_fn(out, labels):
+        hn = L.rmsnorm(out, model.final_norm, cfg.norm_eps)
+        total, count = model.chunked_nll(hn[:, :-1], labels)
+        return total / count
+    pipe = make_pipelined_loss(mesh, stage_fn, loss_fn, "pod",
+                               n_micro=PIPE_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    dist.barrier()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    loss = pipe(params, x, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    stats = dict(comm.STATS)
+    peaks = [torch.zeros(1, dtype=torch.float64) for _ in range(PIPE_RANKS)]
+    dist.all_gather(peaks, torch.tensor(
+        [torch.cuda.max_memory_allocated() / 1e9], dtype=torch.float64))
+    out = {"loss": float(loss.detach()), "s": step_s, "collectives": stats,
+           "peaks_gb": [float(p) for p in peaks],
+           "grads_finite": all(bool(torch.isfinite(v.grad).all())
+                               for v in leaves(params))}
+    del loss, params
+    gc.collect()
+    if rank == 0:
+        with torch.no_grad():
+            pos = torch.arange(TRAIN_S, dtype=torch.int32,
+                               device=dev).expand(TRAIN_B, TRAIN_S)
+            h = x
+            for blk in model.blocks:
+                h = apply_block(blk.kind, h, blk, cfg, None, pos, None)[0]
+            out["loss_sequential"] = float(loss_fn(h, labels))
+    return out
+
+
+def restart_rank(rank: int, root: str) -> dict:
+    """12d on a rank of a (2, 1) world on the card (cuBLAS's
+    deterministic workspace set before CUDA started, deterministic
+    algorithms): launch.train's loop at 11b's widths cut to 2 layers, a
+    checkpoint every 4 steps, a failure injected at step 6 on every rank;
+    then the final state gathered, the world's last checkpoint restored
+    on one device, and a checkpoint of the whole state (what one device
+    writes) restored onto the world's placements, both bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.dist.sharding import gather
+    from repro_torch.launch import serve as lserve
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.tree import leaves, members
+    lserve.set_numerics()
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              n_layers=TRAIN_RESTART_LAYERS)
+    root = Path(root)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        a = _restart_run(torch, cfg, root / "world", TRAIN_FAIL_AT)
+        run_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    def same(x, y):
+        return all(torch.equal(p, q) if isinstance(p, torch.Tensor)
+                   else p == q for lx, ly in zip(leaves(x), leaves(y))
+                   for p, q in zip(members(lx), members(ly)))
+    whole = gather(a["state"])
+    last = ck.latest_step(str(root / "world"))
+    out = {"restarts": a["restarts"], "steps": a["steps"],
+           "history": a["history"], "run_s": run_s, "last": last}
+    if rank == 0:
+        t0 = time.perf_counter()
+        got, step = ck.restore_checkpoint(str(root / "world"),
+                                          ck.spec_of(whole))
+        out["world_to_one_device"] = bool(step == last and same(got, whole))
+        out["restore_one_device_s"] = time.perf_counter() - t0
+        del got
+    t0 = time.perf_counter()
+    path = ck.save_checkpoint(str(root / "one"), last, whole)
+    out["save_whole_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = ck.restore_checkpoint(str(root / "one"), ck.spec_of(a["state"]),
+                                    a["shardings"])
+    out["restore_placed_s"] = time.perf_counter() - t0
+    flag = torch.tensor([int(same(gather(back), whole))])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    out["one_device_to_world"] = bool(flag.item())
+    if rank == 0:
+        data = [Path(p) / "data.msgpack" for p in
+                (path, root / "world" / f"step_{last:010d}")]
+        out["same_files"] = data[0].read_bytes() == data[1].read_bytes()
+        out["ckpt_gb"] = data[0].stat().st_size / 1e9
+    return out
+
+
+def _one_device_steps(torch) -> list:
+    """12b's reference where phase 11b did not run: 11b's run on one
+    device (its AdamW, total_steps included), DIST_STEPS steps."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import LM
+    from repro_torch.train import make_init_state, make_train_step
+    lserve.set_numerics()
+    cfg = configs.get(TRAIN_ARCH)
+    opt_cfg = ltrain.opt_config(ltrain.build_parser().parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS)]))
+    model = LM(cfg, device=CARD, seed=0)
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0,
+                           device=model.device)
+    state = make_init_state(model, opt_cfg)()
+    step = make_train_step(model, opt_cfg)
+    rows = []
+    for i in range(DIST_STEPS):
+        state, m = step(state, data(i))
+        rows.append({"step": i + 1, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])})
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dist_phase(torch, out_dir, one_device) -> dict:
+    """Phase 12: 12-0's probes, then 12a and 12b in a (2, 1) world of ranks
+    sharing the card, 12c in a ("pod",) world of PIPE_RANKS, 12d in a child
+    process;
+    `one_device` is phase 11b's rows (None: run the first DIST_STEPS of it
+    here).  Raises at its end if any check failed."""
+    from repro_torch import configs
+    from repro_torch.dist.world import choose_backend, run_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    bars = Bars()
+    t_phase = time.perf_counter()
+    if one_device is None:
+        t0 = time.perf_counter()
+        one_device = _one_device_steps(torch)
+        log(f"12b's one-device reference ({DIST_STEPS} steps of 11b): "
+            f"{time.perf_counter() - t0:.1f} s")
+    log(f"12: {DIST_RANKS} ranks on {torch.cuda.device_count()} card(s) "
+        f"over {choose_backend('cuda', DIST_RANKS)}")
+    t0 = time.perf_counter()
+    probe = probe_phase(out_dir)
+    log(f"12-0 gloo probes in {time.perf_counter() - t0:.1f} s")
+    for k, v in probe.items():
+        log(f"  12-0 gloo on CUDA tensors, {k}: {v}")
+    t0 = time.perf_counter()
+    with MemoryPoll() as mem:
+        res = run_world(dist_rank, DIST_RANKS, device=CARD,
+                        store_dir=str(out_dir / "world12"), threads=4)
+    out = {"world_s": time.perf_counter() - t0, "smi_peak_mib": mem.peak_mib}
+
+    out["probe"] = probe
+
+    # 12a: the smoke configs, the world on the card against the world on
+    # CPU tensors, at 11a's bars; the 2-stage pipeline at the reference's
+    out["smoke"] = {}
+    for name, sides in res["smoke"].items():
+        (lc, gcpu, sc), (lg, gcard, sg) = sides["cpu"], sides[CARD]
+        ok, err = _within(torch.tensor(lg), torch.tensor(lc),
+                          TRAIN_TOL["loss"])
+        bars.check(ok, f"12a {name} float32 (2, 1) world: loss {lg:.6f} "
+                       f"against {lc:.6f} on CPU tensors, |d| {err:.3e} "
+                       f"(bar 1e-5)")
+        out["smoke"][name] = _hold_step(torch, bars, f"12a {name} float32",
+                                        err, gcpu, gcard, sc, sg)
+    p = res["pipeline"]
+    d = abs(p["loss_pipelined"] - p["loss_sequential"])
+    bars.check(d <= PIPE_TOL["loss"] and p["grad_worst"] <= 1.0,
+               f"12a 2-stage pipeline of {TRAIN_ARCH}'s smoke blocks: loss "
+               f"{p['loss_pipelined']:.6f} against {p['loss_sequential']:.6f}"
+               f" in sequence, |d| {d:.3e} (bar 1e-5); {p['leaves']} "
+               f"gradient leaves at {p['grad_worst']:.3f} of rtol 1e-4 + "
+               f"atol 1e-5")
+    out["pipeline_smoke"] = p
+
+    # 12b: minicpm-2b at its published widths, FSDP-DP on (2, 1)
+    f = res["full"]
+    tokens = TRAIN_B * TRAIN_S
+    log(f"12b {TRAIN_ARCH}: {f['n_params']:,} parameters, FSDP-DP over "
+        f"{DIST_RANKS} ranks, global batch {TRAIN_B} x {TRAIN_S}; set-up "
+        f"{f['setup']['s']:.2f} s (draw, slice, moments)")
+    for r, want in zip(f["rows"], one_device):
+        dl = abs(r["loss"] - want["loss"])
+        dg = abs(r["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+        bars.check(dl <= DIST_TOL and dg <= DIST_TOL,
+                   f"12b step {r['step']}: loss {r['loss']:.5f} against "
+                   f"{want['loss']:.5f} on one device (|d| {dl:.2e}, bar "
+                   f"2e-2), grad_norm {r['grad_norm']:.4f} against "
+                   f"{want['grad_norm']:.4f} (rel {dg:.2e}, bar 2e-2)")
+        log(f"  step {r['step']}: {r['s']:.3f} s, {tokens / r['s']:.0f} "
+            f"tokens/s; collectives {r['collective_calls']} calls, "
+            f"{r['collective_bytes'] / 1e9:.3f} GB, "
+            f"{r['collective_seconds']:.3f} s host "
+            f"({r['collective_copy_seconds']:.3f} s of it host copies), "
+            f"{100 * r['collective_seconds'] / r['s']:.1f}% of the step")
+    steady = [r["s"] for r in f["rows"][1:]]
+    med = statistics.median(steady)
+    log(f"12b median step (2-{DIST_STEPS}) {med:.3f} s, "
+        f"{tokens / med:.0f} tokens/s; peak per rank "
+        f"{', '.join(f'{g:.2f}' for g in f['peaks_gb'])} GB; nvidia-smi "
+        f"peak {mem.peak_mib} MiB")
+    out["full"] = dict(f, median_step_s=med, tokens_per_s=tokens / med,
+                       one_device=one_device[:DIST_STEPS])
+
+    # 12c: GPipe at the same widths over PIPE_RANKS ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with MemoryPoll() as mem:
+        c = run_world(pipe_rank, PIPE_RANKS, device=CARD,
+                      store_dir=str(out_dir / "world12c"), threads=2)
+    d = abs(c["loss"] - c["loss_sequential"])
+    bars.check(d <= DIST_TOL and c["grads_finite"],
+               f"12c {PIPE_RANKS}-stage GPipe of {TRAIN_ARCH}'s "
+               f"{configs.get(TRAIN_ARCH).n_layers} blocks, "
+               f"{PIPE_MICRO} microbatches: loss {c['loss']:.5f} against "
+               f"{c['loss_sequential']:.5f} in sequence on one rank (|d| "
+               f"{d:.2e}, bar 2e-2); stage gradients finite")
+    mb_bytes = TRAIN_B // PIPE_MICRO * TRAIN_S * configs.get(
+        TRAIN_ARCH).d_model * 2
+    st = c["collectives"]
+    log(f"12c a step {c['s']:.3f} s ({tokens / c['s']:.0f} tokens/s); "
+        f"{mb_bytes / 1e6:.1f} MB a tick a rank each way; rank 0's "
+        f"collectives {st['calls']} calls, {st['bytes'] / 1e9:.3f} GB, "
+        f"{st['seconds']:.3f} s host ({st['copy_seconds']:.3f} s copies); "
+        f"peak per rank {', '.join(f'{g:.2f}' for g in c['peaks_gb'])} GB; "
+        f"nvidia-smi peak {mem.peak_mib} MiB; world "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["pipeline"] = dict(c, tick_bytes=mb_bytes, smi_peak_mib=mem.peak_mib)
+
+    # 12d: elastic restart in a child process (cuBLAS's workspace)
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = child_phase("12d", DIST_TAG, bars)
+    first, replay = {}, []
+    for s, loss in r["history"]:
+        if s in first:
+            replay.append((s, first[s], loss))
+        else:
+            first[s] = loss
+    bars.check(r["restarts"] == 1 and r["steps"] == TRAIN_RESTART_STEPS
+               and bool(replay) and all(l2 == l1 for _, l1, l2 in replay),
+               f"12d {r['restarts']} restart(s) of the (2, 1) world, "
+               f"{r['steps']} steps; replayed steps "
+               f"{[s for s, _, _ in replay]} bit-equal to their first pass")
+    bars.check(r["world_to_one_device"] and r["one_device_to_world"]
+               and r["same_files"],
+               f"12d the world's step-{r['last']} checkpoint "
+               f"({r['ckpt_gb']:.3f} GB) restores on one device bit for "
+               f"bit, a one-device checkpoint of the gathered state restores "
+               f"onto the world bit for bit, the two data files byte-equal "
+               f"(loop {r['run_s']:.1f} s, save {r['save_whole_s']:.2f} s, "
+               f"placed restore {r['restore_placed_s']:.2f} s)")
+    out["restart"] = dict(r, replayed=replay)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 in {out['phase_s']:.1f} s")
+    bars.raise_if_failed("phase 12")
+    return out
+
+
+def restart_world(out_dir) -> dict:
+    """12d's world, in the child process."""
+    import shutil
+    from repro_torch.dist.world import run_world
+    root = out_dir / "ckpt12"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return run_world(restart_rank, DIST_RANKS, device=CARD,
+                         store_dir=str(out_dir / "world12d"),
+                         args=(str(root),), threads=4)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
-    ap.add_argument("--phases", choices=("all", "10", "11", "11c"),
+    ap.add_argument("--phases", choices=("all", "10", "11", "11c", "12",
+                                         "12d"),
                     default="all",
-                    help="'10' / '11': phase 1 and the LM serving / "
-                         "training phase alone (for iterating; no kernels "
-                         "line); '11c': phase 11c alone, the child process "
-                         "phase 11 starts")
+                    help="'10' / '11' / '12': phase 1 and the LM serving / "
+                         "training / multi-rank training phase alone (for "
+                         "iterating; no kernels line); '11c' / '12d': that "
+                         "part alone, the child process phase 11 / 12 "
+                         "starts")
     args = ap.parse_args()
     t_script = time.perf_counter()
-    if args.phases == "11c":
-        # 11c's bit-equal replay needs cuBLAS's deterministic workspace,
-        # set before CUDA starts; only this child process runs with it
+    if args.phases in ("11c", "12d"):
+        # the bit-equal replays need cuBLAS's deterministic workspace, set
+        # before CUDA starts; only these child processes run with it (a
+        # world's spawned ranks inherit it)
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = RESTART_CUBLAS
     import torch
     if not torch.cuda.is_available():
@@ -3612,6 +4306,10 @@ def main() -> int:
         figures = train_restart_phase(torch, out_dir, bars)
         print(RESTART_TAG + json.dumps({"figures": figures,
                                         "failed": bars.failed}), flush=True)
+        return 0
+    if args.phases == "12d":
+        print(DIST_TAG + json.dumps({"figures": restart_world(out_dir),
+                                     "failed": []}), flush=True)
         return 0
     from repro_torch.algorithms import (PageRank, PersonalizedPageRank,
                                         SSSP)
@@ -3637,13 +4335,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases in ("10", "11"):
+    if args.phases in ("10", "11", "12"):
         if args.phases == "10":
             print(json.dumps({"lm": lm_phase(torch, args.trace)}),
                   flush=True)
-        else:
+        elif args.phases == "11":
             print(json.dumps({"train": train_phase(torch, args.trace,
                                                    out_dir)}), flush=True)
+        else:
+            print(json.dumps({"dist": dist_phase(torch, out_dir, None)}),
+                  flush=True)
         print(card_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3754,6 +4455,9 @@ def main() -> int:
     # -- phase 11: LM training (launches none of the kernels) ---------------
     train = train_phase(torch, args.trace, out_dir)
 
+    # -- phase 12: LM training over ranks sharing the card (none either) -----
+    dist = dist_phase(torch, out_dir, train["full"]["steps"])
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -3800,6 +4504,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"dist": dist}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ These functions take the reference's fields as numpy arrays (from
 device, so a run begun in the reference can continue in the port,
 mid-stream included.  The language models' parameters and caches come
 over the same way (`lm_params_from_repro`, `lm_cache_from_repro`), and a
-training run's state and gradients (`train_state_from_repro`,
-`grads_from_repro`).
+training run's state and gradients (`train_state_from_repro`, onto a
+world's placements too, `grads_from_repro`), and a placed state gathered
+back to numpy (`train_state_to_numpy`).
 """
 
 from __future__ import annotations
@@ -262,15 +263,30 @@ def _param_tree_from_repro(tree: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def train_state_from_repro(cfg: ModelConfig, state: Dict[str, Any], *,
-                           device=None) -> Dict[str, Any]:
+                           device=None, shardings=None) -> Dict[str, Any]:
     """The port's train state from the reference's `{"params", "opt":
     {"mu", "nu", "step"}}` (leaves as numpy arrays): parameters and
     moments in `LM.param_tree()`'s layout, the step a host int.
     `train_step.bind_params` (the step does it itself) makes the
-    parameters a model's."""
+    parameters a model's.  `shardings` (a matching tree of Placements)
+    places it: on a world of ranks each rank keeps its slices."""
     dev = resolve_device(device)
     opt = state["opt"]
-    return {"params": _param_tree_from_repro(state["params"], dev),
-            "opt": {"mu": _param_tree_from_repro(opt["mu"], dev),
-                    "nu": _param_tree_from_repro(opt["nu"], dev),
-                    "step": int(np.asarray(opt["step"]))}}
+    out = {"params": _param_tree_from_repro(state["params"], dev),
+           "opt": {"mu": _param_tree_from_repro(opt["mu"], dev),
+                   "nu": _param_tree_from_repro(opt["nu"], dev),
+                   "step": int(np.asarray(opt["step"]))}}
+    if shardings is not None:
+        from repro_torch.dist.sharding import reshard
+        out = reshard(out, shardings)
+    return out
+
+
+def train_state_to_numpy(tree: Any) -> Any:
+    """A port tree (a train state, grads) as numpy arrays in the
+    reference's layout: placed slices gathered whole first (a collective:
+    every rank calls it), a `Stacked` leaf stacked, bfloat16 as its
+    uint16 bits; host ints stay."""
+    from repro_torch.train.checkpoint import _host
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x if isinstance(x, int) else _host(x), tree)

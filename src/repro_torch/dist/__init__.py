@@ -14,8 +14,13 @@
   compression  - int8 quantization with error feedback (the compressed
                  frontier exchange and data-parallel gradient)
   sharding     - the sharding rules: logical axes to mesh axes, placements
+                 of a rank's slices (FSDP), gathers and gradient reductions
   act          - the models' activation-sharding hooks (identity outside a
-                 sharding context, the rules' answers inside one)
+                 sharding context, the rules' answers inside one) and the
+                 batch's sums over the ranks that split it
+  pipeline     - `make_pipelined_loss`: the GPipe schedule over a mesh axis
+  comm         - the training path's counted collectives (gloo stages a
+                 CUDA tensor through the host)
 
 The reference (`repro.dist`) is single-controller SPMD: `shard_map` over
 a `jax.sharding.Mesh`.  Here every rank is a process holding its own
@@ -25,4 +30,4 @@ importing `repro_torch.dist` touches no process group.
 """
 
 __all__ = ["graph", "mesh2d", "fault", "compression", "world", "act",
-           "sharding"]
+           "sharding", "pipeline", "comm"]

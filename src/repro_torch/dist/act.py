@@ -5,11 +5,21 @@ Model code annotates intermediate tensors with logical axes ("dp", "sp",
 `activation_sharding(rules)` context every annotation is the identity,
 `axis_size` is 1 and `is_serve` is False: the unsharded path on one
 device.  Inside one, `axis_size` and `is_serve` answer from the rules
-(`dist/sharding.py`), and `constrain` returns `x` where its spec splits
-over no mesh axis of more than one device; a split over a larger axis
-needs the multi-rank placement (ROADMAP A12.2b) and raises.
+(`dist/sharding.py`).  Every rank is a process holding its own slice: in
+a step each activation is already the rank's rows of the batch, so
+`constrain` returns `x` itself where the rules split it over "dp" or
+"fsdp" (after checking for a process group of the mesh's size), and
+raises where they split it over "tp", "sp" or "ep" (the "tp" policy's
+tensor, sequence and expert parallelism, ROADMAP A12.2c).
 
-The context is thread-local and re-entrant, as in the reference.
+Reductions over the batch.  Within `batch_split(mesh, axes)` the rows of
+the batch are split over those mesh axes (the train step enters it):
+`batch_shards` is their count and `psum_batch` sums a rank's term over
+them, so that a mean over every row of the batch (the loss's, the MoE
+load-balance statistics') is the reference's.  Outside it both are the
+identity of one shard.
+
+The contexts are thread-local and re-entrant, as in the reference.
 """
 
 from __future__ import annotations
@@ -43,21 +53,31 @@ def activation_sharding(rules, serve: bool = False):
         _stack().pop()
 
 
+_BATCH_LOGICAL = ("dp", "fsdp")
+
+
 def constrain(x, *logical_axes):
-    """`x` itself: outside any context, or where the rules split it over
-    no mesh axis of more than one device (raises otherwise)."""
+    """`x` itself: outside any context, where the rules split it over no
+    mesh axis of more than one device, or over "dp"/"fsdp" only (this
+    rank's rows).  A split over "tp", "sp" or "ep" raises, and so does a
+    split without a process group of the mesh's size."""
     cur = _current()
     if cur is None:
         return x
+    from repro_torch.dist import comm
     from repro_torch.dist.sharding import split_axes
     rules = cur[0]
     spec = rules.spec(x.shape, logical_axes)
-    split = split_axes(rules.mesh, spec)
-    if split:
-        raise NotImplementedError(
-            f"constrain {tuple(logical_axes)} splits {tuple(x.shape)} over "
-            f"mesh axes {split}: sharded activations are not ported yet "
-            f"(ROADMAP A12.2b)")
+    for part, logical in zip(spec, logical_axes):
+        split = split_axes(rules.mesh, (part,))
+        if split and logical not in _BATCH_LOGICAL:
+            raise NotImplementedError(
+                f"constrain {tuple(logical_axes)} splits {tuple(x.shape)} "
+                f"over mesh axes {split} as {logical!r}: tensor, sequence "
+                f"and expert parallelism are not ported yet (ROADMAP "
+                f"A12.2c)")
+    if split_axes(rules.mesh, spec):
+        comm.coords(rules.mesh, f"constrain {tuple(logical_axes)}")
     return x
 
 
@@ -71,3 +91,41 @@ def is_serve() -> bool:
     """False outside any context, else the context's flag."""
     cur = _current()
     return False if cur is None else cur[1]
+
+
+def _batch_stack() -> list:
+    if not hasattr(_local, "batch"):
+        _local.batch = []
+    return _local.batch
+
+
+@contextlib.contextmanager
+def batch_split(mesh, axes):
+    """Within: the batch's rows are split over `axes` of `mesh` (this
+    rank holds its share); empty `axes` means every rank holds them all."""
+    from repro_torch.dist import comm
+    axes = tuple(axes)
+    grp = comm.group(mesh, axes) if axes else None
+    _batch_stack().append(grp)
+    try:
+        yield
+    finally:
+        _batch_stack().pop()
+
+
+def batch_shards() -> int:
+    """How many ranks the batch's rows are split over (1 outside
+    `batch_split`)."""
+    st = _batch_stack()
+    return len(st[-1][1]) if st and st[-1] is not None else 1
+
+
+def psum_batch(x):
+    """`x` summed over the ranks that split the batch (`x` itself where
+    none do).  Every rank goes on with the same sum, and its backward
+    gives each rank's cotangent to its own term once (`comm.Psum`)."""
+    st = _batch_stack()
+    if not st or st[-1] is None:
+        return x
+    from repro_torch.dist import comm
+    return comm.psum(x, st[-1][0])

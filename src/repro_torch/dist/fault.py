@@ -6,7 +6,11 @@ straggler detection.
 contract: periodic (async) checkpoints, and on any step failure the loop
 restores the latest checkpoint and replays forward.  With deterministic
 data (data_fn keyed by step) and deterministic kernels the recovered run
-is bit-identical to an uninterrupted one.
+is bit-identical to an uninterrupted one.  On a world of ranks every rank
+runs the loop: the step-0 snapshot and each restore sit behind a
+barrier, and a failure that every rank raises at the same step restarts
+them all (one rank failing alone is not handled: its peers wait in
+their next collective).
 
 `checkpoint_session` gathers a session's resumable state to host numpy;
 `restore_session` loads it into a session built with the same
@@ -23,6 +27,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist import comm
 from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
                                           restore_checkpoint,
                                           save_checkpoint, spec_of)
@@ -39,6 +44,7 @@ class RestartManager:
         self._ckpt = AsyncCheckpointer(directory)
 
     def _restore(self, like: Any, shardings: Any) -> Tuple[Any, int]:
+        comm.barrier()      # rank 0's write is done before anyone reads
         state, step = restore_checkpoint(self.directory, like, shardings)
         return state, int(step)
 
@@ -57,7 +63,9 @@ class RestartManager:
         checkpoints replays at most save_every - 1 steps.
         """
         like = spec_of(init_state)
-        if latest_step(self.directory) is None:
+        fresh = latest_step(self.directory) is None
+        comm.barrier()      # every rank has looked before rank 0 writes
+        if fresh:
             # durable step-0 snapshot BEFORE the first step: the step
             # updates the state's tensors in place, so after step 1
             # init_state holds step 1's values; a failure before the first

@@ -13,10 +13,18 @@ mesh or whose sizes do not divide the tensor dim drop to replicated.
 `spec` is the reference's logic: its result is a tuple read like a
 `PartitionSpec`'s entries (None, an axis name, or a tuple of names).
 
-Placing a tensor split over an axis of more than one device needs the
-multi-rank machinery that is not ported yet (ROADMAP A12.2b): `reshard`
-raises there rather than replicate.  On a mesh whose split axes all have
-size 1 (one device) every placement is the device itself.
+Placement on a world of ranks.  Every rank is a process holding its own
+slice (`dist/__init__.py`).  A placement that splits a dim over mesh
+axes of more than one device gives this rank the slice at its
+coordinates (`dist.comm.coords`: row-major in the mesh's axis order).
+The slice is a tensor of its own that carries its `Placement`
+(`placement_of`), as a JAX array carries its sharding; `gather` puts the
+whole tensor back together on every rank (a collective).  A `Stacked`
+leaf split on its stacking dim gives the rank its members; split on
+another dim, every member is sliced.  A split needs an initialized
+process group of the mesh's size and raises without one: it never
+replicates.  On a mesh whose split axes all have size 1 (one device)
+every placement is the device itself and nothing is tagged.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.dist import comm
 from repro_torch.launch.mesh import Mesh
 from repro_torch.tree import Stacked, tree_map
 
@@ -53,14 +62,16 @@ class Placement(NamedTuple):
     spec: Tuple[Any, ...]
 
 
+def entry_axes(part) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    return () if part is None else (
+        (part,) if isinstance(part, str) else tuple(part))
+
+
 def split_axes(mesh: Mesh, spec: Sequence[Any]) -> List[str]:
     """The mesh axes of more than one device that `spec` splits over."""
-    out = []
-    for part in spec:
-        names = () if part is None else (
-            (part,) if isinstance(part, str) else tuple(part))
-        out.extend(a for a in names if mesh.shape[a] > 1)
-    return out
+    return [a for part in spec for a in entry_axes(part)
+            if mesh.shape[a] > 1]
 
 
 class ShardingRules:
@@ -185,23 +196,145 @@ def cache_shardings(rules: ShardingRules, cache: Any) -> Any:
     return tree_map(one, cache)
 
 
+_TAG = "_placement"
+
+
+def placement_of(x) -> Optional[Placement]:
+    """The Placement a rank's slice was cut by; None for a whole tensor
+    (or a host int)."""
+    return getattr(x, _TAG, None)
+
+
+def with_placement(x, pl: Optional[Placement]):
+    """`x` tagged as the slice `pl` cut (None: untagged); returns `x`."""
+    if pl is not None:
+        setattr(x, _TAG, pl)
+    return x
+
+
+def split_dims(pl: Placement) -> List[Tuple[int, Tuple[str, ...]]]:
+    """(dim, its mesh axes of more than one device) of every split dim."""
+    out = []
+    for d, part in enumerate(pl.spec):
+        axes = tuple(a for a in entry_axes(part) if pl.mesh.shape[a] > 1)
+        if axes:
+            out.append((d, axes))
+    return out
+
+
+def _own(t: torch.Tensor, dev) -> torch.Tensor:
+    """A contiguous copy on `dev` that shares no storage with `t` (so the
+    whole tensor a slice came from can be freed)."""
+    return t.detach().to(dev).clone(memory_format=torch.contiguous_format)
+
+
+def _slice(x, pl: Placement):
+    """This rank's slice of the whole leaf `x` (a copy), tagged."""
+    dev = pl.mesh.local_device
+    splits = split_dims(pl)
+    if isinstance(x, Stacked):
+        members = list(x)
+        rest = []
+        for d, axes in splits:
+            if d == 0:
+                i, n = comm.shard_index(pl.mesh, axes)
+                k = len(members) // n
+                members = members[i * k:(i + 1) * k]
+            else:
+                rest.append((d - 1, axes))
+        out = Stacked(_slice_tensor(m, rest, pl.mesh, dev) for m in members)
+    else:
+        out = _slice_tensor(x, splits, pl.mesh, dev)
+    return with_placement(out, pl)
+
+
+def _slice_tensor(t, splits, mesh, dev) -> torch.Tensor:
+    for d, axes in splits:
+        i, n = comm.shard_index(mesh, axes)
+        k = t.shape[d] // n
+        t = t.narrow(d, i * k, k)
+    return _own(t, dev)
+
+
+def _gather_tensor(t, splits, mesh, out=None) -> torch.Tensor:
+    for k, (d, axes) in enumerate(reversed(splits)):
+        g, members = comm.group(mesh, axes)
+        last = k == len(splits) - 1
+        t = comm.all_gather(t, d, g, len(members), out=out if last else None)
+    return t
+
+
+def gather_leaf(x, out=None):
+    """The whole leaf of a rank's slice `x` (a collective: every rank of
+    the placement's mesh calls it); `x` itself when it is whole.  `out`
+    (a tensor, or a Stacked of the whole members) receives it in place.
+    A Stacked leaf goes as one stacked array: one collective a leaf."""
+    pl = placement_of(x)
+    if pl is None:
+        return x
+    splits = split_dims(pl)
+    if not isinstance(x, Stacked):
+        return _gather_tensor(x, splits, pl.mesh, out)
+    whole = _gather_tensor(torch.stack(list(x)), splits, pl.mesh)
+    if out is None:
+        return Stacked(whole.unbind(0))
+    for o, m in zip(out, whole.unbind(0)):
+        o.copy_(m)
+    return out
+
+
+def gather(tree: Any) -> Any:
+    """`tree` with every placed slice gathered back to its whole tensor
+    (no autograd: checkpoints, tests, binding weights for a step)."""
+    return tree_map(gather_leaf, tree)
+
+
+def reduce_grad(g, pl: Optional[Placement], batch_axes: Tuple[str, ...],
+                mesh: Optional[Mesh] = None):
+    """The gradient `pl`'s slice holds, from this rank's whole gradient
+    `g` of its rows' loss terms: the sum over the ranks that split the
+    batch along `batch_axes` of `mesh` (none: `g` is the whole batch's),
+    cut to this rank's slice.  Where the slice and the batch split over
+    the same axes this is one reduce-scatter; otherwise the sum is an
+    all-reduce over the batch's axes and the slice is cut here.  A Stacked
+    `g` goes as one stacked array."""
+    if isinstance(g, Stacked):
+        part = reduce_grad(torch.stack(list(g)), pl, batch_axes, mesh)
+        return with_placement(Stacked(part.unbind(0)), pl)
+    splits = split_dims(pl) if pl is not None else []
+    if pl is not None:
+        mesh = pl.mesh
+    if len(splits) == 1 and splits[0][1] == tuple(batch_axes):
+        d, axes = splits[0]
+        grp, ranks = comm.group(mesh, axes)
+        return with_placement(comm.reduce_scatter(g, d, grp, len(ranks)),
+                              pl)
+    if batch_axes:
+        comm.all_reduce(g, comm.group(mesh, batch_axes)[0])
+    return _slice(g, pl) if splits else g
+
+
 def reshard(tree: Any, shardings: Any) -> Any:
     """Move a state tree onto `shardings` (a matching tree of
-    Placements): each tensor to its mesh's device here.  A placement that
-    splits a dimension over a mesh axis of more than one device raises:
-    the multi-rank placement is ROADMAP A12.2b, and replicating instead
-    would hide it."""
+    Placements): a whole tensor to this rank's slice of it on the mesh's
+    device here (a copy, tagged with its Placement), a slice placed
+    otherwise gathered first (a collective) and cut again, a slice
+    already so placed left as it is.  A placement that splits nothing
+    moves the tensor to the mesh's device, untagged."""
     def one(x, pl: Placement):
-        split = split_axes(pl.mesh, pl.spec)
-        if split:
-            raise NotImplementedError(
-                f"placement {pl.spec} splits over mesh axes {split} of "
-                f"{dict(pl.mesh.shape)}: sharded placement is not ported "
-                f"yet (ROADMAP A12.2b)")
+        if not isinstance(x, (torch.Tensor, Stacked)):
+            return x
+        src = placement_of(x)
+        if src is not None:
+            if src == pl:
+                return x
+            x = gather_leaf(x)
+        if split_dims(pl):
+            return _slice(x, pl)
         dev = pl.mesh.local_device
         if isinstance(x, Stacked):
             return Stacked(t.to(dev) for t in x)
-        return x.to(dev) if isinstance(x, torch.Tensor) else x
+        return x.to(dev)
     return tree_map(one, tree, shardings)
 
 

@@ -70,6 +70,9 @@ def _entry(rank: int, fn: Callable, world_size: int, device_type: str,
         backend, init_method=f"file://{store}", rank=rank,
         world_size=world_size, timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
+        # every rank is connected before any runs `fn`: a rank that fails
+        # at once must not close its sockets under a peer still joining
+        torch.distributed.barrier()
         out = fn(rank, *args)
         if rank == 0:
             with open(os.path.join(work, "rank0.pkl"), "wb") as f:

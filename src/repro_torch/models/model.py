@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.act import constrain
+from repro_torch.dist.act import constrain, psum_batch
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -69,6 +69,25 @@ class Params(nn.Module):
         for name, mod in self._modules.items():
             out[name] = mod.tree()
         return out
+
+
+class ParamView:
+    """A block's parameters held as the reference's nested dict (a
+    stage's slice of stacked weights, say) read as a `Params` is read
+    (`p.wq`), so `apply_block` takes them as they are, autograd and all."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        self._tree = tree
+
+    def __getattr__(self, name: str):
+        try:
+            v = self.__dict__["_tree"][name]
+        except KeyError:
+            raise AttributeError(name) from None
+        return ParamView(v) if isinstance(v, dict) else v
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._tree
 
 
 class Block(Params):
@@ -428,7 +447,9 @@ class LM(nn.Module):
         batch: {tokens [B, S(, n_cb)] int32, (patch_embeds [B, P, D])}.
         Returns the float32 scalar mean negative log-likelihood of the
         next token (over the codebooks' mean) plus 0.01 x the MoE
-        load-balance loss."""
+        load-balance loss.  Where the batch's rows are split over ranks
+        (`act.batch_split`), the mean and the load-balance statistics run
+        over every rank's rows."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(tokens, batch.get("patch_embeds"))
@@ -442,6 +463,8 @@ class LM(nn.Module):
         x = x[:, :-1]
         labels = tokens[:, 1:].long()
         total, count = self.chunked_nll(x, labels)
+        # over every rank's rows where the batch is split (`act.batch_split`)
+        total, count = psum_batch(total), psum_batch(count)
         return total / torch.clamp(count, min=1.0) + 0.01 * aux
 
     def chunked_nll(self, x, labels):

@@ -2,7 +2,11 @@
 
 Each expert takes at most `capacity` tokens a group, in token order; the
 rest are dropped (their weight is zeroed).  Expert weights carry a leading
-E axis.  Outside a sharding context there is one group (g = 1).
+E axis.  Outside a sharding context there is one group (g = 1).  The
+reference cuts the global batch's tokens into g = axis_size("fsdp")
+groups; where the batch's rows are split over ranks (`act.batch_split`)
+each rank's tokens are g / shards of those groups, and the load-balance
+means run over every rank's tokens.
 """
 
 from __future__ import annotations
@@ -12,7 +16,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.act import axis_size, constrain
+from repro_torch.dist.act import (axis_size, batch_shards, constrain,
+                                  psum_batch)
 from repro_torch.models.layers import dense_init, silu
 
 
@@ -56,15 +61,25 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     top_p, top_i = top_k(probs, k)                             # [T, k]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)            # renormalize
 
-    # load-balance aux loss (Switch proxy): E * sum_e P_e * f
-    me = probs.mean(dim=0)
-    ce = torch.mean(F.one_hot(top_i[:, 0], e).float().sum(dim=0) / t)
+    # load-balance aux loss (Switch proxy): E * sum_e P_e * f, over the
+    # whole batch's t_all tokens
+    shards = batch_shards()
+    t_all = t * shards
+    me = (probs.mean(dim=0) if shards == 1
+          else psum_batch(probs.sum(dim=0)) / t_all)
+    ce = torch.mean(psum_batch(F.one_hot(top_i[:, 0], e).float().sum(dim=0))
+                    / t_all)
     aux = e * me.sum() * ce
 
-    # ranking and capacity per group (g = 1 outside a mesh context)
+    # ranking and capacity per group of the whole batch (g = 1 outside a
+    # mesh context); this rank's tokens are g / shards whole groups
     g = max(axis_size("fsdp"), 1)
-    if t % g or (t // g) * k < 1:
+    if t_all % g or (t_all // g) * k < 1:
         g = 1
+    if g % shards:
+        raise ValueError(f"{g} MoE groups over {t_all} tokens do not "
+                         f"split into the {shards} ranks' rows")
+    g //= shards
     tg = t // g
     cap = capacity(cfg, tg)
 

@@ -14,6 +14,12 @@ a checkpoint of either package restores in the other (through
 msgpack forms the file uses (a positive int, bin 8/16/32) are written and
 read here by hand.  Writes are atomic (tmp dir + rename); the last three
 checkpoints are kept; `AsyncCheckpointer` writes on a background thread.
+
+On a world of ranks a save gathers every placed slice (`dist.sharding`)
+to its whole array on every rank, synchronously (a collective), and
+rank 0 alone writes the same files; a restore reads them on every rank
+and `reshard`s them onto the target placements, so a checkpoint of one
+world restores on another, or on one device.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from typing import Any, BinaryIO, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import gather_leaf
 from repro_torch.tree import (Stacked, flatten_with_paths, leaves,
                               treedef_str, tree_map, unflatten)
 
@@ -59,7 +67,9 @@ def spec_of(tree):
 
 def _host(x) -> np.ndarray:
     """A leaf as a host numpy array; bfloat16 as uint16 bits, a host int
-    (the step) as int32, as the reference stores its step."""
+    (the step) as int32, as the reference stores its step.  A placed
+    slice is gathered whole first (a collective)."""
+    x = gather_leaf(x)
     if isinstance(x, Stacked):
         return np.stack([_host(t) for t in x])
     if isinstance(x, torch.Tensor):
@@ -165,11 +175,32 @@ def _write(directory: str, step: int, tree: Any, host: List[np.ndarray],
     return final
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a world, or the
+    one process outside any."""
+    return not comm.in_world() or torch.distributed.get_rank() == 0
+
+
+def _leaves_on_host(tree) -> Optional[List[np.ndarray]]:
+    """The tree's leaves as host arrays in the writer; elsewhere None
+    (every rank still takes part in the gathers)."""
+    if _writer():
+        return [_host(x) for x in leaves(tree)]
+    for x in leaves(tree):
+        gather_leaf(x)
+    return None
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save.  Returns the checkpoint path."""
-    return _write(directory, step, tree, [_host(x) for x in leaves(tree)],
-                  extra)
+    """Synchronous atomic save.  Returns the checkpoint path.  On a world
+    every rank calls it and returns once the files are written."""
+    host = _leaves_on_host(tree)
+    final = os.path.join(directory, f"step_{step:010d}")
+    if host is not None:
+        final = _write(directory, step, tree, host, extra)
+    comm.barrier()
+    return final
 
 
 class AsyncCheckpointer:
@@ -183,8 +214,10 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         self.wait()
         # copy to the host now (the step after this one updates the
-        # tensors in place), write on the thread
-        host = [_host(x) for x in leaves(tree)]
+        # tensors in place; a gather is a collective), write on the thread
+        host = _leaves_on_host(tree)
+        if host is None:
+            return
         shape = spec_of(tree)
 
         def work():
@@ -247,8 +280,9 @@ def restore_checkpoint(directory: str, tree_like: Any,
         arr = np.frombuffer(buf, dtype=np.uint8).view(np_dtype).reshape(
             shape)
         if isinstance(like, Stacked):
-            out.append(Stacked(_tensor(a, dtype_name, lk)
-                               for a, lk in zip(arr, like)))
+            # every member comes back: a placed `like` may hold a share
+            out.append(Stacked(_tensor(a, dtype_name, like[0])
+                               for a in arr))
         elif isinstance(like, (int, np.integer)) and not isinstance(
                 like, bool):
             out.append(int(arr))

@@ -10,6 +10,12 @@ Trees are the reference's (`repro_torch.tree`): a `Stacked` leaf is
 updated slice by slice, and the global norm sums the leaves in JAX's
 flatten order.  The update writes the parameters and moments in place;
 the step count is a host int and the learning rate a float32 value.
+
+On a world of ranks the parameters may be placed slices
+(`dist.sharding`): the moments are placed as they are, the update stays
+elementwise on the slices, and the global norm sums the squares of every
+slice once over the ranks before its square root, so clipping is the
+reference's.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import placement_of, split_dims, with_placement
 from repro_torch.tree import leaves, members, tree_map, Stacked
 
 
@@ -94,27 +102,58 @@ def schedule_fn(cfg: AdamWConfig) -> Callable[[int], torch.Tensor]:
 
 
 def adamw_init(params):
-    """{"mu", "nu": float32 zeros shaped as `params`; "step": 0}."""
+    """{"mu", "nu": float32 zeros shaped (and placed) as `params`; "step":
+    0}."""
     def zeros32(p):
         if isinstance(p, Stacked):
-            return Stacked(zeros32(t) for t in p)
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            z = Stacked(zeros32(t) for t in p)
+        else:
+            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return with_placement(z, placement_of(p))
     return {"mu": tree_map(zeros32, params), "nu": tree_map(zeros32, params),
             "step": 0}
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _sum_squares(leaf) -> torch.Tensor:
+    sq = None
+    for g in members(leaf):
+        gf = g.float()
+        part = torch.sum(gf * gf)
+        sq = part if sq is None else sq + part
+    return sq
+
+
+def _counted_here(pl) -> bool:
+    """Whether this rank's copy of a leaf placed by `pl` counts in a sum
+    over the world: the rank at coordinate 0 of every axis that does not
+    split it (rank 0 alone for a whole leaf)."""
+    if pl is None:
+        return torch.distributed.get_rank() == 0
+    split = {a for _, axes in split_dims(pl) for a in axes}
+    c = comm.coords(pl.mesh)
+    return all(i == 0 for a, i in c.items() if a not in split)
+
+
+def _global_norm(tree, params=None) -> torch.Tensor:
     """sqrt of the float32 sum of squares, leaf by leaf in the tree's
-    flatten order (a Stacked leaf sums its slices in order)."""
-    total = 0
-    for leaf in leaves(tree):
-        sq = None
-        for g in members(leaf):
-            gf = g.float()
-            part = torch.sum(gf * gf)
-            sq = part if sq is None else sq + part
-        total = total + sq
-    return torch.sqrt(total)
+    flatten order (a Stacked leaf sums its slices in order).  Where
+    `params` holds placed slices, `tree`'s leaves are the matching slices:
+    every slice is counted once over the ranks (an all-reduce) before the
+    square root."""
+    pls = [placement_of(p) for p in leaves(params)] if params is not None \
+        else []
+    if not any(pl is not None for pl in pls):
+        total = 0
+        for leaf in leaves(tree):
+            total = total + _sum_squares(leaf)
+        return torch.sqrt(total)
+    total = None
+    for leaf, pl in zip(leaves(tree), pls):
+        sq = _sum_squares(leaf)
+        if not _counted_here(pl):
+            sq = torch.zeros_like(sq)
+        total = sq if total is None else total + sq
+    return torch.sqrt(comm.all_reduce(total))
 
 
 @torch.no_grad()
@@ -124,7 +163,7 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
     step = opt_state["step"] + 1
     lr = schedule_fn(cfg)(step)
 
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
 

@@ -1130,3 +1130,37 @@ def test_train_restart_loop_on_the_card(cuda, tmp_path):
                          timeout=600, env=env)
     assert res.returncode == 0 and "RESTART-OK" in res.stdout, \
         res.stderr[-3000:]
+
+
+def test_fsdp_step_and_pipeline_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A (2, 1) gloo world of two ranks sharing the card: one FSDP-DP step
+    of minicpm-2b's float32 smoke config held against the same world on
+    CPU tensors (loss and grad norm at 1e-5; each moment mu at 1e-4 of its
+    largest entry; each weight at 1e-5 plus lr x the difference of the two
+    sides' AdamW directions, as tests/test_torch_cuda.py's one-device step
+    test holds it), and a 2-stage pipeline of its blocks on the card
+    against their sequential run at the reference's bars."""
+    import torch_train_fsdp_ranks as ranks
+    from repro_torch.dist.world import run_world
+    from repro_torch.tree import leaves
+    out = run_world(ranks.cuda_world, 2, device="cuda",
+                    store_dir=str(tmp_path))
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gg, gc, rtol=1e-5)
+    lr, b1, b2, eps = ranks.OPT["peak_lr"], 0.9, 0.95, 1e-8
+
+    def direction(mu, nu):
+        return (mu / (1 - b1)) / (np.sqrt(nu / (1 - b2)) + eps)
+    for mc, mg in zip(leaves(sc["opt"]["mu"]), leaves(sg["opt"]["mu"])):
+        assert np.abs(mg - mc).max() <= 1e-4 * np.abs(mc).max() + 1e-7
+    for pc, pg, mc, nc, mg, ng in zip(
+            leaves(sc["params"]), leaves(sg["params"]),
+            leaves(sc["opt"]["mu"]), leaves(sc["opt"]["nu"]),
+            leaves(sg["opt"]["mu"]), leaves(sg["opt"]["nu"])):
+        spread = lr * np.abs(direction(mg, ng) - direction(mc, nc))
+        assert (np.abs(pg - pc) <= 1e-5 * (1 + np.abs(pc)) + spread).all()
+    p = out["pipeline"]
+    assert abs(p["pipelined"] - p["sequential"]) < 1e-5
+    for g, w in zip(p["grads"], p["want"]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)

@@ -176,20 +176,31 @@ def test_moe_drops_past_capacity():
 
 def test_act_hooks():
     """Outside a context the hooks are the identity; inside one they
-    answer from the sharding rules, and a split over a mesh axis of more
-    than one device raises (tests/test_torch_train.py holds the rules)."""
+    answer from the sharding rules: one device is the identity, a "dp"
+    split without a process group raises and names it, a "tp" split
+    raises and names ROADMAP A12.2c (tests/test_torch_train.py holds the
+    rules, tests/test_torch_train_fsdp.py the splits on ranks)."""
     from repro_torch.dist.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     x = torch.ones(2)
     assert act.constrain(x, "dp") is x
     assert act.axis_size("tp") == 1 and act.is_serve() is False
+    with act.activation_sharding(ShardingRules(make_mesh((1, 1),
+                                                         ("data", "model")),
+                                               "tp")):
+        assert act.constrain(x, "tp") is x
     rules = ShardingRules(make_mesh((2, 1), ("data", "model")), "dp")
     with act.activation_sharding(rules, serve=True):
         assert act.axis_size("tp") == 1 and act.axis_size("dp") == 2
         assert act.is_serve() is True
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="process group"):
             act.constrain(x, "dp")
+    tp = ShardingRules(make_mesh((1, 2), ("data", "model")), "tp")
+    with act.activation_sharding(tp):
+        with pytest.raises(NotImplementedError, match="A12.2c"):
+            act.constrain(x, "tp")
     assert act.axis_size("tp") == 1
+    assert act.batch_shards() == 1 and act.psum_batch(x) is x
 
 
 # -- whole architectures ---------------------------------------------------------

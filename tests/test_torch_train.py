@@ -492,6 +492,11 @@ def test_sharding_specs_match_repro():
 
 
 def test_reshard_and_constrain_raise_on_a_split_axis():
+    """One device: every placement is the device and constrain the
+    identity.  An axis of two devices without a process group: a split
+    raises and names the process group (it never replicates); a "tp"
+    split raises and names ROADMAP A12.2c (tests/test_torch_train_fsdp.py
+    runs the splits on a world of ranks)."""
     x = torch.ones(8, 4)
     one = tsh.ShardingRules(make_host_mesh(device="cpu"), "dp")
     big = tsh.ShardingRules(make_mesh((2, 1), ("data", "model"),
@@ -499,18 +504,25 @@ def test_reshard_and_constrain_raise_on_a_split_axis():
     # one device: every placement is the device, constrain the identity
     assert tsh.reshard({"x": x}, tsh.param_shardings(one, {"x": x}))["x"] \
         is x
+    assert tsh.placement_of(x) is None
     with act.activation_sharding(one):
         assert act.constrain(x, "dp", None) is x
         assert act.axis_size("dp") == 1 and act.is_serve() is False
-    # an axis of two devices: a split raises, it never replicates
-    with pytest.raises(NotImplementedError, match="A12.2b"):
+    # an axis of two devices and no process group: a split raises
+    with pytest.raises(RuntimeError, match="process group"):
         tsh.reshard({"x": x}, tsh.param_shardings(big, {"x": x}))
     with act.activation_sharding(big, serve=True):
         assert act.axis_size("dp") == 2 and act.is_serve() is True
-        with pytest.raises(NotImplementedError, match="A12.2b"):
+        with pytest.raises(RuntimeError, match="process group"):
             act.constrain(x, "dp", None)
         # a dim the axis does not divide stays whole, as in the reference
-        assert act.constrain(torch.ones(3, 4), "dp", None) is not None
+        y = torch.ones(3, 4)
+        assert act.constrain(y, "dp", None) is y
+    tp = tsh.ShardingRules(make_mesh((1, 2), ("data", "model")), "tp")
+    with act.activation_sharding(tp):
+        with pytest.raises(NotImplementedError, match="A12.2c"):
+            act.constrain(x, None, "tp")
+        assert act.constrain(x, "dp", None) is x
     # and outside any context the hooks are the identity again
     assert act.constrain(x, "dp") is x and act.axis_size("tp") == 1
 
