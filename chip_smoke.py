@@ -86,7 +86,7 @@ Phases (any failure exits non-zero before the last line is printed):
 7. The serve front at full size, with the first session freed: the
    open-loop harness (obs.loadgen: seeded Poisson arrivals with a burst
    envelope, 64 tenants on the default family mix pagerank/ppr/sssp/bfs,
-   a mutation_stream batch of 8 inserts and 4 deletes every 80 ticks
+   81 requests over a horizon of 200 ticks, a mutation_stream batch of 8 inserts and 4 deletes every 80 ticks
    forwarded to notify_group_update) admits requests through a
    ConcurrentServeScheduler over 1024 request groups (one per block)
    into GraphSession(rmat_graph(2**16, 8), 64, capacity=8,
@@ -142,7 +142,7 @@ Phases (any failure exits non-zero before the last line is printed):
    batch: apply_updates seconds on every rank, the collectives it cost,
    the rerun's wall, supersteps and collectives, each rank's memory;
    compact() seconds and build peak per rank; phase 9's nvidia-smi peak.
-   9b: the jobs detached, phase 7's load with its horizon cut to 80
+   9b: the jobs detached, phase 7's load with its horizon cut to 48
    ticks and its update period to 40 (`MESH_SERVE_LOAD`) served on the
    same session under TwoLevel(), 8 supersteps a tick, at most 8
    running: groups grow past capacity 4 and the BFS view is built as a
@@ -184,7 +184,7 @@ Phases (any failure exits non-zero before the last line is printed):
    plus lr x the difference of the two sides' AdamW directions (read
    from their moments); bf16 loss at 2e-2.  11b: minicpm-2b at its published widths, 40
    layers, bf16, seeded weights drawn on the card, launch.train's AdamW
-   (WSD), SyntheticTokens(seed=0) batches of 8 x 2048, 12 steps through
+   (WSD), SyntheticTokens(seed=0) batches of 8 x 2048, 10 steps through
    make_train_step: each step's loss, grad norm, lr, s and tokens/s
    beside the 0.29 s bound, peak memory split into state and the rest,
    the step's parts timed one by one; the loss must fall and every grad
@@ -212,8 +212,8 @@ Phases (any failure exits non-zero before the last line is printed):
    12b, the same world: minicpm-2b at its published widths, 40 layers,
    bf16, FSDP-DP through launch.train's `setup` and step (11b's AdamW,
    its total_steps included), SyntheticTokens(seed=0) batches of 8 x
-   2048 (4 x 2048 a rank), 4 steps, each loss within 2e-2 of phase 11b's
-   same step (or of a one-device run of its first four steps here when
+   2048 (4 x 2048 a rank), 2 steps, each loss within 2e-2 of phase 11b's
+   same step (or of a one-device run of its first two steps here when
    phase 12 runs alone) and its grad norm within 2e-2 relative; per step
    s, tokens/s, the collectives' calls, bytes and host s (the host
    copies apart) and their share of the step; each rank's peak.  The
@@ -230,9 +230,31 @@ Phases (any failure exits non-zero before the last line is printed):
    last checkpoint restored on one device and a checkpoint of the
    gathered state restored onto the world, each bit for bit.
 
+13. Tensor-parallel LM serving under the "tp" rules (repro_torch.dist.tp,
+   the placed LM), which launches none of the kernels above either; two
+   ranks share the card over gloo in a (1, 2) ("data", "model") world
+   through `run_world`, each drawing its slices of `LM(cfg, seed=0)`
+   (`param_shardings(rules, ..., serve=True)`) and serving inside
+   `activation_sharding(rules, serve=True)`, held against one process
+   on the card with the same weights, run first in this process and
+   freed before the world starts.  13a: every architecture's smoke
+   config, prefill of 20 tokens and 4 decode steps, float32 (TF32 off)
+   at rtol = atol = 1e-4, bf16 at 2e-2 (or within the one process's own
+   one-ulp spread).  13b: qwen2.5-14b at its published widths, 48
+   layers, bf16: 4 prompts of 512 tokens, then 16 decode steps fed the
+   one process's greedy picks, each step's logits within 0.25 of the
+   one-process logits' std; prefill s and decode ms a step beside the
+   one-process times and the bound of `launch.analytic`, the
+   collectives' calls, bytes and host s (copies apart) a prefill and a
+   decode step, each rank's resident weights against half the model's,
+   the weights gathered a decode step (under 1% of a rank's), each
+   rank's peak.  13c: the same widths and traffic in float32 at 2
+   layers, at 1e-4.
+
 Then one JSON line of kernel figures, one of the LM figures, one of the
-training figures, one of the multi-rank training figures, the card's
-name and power limit, and last {"ok": true, "device": {...}}.
+training figures, one of the multi-rank training figures, one of the
+tensor-parallel serving figures, the card's name and power limit, and
+last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --trace
 
@@ -245,9 +267,11 @@ give the end-to-end numbers.
     python3 chip_smoke.py --phases 10 [--trace]
     python3 chip_smoke.py --phases 11 [--trace]
     python3 chip_smoke.py --phases 12
+    python3 chip_smoke.py --phases 13
 
-run phase 1 and phase 10 (the LM serving path), phase 11 (training) or
-phase 12 (training over ranks) alone, for iterating; no kernels line.
+run phase 1 and phase 10 (the LM serving path), phase 11 (training),
+phase 12 (training over ranks) or phase 13 (serving over ranks) alone,
+for iterating; no kernels line.
 """
 
 from __future__ import annotations
@@ -301,7 +325,10 @@ STREAM_DELETE = 1              # UpdateBatch.op of a delete
 SERVE_CAPACITY = 8             # the session's job slots per view
 SERVE_MAX_RUNNING = 8          # admitted jobs sharing the supersteps
 SERVE_STEPS_PER_TICK = 8
-SERVE_LOAD = dict(seed=33, ticks=240, base_rate=0.4, burst_amplitude=0.6,
+# phase 7's horizon (81 requests) and 9b's (22 arrivals, both BFS, one
+# update at tick 40) are cut in depth so that the whole script keeps
+# inside its time limit
+SERVE_LOAD = dict(seed=33, ticks=200, base_rate=0.4, burst_amplitude=0.6,
                   burst_period=60, n_tenants=64, update_every=80)
 SERVE_PT_CHECKED = 3           # PageRank/PPR results held per run
 # phase 8: the multi-device engine, ranks sharing the card over gloo
@@ -309,7 +336,7 @@ MESH_RANKS = 4
 MESH_SSSP_SOURCES = (0, 4097, 8192, 49152)   # 8b/8c: the min-plus view only
 MESH_THREADS = 2               # intra-op CPU threads a rank (8 cores, 4 ranks)
 # phase 9: phase 7's load on 8a's mesh, its horizon and update period cut
-MESH_SERVE_LOAD = dict(SERVE_LOAD, ticks=80, update_every=40)
+MESH_SERVE_LOAD = dict(SERVE_LOAD, ticks=48, update_every=40)
 TELEMETRY_PAIRS = 20           # interleaved off/on timings of telemetry
 HOST_TIMED_STEPS = 8           # supersteps per timed TwoLevel() run
 # back-to-back calls per timed run, so that a run lasts about 1 ms or more
@@ -2849,6 +2876,20 @@ def lm_serve_phase(torch, trace: bool, bars) -> dict:
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); per-step range "
         f"{min(min(x['decode_ms']) for x in obs.batches):.3f}-"
         f"{max(max(x['decode_ms']) for x in obs.batches):.3f} ms")
+    # beside the hand-worked bounds, launch.analytic's count of the cells
+    from repro_torch.launch import analytic
+    from repro_torch.models.config import ShapeConfig
+    an_pre = analytic.cell_flops(cfg, ShapeConfig(
+        "10b_prefill", "prefill", s, b))["fwd_flops"]
+    an_dec = analytic.cell_flops(cfg, ShapeConfig(
+        "10b_decode", "decode", s + n // 2, b))["fwd_flops"]
+    log(f"10b launch.analytic: prefill {an_pre / 1e12:.2f} TFLOP "
+        f"({1e3 * an_pre / BF16_FLOPS:.1f} ms at {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s, its chunked attention's kv blocks and the head counted) "
+        f"against the hand-worked {(2 * non_embed * tokens + attn_flops) / 1e12:.2f}"
+        f" TFLOP; a decode step {an_dec / 1e9:.1f} GFLOP "
+        f"({1e3 * an_dec / BF16_FLOPS:.3f} ms, under the bytes' "
+        f"{1e3 * decode_bound:.2f} ms)")
     log(f"10b peak device memory {peak:.2f} GB")
 
     # the cache path against the port's own no-cache forward
@@ -2901,6 +2942,7 @@ def lm_serve_phase(torch, trace: bool, bars) -> dict:
         "prefill_ms": prefill_ms, "prefill_bound_ms": 1e3 * prefill_bound,
         "prefill_bound_with_attention_ms": 1e3 * prefill_bound_attn,
         "decode_ms_median": decode_ms, "decode_bound_ms": 1e3 * decode_bound,
+        "analytic_flops": {"prefill": an_pre, "decode": an_dec},
         "peak_gb": peak, "prefill_vs_forward_max_abs_err": pre_err,
         "decode_vs_forward_max_abs_err": dec_err,
         "vs_plain_f32_max_abs_err": plain_err, "logits_std": std,
@@ -3039,7 +3081,7 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5, "bf16_loss": 2e-2}
 # bar themselves
 TRAIN_NOISE_FLOOR = 1e-7
 # 11b: minicpm-2b at its published widths, launch.train's AdamW (WSD)
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 12
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 10
 TRAIN_PEAK_CAP = 75e9          # above it the batch is halved (and said so)
 # 11c: the restart loop at the same widths, cut to 2 layers, in a child
 # process: cuBLAS reads its workspace setting once, when CUDA starts, and
@@ -3235,9 +3277,16 @@ def _train_bound(cfg, n_params, b, s) -> dict:
         s * (s + 1) // 2)
     non_embed = n_params - cfg.vocab_size * cfg.d_model
     remat = 2 * non_embed * tokens + attn_fwd
+    # beside it, launch.analytic's count of the same cell (3 x forward
+    # with the chunked attention's kv blocks, plus the optimizer update)
+    from repro_torch.launch import analytic
+    from repro_torch.models.config import ShapeConfig
+    an = analytic.cell_flops(cfg, ShapeConfig("11b", "train", s, b))
     return {"flops": weights + 3 * attn_fwd,
             "bound_s": (weights + 3 * attn_fwd) / BF16_FLOPS,
-            "bound_remat_s": (weights + 3 * attn_fwd + remat) / BF16_FLOPS}
+            "bound_remat_s": (weights + 3 * attn_fwd + remat) / BF16_FLOPS,
+            "analytic_flops": an["hlo_est_flops"],
+            "analytic_bound_s": an["hlo_est_flops"] / BF16_FLOPS}
 
 
 def _timed(torch, fn, reps=1):
@@ -3338,7 +3387,7 @@ def _kernel_kinds(rows) -> dict:
 def train_full_phase(torch, trace: bool, bars) -> dict:
     """11b: minicpm-2b at its published widths, all 40 layers, bf16,
     seeded weights drawn on the card, launch.train's AdamW (WSD, peak
-    3e-4, warmup 1, 12 steps), SyntheticTokens(seed=0) batches of 8 x
+    3e-4, warmup 1, 10 steps), SyntheticTokens(seed=0) batches of 8 x
     2048 through make_train_step: each step's loss, grad norm, lr, s and
     tokens/s beside the bound; the loss must fall (the mean of the last
     five below the first five) and every grad norm be finite."""
@@ -3404,7 +3453,9 @@ def train_full_phase(torch, trace: bool, bars) -> dict:
         f"drawn on the card in {init_s:.2f} s; batches of {batch_size} x "
         f"{TRAIN_S}; bound {bound['bound_s']:.3f} s a step "
         f"({bound['flops'] / 1e12:.1f} TFLOP at {BF16_FLOPS / 1e12:.0f} "
-        f"TFLOP/s), {bound['bound_remat_s']:.3f} s with remat's forward")
+        f"TFLOP/s), {bound['bound_remat_s']:.3f} s with remat's forward; "
+        f"launch.analytic counts {bound['analytic_flops'] / 1e12:.1f} "
+        f"TFLOP, {bound['analytic_bound_s']:.3f} s")
     for r in rows:
         log(f"  step {r['step']:2d}: loss {r['loss']:.5f} grad_norm "
             f"{r['grad_norm']:.4f} lr {r['lr']:.3e} {r['s']:.3f} s "
@@ -3433,6 +3484,7 @@ def train_full_phase(torch, trace: bool, bars) -> dict:
                "steps": rows, "median_step_s": med,
                "tokens_per_s": tokens / med, "bound_s": bound["bound_s"],
                "bound_remat_s": bound["bound_remat_s"],
+               "analytic_bound_s": bound["analytic_bound_s"],
                "share_of_bound": bound["bound_s"] / med, "peak_gb": peak,
                "state_gb": state_gb, "rest_gb": peak - state_gb, **st}
 
@@ -3628,7 +3680,7 @@ def train_phase(torch, trace: bool, out_dir) -> dict:
 # -- phase 12: LM training over several ranks ---------------------------------
 
 DIST_RANKS = 2                 # 12-0, 12a, 12b: a (2, 1) world on the card
-DIST_STEPS = 4                 # 12b: held to the one-device run's first four
+DIST_STEPS = 2                 # 12b: held to the one-device run's first two
 DIST_TOL = 2e-2                # 12b/12c: losses; 12b's grad norm, relative
 PIPE_RANKS, PIPE_MICRO = 4, 4  # 12c: a ("pod",) world, 4 stages of 10
 PIPE_TOL = {"loss": 1e-5, "rtol": 1e-4, "atol": 1e-5}   # 12a's pipeline
@@ -3732,9 +3784,12 @@ def probe_phase(out_dir) -> dict:
                 out[key] = res
         if died is None:
             break
-        if not started or started[-1] in out:
+        if not started:
             raise RuntimeError(f"12-0's world failed before a probe: {died}")
-        out[started[-1]] = died
+        # the case last started killed the world, also where rank 0 saw
+        # its own part end first (the peer's send thread aborts later)
+        last = started[-1]
+        out[last] = f"{out[last]}; {died}" if last in out else died
         cases = cases[len(started):]
     return out
 
@@ -4268,15 +4323,426 @@ def restart_world(out_dir) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 13: tensor-parallel serving over ranks sharing the card -----------
+
+TP_RANKS = 2                   # a (1, 2) ("data", "model") world
+TP_B, TP_PROMPT, TP_STEPS = 4, 512, 16     # 13b's traffic (13c's too)
+TP_F32_LAYERS = 2              # 13c: 13b's widths in float32 at this depth
+TP_BAR = 0.25                  # 13b: of the one-process logits' std
+TP_THREADS = 4                 # intra-op CPU threads a rank (8 cores)
+
+
+def _tp_smoke_cases(torch):
+    """13a's cases: (name, dtype, tokens [B, S + steps(, cb)], patch
+    embeddings or None), 10a's inputs."""
+    from repro_torch import configs
+    out = []
+    for name in configs.ARCH_NAMES:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get_smoke(name),
+                                      param_dtype=dtype)
+            toks, pe = _lm_inputs(torch, cfg, LM_SMOKE_B,
+                                  LM_SMOKE_S + LM_SMOKE_DECODE)
+            out.append((name, dtype, toks, pe))
+    return out
+
+
+def _tp_cfg(dtype: str, layers=None):
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(LM_ARCH), param_dtype=dtype)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _tp_steps(torch, engine, toks, pe, s, sync=False):
+    """Prefill of toks[:, :s], then a decode step on each later token:
+    the logits of each (float32, on the CPU), and with `sync` the host
+    seconds of each call (a device sync before and after)."""
+    dev = engine.model.device
+
+    def on(t):
+        return None if t is None else t.to(dev)
+    logits, secs = [], []
+    cache = engine.new_cache(toks.shape[0])
+    for j in range(toks.shape[1] - s + 1):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if j == 0:
+            lg, cache = engine.prefill(on(toks[:, :s]), cache, on(pe))
+        else:
+            lg, cache = engine.decode(on(toks[:, s + j - 1:s + j]), cache)
+        if sync:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        logits.append(lg.float().cpu())
+    return logits, secs
+
+
+def _tp_full_inputs(torch, cfg, greedy):
+    """13b/13c's prompts of TP_PROMPT tokens and the TP_STEPS tokens fed
+    to the decode steps (13b's one-process greedy picks)."""
+    toks, _ = _lm_inputs(torch, cfg, TP_B, TP_PROMPT)
+    return torch.cat([toks, greedy], dim=1)
+
+
+def tp_reference(torch, cases) -> dict:
+    """One process on the card, before the world: 13a's smoke cases; 13b
+    (qwen2.5-14b, 48 layers, bf16, `LM(cfg, seed=0)`, prefill of TP_B x
+    TP_PROMPT and TP_STEPS greedy decode steps); 13c (2 layers, float32,
+    fed 13b's picks).  Each model is freed before the next."""
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+    out = {"smoke": {}}
+    for name, dtype, toks, pe in cases:
+        cfg = dataclasses.replace(_smoke(name), param_dtype=dtype)
+        engine = ServeEngine(LM(cfg, device=CARD, seed=0),
+                             max_len=LM_SMOKE_LEN + cfg.patch_prefix)
+        out["smoke"][(name, dtype)] = _tp_steps(torch, engine, toks, pe,
+                                                LM_SMOKE_S)[0]
+    # 13b: greedy, so the decode steps' tokens are this run's picks
+    cfg = _tp_cfg("bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=CARD, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    engine = ServeEngine(model, max_len=TP_PROMPT + TP_STEPS)
+    prompt, _ = _lm_inputs(torch, cfg, TP_B, TP_PROMPT)
+    logits, secs, picks = [], [], []
+    with torch.inference_mode():
+        cache = engine.new_cache(TP_B)
+        for j in range(TP_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if j == 0:
+                lg, cache = engine.prefill(prompt.to(CARD), cache)
+            else:
+                lg, cache = engine.decode(picks[-1], cache)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logits.append(lg.float().cpu())
+            picks.append(torch.argmax(lg[:, -1:], dim=-1).to(torch.int32))
+    greedy = torch.cat(picks[:TP_STEPS], dim=1).cpu()
+    out["full"] = {"logits": logits, "secs": secs, "greedy": greedy,
+                   "init_s": init_s, "n_params": n_params,
+                   "weight_bytes": weight_bytes,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, engine, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 13c: float32 at TP_F32_LAYERS layers, fed 13b's picks
+    cfg = _tp_cfg("float32", TP_F32_LAYERS)
+    engine = ServeEngine(LM(cfg, device=CARD, seed=0),
+                         max_len=TP_PROMPT + TP_STEPS)
+    toks = _tp_full_inputs(torch, cfg, greedy)
+    out["f32"] = _tp_steps(torch, engine, toks, None, TP_PROMPT)[0]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _smoke(name):
+    from repro_torch import configs
+    return configs.get_smoke(name)
+
+
+def tp_rank(rank: int, cases, greedy) -> dict:
+    """A rank of phase 13's (1, 2) world: every model drawn as this rank's
+    slices of `LM(cfg, seed=0)` (`param_shardings(rules, ...,
+    serve=True)`) and served inside `activation_sharding(rules,
+    serve=True)`: 13a's smoke cases, 13b at full width (timed, its
+    collectives, weights gathered and memory read a step), 13c."""
+    import torch
+    from repro_torch.dist import act, comm, tp
+    from repro_torch.dist.sharding import (ShardingRules, param_shardings,
+                                           placement_of)
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.priority_pairs import kernel as pk
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+    lserve.set_numerics()
+    rules = ShardingRules(make_host_mesh(model_axis=TP_RANKS, device=CARD),
+                          "tp")
+    kernels0 = (dict(fk.launches), dict(mk.launches), dict(pk.launches))
+
+    def placed(cfg):
+        sh = param_shardings(rules, LM(cfg, device="meta").param_tree(),
+                             serve=True)
+        return LM(cfg, device=CARD, seed=0, shardings=sh)
+
+    out = {"smoke": {}}
+    t0 = time.perf_counter()
+    with act.activation_sharding(rules, serve=True):
+        for name, dtype, toks, pe in cases:
+            cfg = dataclasses.replace(_smoke(name), param_dtype=dtype)
+            engine = ServeEngine(placed(cfg),
+                                 max_len=LM_SMOKE_LEN + cfg.patch_prefix)
+            out["smoke"][(name, dtype)] = _tp_steps(
+                torch, engine, toks, pe, LM_SMOKE_S)[0]
+    out["smoke_s"] = time.perf_counter() - t0
+
+    # 13b: qwen2.5-14b at its published widths, all layers, bf16
+    cfg = _tp_cfg("bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = placed(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    place_peak = torch.cuda.max_memory_allocated()
+    resident = split = vectors = 0
+    for p in model.parameters():
+        nbytes = p.numel() * p.element_size()
+        resident += nbytes
+        if placement_of(p) is None:
+            vectors += nbytes
+        else:
+            split += nbytes
+    engine = ServeEngine(model, max_len=TP_PROMPT + TP_STEPS)
+    toks = _tp_full_inputs(torch, cfg, greedy)
+    rows = []
+    logits = []
+    with act.activation_sharding(rules, serve=True), torch.inference_mode():
+        cache = engine.new_cache(TP_B)
+        for j in range(TP_STEPS + 1):
+            comm.reset_stats()
+            tp.reset_gathered()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if j == 0:
+                lg, cache = engine.prefill(
+                    toks[:, :TP_PROMPT].to(CARD), cache)
+            else:
+                lg, cache = engine.decode(
+                    toks[:, TP_PROMPT + j - 1:TP_PROMPT + j].to(CARD), cache)
+            torch.cuda.synchronize()
+            rows.append(dict(s=time.perf_counter() - t1, **{
+                f"collective_{k}": v for k, v in comm.STATS.items()},
+                gathered_calls=tp.GATHERED["calls"],
+                gathered_bytes=tp.GATHERED["bytes"]))
+            if rank == 0:
+                logits.append(lg.float().cpu())
+    out["full"] = {"rows": rows, "logits": logits, "init_s": init_s,
+                   "resident_bytes": resident, "split_bytes": split,
+                   "whole_bytes": vectors,
+                   "place_peak_gb": place_peak / 1e9,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "cache_k": tuple(cache["layers"][0]["k"].shape)}
+    del model, engine, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13c: the same widths in float32 at TP_F32_LAYERS layers
+    cfg = _tp_cfg("float32", TP_F32_LAYERS)
+    engine = ServeEngine(placed(cfg), max_len=TP_PROMPT + TP_STEPS)
+    with act.activation_sharding(rules, serve=True):
+        out["f32"] = _tp_steps(torch, engine,
+                               _tp_full_inputs(torch, cfg, greedy), None,
+                               TP_PROMPT)[0]
+    del engine
+    out["kernel_launches"] = sum(
+        sum(now.values()) - sum(then.values()) for now, then in zip(
+            (fk.launches, mk.launches, pk.launches), kernels0))
+    if rank != 0:
+        out["smoke"], out["f32"] = {}, []
+    return out
+
+
+def _tp_within_spread(torch, name, dtype, toks, pe):
+    """13a bf16 beyond 2e-2: no further from the one-process run than that
+    run's own logits move under a one-ulp change of one embedding weight
+    (10a's end-to-end bar)."""
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(_smoke(name), param_dtype=dtype)
+    model = LM(cfg, device=CARD, seed=0)
+    toks, pe = toks.to(CARD), None if pe is None else pe.to(CARD)
+    with torch.inference_mode():
+        base = model.forward_train(toks, pe)[0]
+        emb = model.embed.data
+        tok = int(toks[0, 3, 0] if cfg.n_codebooks else toks[0, 3])
+        row = emb[0] if cfg.n_codebooks else emb
+        row[tok, 5] = (row[tok, 5].view(torch.int16) + 1).view(torch.bfloat16)
+        bumped = model.forward_train(toks, pe)[0]
+    return _within(bumped, base, 0.0)[1]
+
+
+def tp_phase(torch, out_dir) -> dict:
+    """Phase 13: the one-process references, then a (1, 2) world of ranks
+    sharing the card under the "tp" rules: 13a every smoke architecture
+    (float32 at 1e-4, bf16 at 2e-2), 13b qwen2.5-14b at its published
+    widths (each step's logits within TP_BAR of the one-process logits'
+    std), 13c its widths in float32 at 2 layers (1e-4).  Raises at its
+    end if any check failed."""
+    from repro_torch.dist.world import choose_backend, run_world
+    from repro_torch.launch import analytic
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.config import ShapeConfig
+    lserve.set_numerics()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bars = Bars()
+    t_phase = time.perf_counter()
+    cases = _tp_smoke_cases(torch)
+    t0 = time.perf_counter()
+    ref = tp_reference(torch, cases)
+    ref_s = time.perf_counter() - t0
+    log(f"13: one-process references in {ref_s:.1f} s; {TP_RANKS} ranks on "
+        f"{torch.cuda.device_count()} card(s) over "
+        f"{choose_backend('cuda', TP_RANKS)}")
+    t0 = time.perf_counter()
+    with MemoryPoll() as mem:
+        res = run_world(tp_rank, TP_RANKS, device=CARD,
+                        store_dir=str(out_dir / "world13"),
+                        args=(cases, ref["full"]["greedy"]),
+                        threads=TP_THREADS)
+    world_s = time.perf_counter() - t0
+    out = {"world_s": world_s, "reference_s": ref_s,
+           "smi_peak_mib": mem.peak_mib,
+           "kernel_launches": res["kernel_launches"], "smoke": {}}
+
+    # 13a
+    for (name, dtype, toks, pe) in cases:
+        got, want = res["smoke"][(name, dtype)], ref["smoke"][(name, dtype)]
+        tol = LM_TOL[dtype]
+        errs = [_within(g, w, tol) for g, w in zip(got, want)]
+        worst = max(e for _, e in errs)
+        ok = all(o for o, _ in errs)
+        spread = None
+        if not ok and dtype == "bfloat16":
+            spread = _tp_within_spread(torch, name, dtype, toks, pe)
+            ok = worst <= spread
+        bars.check(ok, f"13a {name} {dtype}: prefill and {LM_SMOKE_DECODE} "
+                       f"decode steps on (1, {TP_RANKS}) against one "
+                       f"process, max |d| {worst:.3e} (bar {tol}" + (
+                           "" if spread is None else
+                           f"; beyond it, the one process's own one-ulp "
+                           f"spread {spread:.3e}") + ")")
+        out["smoke"][f"{name} {dtype}"] = {"max_abs_err": worst,
+                                           "one_ulp_spread": spread}
+    log(f"13a: {len(cases)} cases in {res['smoke_s']:.1f} s in the world")
+
+    # 13b
+    f, r = res["full"], ref["full"]
+    cfg = _tp_cfg("bfloat16")
+    std = float(torch.cat([x.flatten() for x in r["logits"]]).std())
+    errs = [_within(g, w, 0.0)[1] for g, w in zip(f["logits"], r["logits"])]
+    bars.check(max(errs) <= TP_BAR * std,
+               f"13b {LM_ARCH} (1, {TP_RANKS}): prefill of {TP_B} x "
+               f"{TP_PROMPT} and {TP_STEPS} decode steps fed the one "
+               f"process's picks: max |d| {max(errs):.4f} = "
+               f"{max(errs) / std:.4f} of the one-process logits' std "
+               f"{std:.4f} (bar {TP_BAR}); prefill |d| {errs[0]:.4f}")
+    rows = f["rows"]
+    pre, dec = rows[0], rows[1:]
+    dec_ms = statistics.median(1e3 * x["s"] for x in dec)
+    one_pre, one_dec = r["secs"][0], statistics.median(r["secs"][1:])
+    prefill_flops = analytic.cell_flops(cfg, ShapeConfig(
+        "13b_prefill", "prefill", TP_PROMPT, TP_B))["fwd_flops"]
+    decode_flops = analytic.cell_flops(cfg, ShapeConfig(
+        "13b_decode", "decode", TP_PROMPT + TP_STEPS // 2, TP_B))[
+        "fwd_flops"]
+    kv_bytes = (2 * cfg.n_layers * TP_B * cfg.n_kv_heads * cfg.head_dim * 2
+                * (TP_PROMPT + TP_STEPS // 2))
+    decode_bytes = r["weight_bytes"] - cfg.vocab_size * cfg.d_model * 2 \
+        + kv_bytes
+    bound_pre = prefill_flops / BF16_FLOPS
+    bound_dec = max(decode_flops / BF16_FLOPS, decode_bytes / HBM_BYTES_PER_S)
+    log(f"13b {LM_ARCH}: {r['n_params']:,} parameters, "
+        f"{r['weight_bytes'] / 1e9:.3f} GB; placed on each rank in "
+        f"{f['init_s']:.2f} s (one process draws the whole model in "
+        f"{r['init_s']:.2f} s)")
+    log(f"13b prefill of {TP_B} x {TP_PROMPT}: {pre['s']:.3f} s on "
+        f"(1, {TP_RANKS}) against {one_pre:.3f} s in one process (bound "
+        f"{1e3 * bound_pre:.1f} ms: {prefill_flops / 1e12:.2f} TFLOP of "
+        f"launch.analytic at {BF16_FLOPS / 1e12:.0f} TFLOP/s); "
+        f"{TP_B * TP_PROMPT / pre['s']:.0f} prompt tokens/s")
+    log(f"13b decode step, batch {TP_B}: median {dec_ms:.2f} ms "
+        f"(range {1e3 * min(x['s'] for x in dec):.2f}-"
+        f"{1e3 * max(x['s'] for x in dec):.2f}) against {1e3 * one_dec:.2f} "
+        f"ms in one process (bound {1e3 * bound_dec:.2f} ms: "
+        f"{decode_bytes / 1e9:.2f} GB of weights and cache at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {decode_flops / 1e9:.1f} "
+        f"GFLOP); {TP_B * 1e3 / dec_ms:.1f} generated tokens/s")
+    for label, x in (("prefill", pre), ("decode step (median)",
+                                        sorted(dec, key=lambda y: y["s"])[
+                                            len(dec) // 2])):
+        log(f"13b collectives a {label}: {x['collective_calls']} calls, "
+            f"{x['collective_bytes'] / 1e9:.4f} GB, "
+            f"{x['collective_seconds']:.3f} s host "
+            f"({x['collective_copy_seconds']:.3f} s of it host copies), "
+            f"{100 * x['collective_seconds'] / x['s']:.1f}% of it; weights "
+            f"gathered {x['gathered_calls']} ({x['gathered_bytes']} bytes)")
+    half = r["weight_bytes"] / 2
+    bars.check(abs(f["resident_bytes"] - half) <= f["whole_bytes"],
+               f"13b rank 0 holds {f['resident_bytes'] / 1e9:.4f} GB of "
+               f"weights against half the model's "
+               f"{half / 1e9:.4f} GB ({f['split_bytes'] / 1e9:.4f} GB of "
+               f"slices, {f['whole_bytes'] / 1e6:.3f} MB of vectors kept "
+               f"whole)")
+    gathered = max(x["gathered_bytes"] for x in dec)
+    bars.check(gathered < 0.01 * f["resident_bytes"],
+               f"13b weight bytes gathered a decode step {gathered} (under "
+               f"1% of a rank's weights)")
+    log(f"13b KV cache a layer on rank 0 {f['cache_k']} (its KV heads); "
+        f"peak rank 0 {f['peak_gb']:.2f} GB ({f['place_peak_gb']:.2f} GB "
+        f"while placing); one process {r['peak_gb']:.2f} GB; nvidia-smi "
+        f"peak {mem.peak_mib} MiB; world {world_s:.1f} s")
+    out["full"] = {
+        "n_params": r["n_params"], "weight_bytes": r["weight_bytes"],
+        "rows": rows, "max_abs_err": max(errs), "logits_std": std,
+        "prefill_s": pre["s"], "decode_ms_median": dec_ms,
+        "tokens_per_s": TP_B * 1e3 / dec_ms,
+        "one_process": {"prefill_s": one_pre, "decode_ms_median":
+                        1e3 * one_dec, "peak_gb": r["peak_gb"]},
+        "prefill_bound_ms": 1e3 * bound_pre,
+        "decode_bound_ms": 1e3 * bound_dec,
+        "analytic_flops": {"prefill": prefill_flops,
+                           "decode": decode_flops},
+        **{k: f[k] for k in ("init_s", "resident_bytes", "split_bytes",
+                             "whole_bytes", "place_peak_gb", "peak_gb",
+                             "cache_k")}}
+
+    # 13c
+    errs = [_within(g, w, LM_TOL["float32"])
+            for g, w in zip(res["f32"], ref["f32"])]
+    worst = max(e for _, e in errs)
+    bars.check(all(o for o, _ in errs),
+               f"13c {LM_ARCH} widths, {TP_F32_LAYERS} layers, float32: "
+               f"prefill of {TP_B} x {TP_PROMPT} and {TP_STEPS} decode "
+               f"steps on (1, {TP_RANKS}) against one process, max |d| "
+               f"{worst:.3e} (bar {LM_TOL['float32']})")
+    out["f32"] = {"max_abs_err": worst}
+    bars.check(res["kernel_launches"] == 0,
+               f"13: B1-B4 launched {res['kernel_launches']} times in the "
+               f"world (the LM path reaches none)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 in {out['phase_s']:.1f} s")
+    bars.raise_if_failed("phase 13")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
     ap.add_argument("--phases", choices=("all", "10", "11", "11c", "12",
-                                         "12d"),
+                                         "12d", "13"),
                     default="all",
-                    help="'10' / '11' / '12': phase 1 and the LM serving / "
-                         "training / multi-rank training phase alone (for "
+                    help="'10' / '11' / '12' / '13': phase 1 and the LM "
+                         "serving / training / multi-rank training / "
+                         "tensor-parallel serving phase alone (for "
                          "iterating; no kernels line); '11c' / '12d': that "
                          "part alone, the child process phase 11 / 12 "
                          "starts")
@@ -4335,13 +4801,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases in ("10", "11", "12"):
+    if args.phases in ("10", "11", "12", "13"):
         if args.phases == "10":
             print(json.dumps({"lm": lm_phase(torch, args.trace)}),
                   flush=True)
         elif args.phases == "11":
             print(json.dumps({"train": train_phase(torch, args.trace,
                                                    out_dir)}), flush=True)
+        elif args.phases == "13":
+            print(json.dumps({"tp": tp_phase(torch, out_dir)}), flush=True)
         else:
             print(json.dumps({"dist": dist_phase(torch, out_dir, None)}),
                   flush=True)
@@ -4458,6 +4926,9 @@ def main() -> int:
     # -- phase 12: LM training over ranks sharing the card (none either) -----
     dist = dist_phase(torch, out_dir, train["full"]["steps"])
 
+    # -- phase 13: tensor-parallel serving over ranks (none either) ----------
+    tp = tp_phase(torch, out_dir)
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -4505,6 +4976,7 @@ def main() -> int:
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"dist": dist}), flush=True)
+    print(json.dumps({"tp": tp}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

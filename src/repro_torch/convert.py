@@ -212,17 +212,28 @@ def _flat(prefix: str, tree: Dict[str, Any]) -> Iterator[Tuple[str, Any]]:
 
 
 def lm_params_from_repro(cfg: ModelConfig, params: Dict[str, Any], *,
-                         device=None) -> Dict[str, torch.Tensor]:
+                         device=None, shardings=None
+                         ) -> Dict[str, torch.Tensor]:
     """The port's `LM` state dict from the reference's `LM(cfg).init`
     pytree (leaves as numpy arrays): the [n_cycles, ...] stacks of
     `params["blocks"]` unstacked into one entry a layer.  Load it with
-    `LM(cfg, device="meta").load_state_dict(state, assign=True)`."""
+    `LM(cfg, device="meta").load_state_dict(state, assign=True)`.
+
+    `shardings` (`param_shardings(rules, LM(cfg, device="meta")
+    .param_tree(), serve=True)`) gives this rank its slices of the
+    weights instead, each placed as `LM(cfg, shardings=...)` places it;
+    load them with `LM(cfg, device="meta").assign_params(state)`."""
     dev = resolve_device(device)
     state = {name: _lm_tensor(params[name], dev)
              for name in ("embed", "final_norm", "head") if name in params}
     for layer, entry in _stack_layers(cfg, params):
         for name, a in _flat(f"blocks.{layer}.", entry):
             state[name] = _lm_tensor(a, dev)
+    if shardings is not None:
+        from repro_torch.dist.sharding import reshard
+        from repro_torch.models.model import member_placements
+        for name, pl in member_placements(cfg, shardings).items():
+            state[name] = reshard(state[name], pl)
     return state
 
 

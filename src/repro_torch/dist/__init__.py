@@ -19,8 +19,10 @@
                  sharding context, the rules' answers inside one) and the
                  batch's sums over the ranks that split it
   pipeline     - `make_pipelined_loss`: the GPipe schedule over a mesh axis
-  comm         - the training path's counted collectives (gloo stages a
-                 CUDA tensor through the host)
+  comm         - the counted collectives of training and serving over
+                 ranks (gloo stages a CUDA tensor through the host)
+  tp           - tensor-parallel serving: each product's share and
+                 collective from where its weight is split ("tp" rules)
 
 The reference (`repro.dist`) is single-controller SPMD: `shard_map` over
 a `jax.sharding.Mesh`.  Here every rank is a process holding its own
@@ -30,4 +32,4 @@ importing `repro_torch.dist` touches no process group.
 """
 
 __all__ = ["graph", "mesh2d", "fault", "compression", "world", "act",
-           "sharding", "pipeline", "comm"]
+           "sharding", "pipeline", "comm", "tp"]

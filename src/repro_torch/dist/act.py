@@ -5,12 +5,18 @@ Model code annotates intermediate tensors with logical axes ("dp", "sp",
 `activation_sharding(rules)` context every annotation is the identity,
 `axis_size` is 1 and `is_serve` is False: the unsharded path on one
 device.  Inside one, `axis_size` and `is_serve` answer from the rules
-(`dist/sharding.py`).  Every rank is a process holding its own slice: in
-a step each activation is already the rank's rows of the batch, so
-`constrain` returns `x` itself where the rules split it over "dp" or
-"fsdp" (after checking for a process group of the mesh's size), and
-raises where they split it over "tp", "sp" or "ep" (the "tp" policy's
-tensor, sequence and expert parallelism, ROADMAP A12.2c).
+(`dist/sharding.py`).  Every rank is a process holding its own slice,
+and the model code computes each activation in the layout its weights'
+placements give (`dist/tp.py`), so `constrain` is a mark: it returns `x`
+itself, after checking for a process group of the mesh's size where the
+rules split it.  In a step each activation is already the rank's rows
+of the batch ("dp", "fsdp").  In a serve context a split over "tp",
+"sp" or "ep" (the "tp" policy's tensor, sequence and expert
+parallelism) is the rank's heads, channels or features where the
+compute produced them; over "sp" the stream stays whole on every rank
+of "model" (the reference splits it for training memory and for
+GSPMD's prefill reshards).  Outside a serve context such a split is
+training under "tp", which is not ported (ROADMAP A12.2d), and raises.
 
 Reductions over the batch.  Within `batch_split(mesh, axes)` the rows of
 the batch are split over those mesh axes (the train step enters it):
@@ -58,27 +64,34 @@ _BATCH_LOGICAL = ("dp", "fsdp")
 
 def constrain(x, *logical_axes):
     """`x` itself: outside any context, where the rules split it over no
-    mesh axis of more than one device, or over "dp"/"fsdp" only (this
-    rank's rows).  A split over "tp", "sp" or "ep" raises, and so does a
-    split without a process group of the mesh's size."""
+    mesh axis of more than one device, over "dp"/"fsdp" only (this rank's
+    rows), or in a serve context (the layout the compute produced).  A
+    split over "tp", "sp" or "ep" outside a serve context raises, and so
+    does any split without a process group of the mesh's size."""
     cur = _current()
     if cur is None:
         return x
     from repro_torch.dist import comm
     from repro_torch.dist.sharding import split_axes
-    rules = cur[0]
+    rules, serve = cur
     spec = rules.spec(x.shape, logical_axes)
     for part, logical in zip(spec, logical_axes):
         split = split_axes(rules.mesh, (part,))
-        if split and logical not in _BATCH_LOGICAL:
+        if split and logical not in _BATCH_LOGICAL and not serve:
             raise NotImplementedError(
                 f"constrain {tuple(logical_axes)} splits {tuple(x.shape)} "
-                f"over mesh axes {split} as {logical!r}: tensor, sequence "
-                f"and expert parallelism are not ported yet (ROADMAP "
-                f"A12.2c)")
+                f"over mesh axes {split} as {logical!r} outside a serve "
+                f"context: training under tensor, sequence and expert "
+                f"parallelism is not ported yet (ROADMAP A12.2d)")
     if split_axes(rules.mesh, spec):
         comm.coords(rules.mesh, f"constrain {tuple(logical_axes)}")
     return x
+
+
+def current_rules():
+    """The active context's ShardingRules, or None outside any."""
+    cur = _current()
+    return None if cur is None else cur[0]
 
 
 def axis_size(logical_axis: str) -> int:

@@ -17,6 +17,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tp
+from repro_torch.dist.act import constrain
+
 
 def _rms(xf: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -226,6 +229,16 @@ def activation(a: torch.Tensor, act: str) -> torch.Tensor:
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return (activation(x @ w1, act) * (x @ w3)) @ w2
+
+
+def mlp(h: torch.Tensor, p, cfg) -> torch.Tensor:
+    """A block's gated MLP, `swiglu` over its weights p.w1, p.w3, p.w2, its
+    hidden features this rank's chunk where they split over "tp"
+    (`dist/tp.py`)."""
+    loc = tp.divides(cfg.d_ff)
+    h1 = constrain(activation(tp.matmul(h, p.w1, local=loc), cfg.act),
+                   "dp", None, "tp")
+    return tp.matmul(h1 * tp.matmul(h, p.w3, local=loc), p.w2, x_local=loc)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,20 @@ layout, so `x @ p.wq` reads as the reference's `x @ p["wq"]`.  The cache
 is a dict of preallocated tensors written in place: `{"pos": int, "layers":
 [one dict a layer]}`; `pos` is a host int, so a decode step never reads
 the device.
+
+Tensor-parallel serving (the "tp" policy, `dist/tp.py`).  `LM(cfg,
+shardings=...)` (a `param_shardings(rules, LM(cfg, device="meta")
+.param_tree(), serve=True)` tree) draws every block whole, in the order
+and from the seed a one-device `LM(cfg)` draws, keeps this rank's slices
+(`member_placements`) and frees the rest; `assign_params` takes a rank's
+slices made elsewhere (`convert.lm_params_from_repro(..., shardings=)`).
+Inside `activation_sharding(rules, serve=True)` the blocks multiply the
+rank's share of every product: attention over the rank's heads (the
+reference's choice between heads and sequence: the sequence layout keeps
+every head on every rank, "sp" staying whole), the MLP over its hidden
+features, the embedding over its vocabulary rows.  The residual stream
+and the returned logits are whole on every rank, and the KV cache holds
+the rank's KV heads where they split.
 """
 
 from __future__ import annotations
@@ -28,7 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.act import constrain, psum_batch
+from repro_torch.dist import tp
+from repro_torch.dist.act import axis_size, constrain, psum_batch
+from repro_torch.dist.sharding import (Placement, placement_of, reshard,
+                                       split_axes, split_dims,
+                                       with_placement)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -45,6 +63,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
+def _param(t: torch.Tensor) -> nn.Parameter:
+    """`t` as a parameter, keeping the placement of a rank's slice."""
+    return with_placement(nn.Parameter(t), placement_of(t))
+
+
 class Params(nn.Module):
     """Parameters under the reference's dict keys: a tensor becomes a
     trainable parameter, a nested dict a submodule, so `moe.experts.w1`
@@ -58,7 +81,7 @@ class Params(nn.Module):
             if isinstance(t, dict):
                 self.add_module(name, Params(t))
             else:
-                self.register_parameter(name, nn.Parameter(t))
+                self.register_parameter(name, _param(t))
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
@@ -129,9 +152,30 @@ def init_attn_block(gen, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
+def attn_layout(cfg: ModelConfig):
+    """(q's spec, k/v's spec, q heads split, k/v heads split) under the
+    active context: the reference's choice of heads-TP where the head
+    count divides the tp axis, else (or under qkv_spec="sp") the query's
+    sequence layout.  On ranks ("tp" over more than one device in a serve
+    context) the heads layout gives each rank its chunk of the q heads,
+    and of the KV heads where they divide too; the sequence layout keeps
+    every head on every rank ("sp" stays whole)."""
+    if cfg.qkv_spec == "sp":
+        qspec = kvspec = ("dp", "sp", None, None)
+    elif cfg.n_heads % max(axis_size("tp"), 1) == 0:
+        qspec = kvspec = ("dp", None, "tp", None)
+    else:
+        qspec = ("dp", "sp", None, None)
+        kvspec = ("dp", None, "tp", None)
+    heads = qspec[2] == "tp" and tp.divides(cfg.n_heads)
+    return qspec, kvspec, heads, heads and tp.divides(cfg.n_kv_heads)
+
+
 def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     dtype, device) -> dict:
     kv, hd = cfg.n_kv_heads, cfg.head_dim
+    if attn_layout(cfg)[3]:
+        kv //= tp.size()                    # this rank's KV heads
     w = min(cfg.window, max_len) if kind == "swa" else max_len
     cache = {"k": torch.zeros((batch, w, kv, hd), dtype=dtype, device=device),
              "v": torch.zeros((batch, w, kv, hd), dtype=dtype, device=device)}
@@ -157,18 +201,22 @@ def attn_block(x, p, cfg: ModelConfig, kind: str, cache: Optional[dict],
     b, s, _ = x.shape
     h_, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.window if kind == "swa" else None
+    qspec, kvspec, heads, kv_split = attn_layout(cfg)
+    n = tp.size()
+    hl = h_ // n if heads else h_
+    kvl = kv // n if kv_split else kv
 
     hnorm = L.rmsnorm(x, p.ln1, cfg.norm_eps, x32)
-    q = hnorm @ p.wq
-    k = hnorm @ p.wk
-    v = hnorm @ p.wv
+    q = tp.matmul(hnorm, p.wq, local=heads)
+    k = tp.matmul(hnorm, p.wk, local=kv_split)
+    v = tp.matmul(hnorm, p.wv, local=kv_split)
     if cfg.qkv_bias:
-        q = q + p.bq.to(q.dtype)
-        k = k + p.bk.to(k.dtype)
-        v = v + p.bv.to(v.dtype)
-    q = constrain(q.reshape(b, s, h_, hd), "dp", None, "tp", None)
-    k = constrain(k.reshape(b, s, kv, hd), "dp", None, "tp", None)
-    v = constrain(v.reshape(b, s, kv, hd), "dp", None, "tp", None)
+        q = q + tp.chunk(p.bq, heads).to(q.dtype)
+        k = k + tp.chunk(p.bk, kv_split).to(k.dtype)
+        v = v + tp.chunk(p.bv, kv_split).to(v.dtype)
+    q = constrain(q.reshape(b, s, hl, hd), *qspec)
+    k = constrain(k.reshape(b, s, kvl, hd), *kvspec)
+    v = constrain(v.reshape(b, s, kvl, hd), *kvspec)
     if cfg.qk_norm:
         q = _head_norm(q, p.q_norm, cfg.norm_eps)
         k = _head_norm(k, p.k_norm, cfg.norm_eps)
@@ -206,12 +254,19 @@ def attn_block(x, p, cfg: ModelConfig, kind: str, cache: Optional[dict],
             kv_pos = torch.where(row < pos0 + s, row, -1).expand(b, max_len)
             kk, vv, triangular = cache["k"], cache["v"], False
 
+    if heads and not kv_split and kv > 1:
+        # this rank's q heads read their KV heads of the whole set (GQA)
+        idx = (tp.axis().i * hl + torch.arange(hl, device=x.device)) \
+            // (h_ // kv)
+        kk, vv = kk.index_select(2, idx), vv.index_select(2, idx)
     o = L.flash_attention(q, kk, vv, positions, kv_pos, window=window,
                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                           triangular=triangular)
     # wo / w2: a float32 sum rounded once to the activation dtype (the
-    # reference's reduce_dtype only changes a sharded reduction's wire type)
-    x, x32 = L.residual(x, o.reshape(b, s, h_ * hd) @ p.wo)
+    # reference's reduce_dtype only changes a sharded reduction's wire type;
+    # split over ranks, the float32 partials are summed: `tp.matmul`)
+    x, x32 = L.residual(x, tp.matmul(o.reshape(b, s, hl * hd), p.wo,
+                                     x_local=heads))
     x = constrain(x, "dp", "sp", None)
 
     h2 = L.rmsnorm(x, p.ln2, cfg.norm_eps, x32)
@@ -219,8 +274,7 @@ def attn_block(x, p, cfg: ModelConfig, kind: str, cache: Optional[dict],
     if cfg.moe:
         ffn, aux = moe_ffn(h2, p.moe, cfg)
     else:
-        h1 = constrain(L.activation(h2 @ p.w1, cfg.act), "dp", None, "tp")
-        ffn = (h1 * (h2 @ p.w3)) @ p.w2
+        ffn = L.mlp(h2, p, cfg)
     x, x32 = L.residual(x, ffn)
     return constrain(x, "dp", "sp", None), cache, aux, x32
 
@@ -265,39 +319,99 @@ def apply_block(kind: str, x, p, cfg, cache, positions, pos0, x32=None):
 # the model
 # ---------------------------------------------------------------------------
 
+def _codebook_logits(x, head):
+    return torch.einsum("bsd,cdv->bscv", x, head)
+
+
+def member_placements(cfg: ModelConfig, shardings: Dict[str, Any]
+                      ) -> Dict[str, Placement]:
+    """The Placement of each parameter of an `LM` of `cfg` (its
+    state-dict name) that a rank holds as a slice under `shardings` (a
+    tree of Placements over `LM.param_tree()`'s layout, as
+    `param_shardings` gives it): a stacked leaf's placement without its
+    stacking dim.  A parameter is whole on every rank, and has no entry,
+    where its placement splits nothing, where it is a vector (the blocks
+    use norms, biases and gates whole, so they stay whole from placement
+    on), or where its leaf is split on the stacking dim (no
+    configuration's serve placement does that)."""
+    out: Dict[str, Placement] = {}
+
+    def walk(prefix: str, tree, stacked: bool):
+        for k, pl in tree.items():
+            if isinstance(pl, dict):
+                walk(f"{prefix}{k}.", pl, stacked)
+                continue
+            spec = pl.spec
+            if stacked:
+                if split_axes(pl.mesh, spec[:1]):
+                    continue
+                spec = spec[1:]
+            member = Placement(pl.mesh, tuple(spec))
+            if len(spec) > 1 and split_dims(member):
+                out[prefix + k] = member
+
+    period = len(cfg.block_pattern)
+    for i, tree in enumerate(shardings["blocks"]):
+        for c in range(cfg.pattern_cycles):
+            walk(f"blocks.{c * period + i}.", tree, True)
+    for j, tree in enumerate(shardings["rem"]):
+        walk(f"blocks.{cfg.pattern_cycles * period + j}.", tree, False)
+    walk("", {k: v for k, v in shardings.items()
+              if k in ("embed", "head", "final_norm")}, False)
+    return out
+
+
 class LM(nn.Module):
     """The language model of `cfg` on `device` (None: CUDA).  Its
     parameters are drawn from `generator`, or from a generator on the
     device seeded with `seed`; on the meta device nothing is drawn (the
     parameter counts, or `load_state_dict(..., assign=True)` of
-    `convert.lm_params_from_repro`'s state)."""
+    `convert.lm_params_from_repro`'s state).  With `shardings` (see the
+    module's docstring) a rank keeps only its slices: each block is drawn
+    whole and cut, so a rank's peak while it places the weights is its
+    slices plus one whole block (or the embedding or head, if larger)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shardings: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(seed)
-        self.init(generator, dev)
+        self.init(generator, dev, {} if shardings is None
+                  else member_placements(cfg, shardings))
 
     # -- params ---------------------------------------------------------------
 
-    def init(self, gen: Optional[torch.Generator], device) -> None:
+    def init(self, gen: Optional[torch.Generator], device,
+             placements: Optional[Dict[str, Placement]] = None) -> None:
         """Draws every parameter, in stack order: embed, the blocks, the
-        head (float32 draws cast to param_dtype, as `dense_init`)."""
+        head (float32 draws cast to param_dtype, as `dense_init`); a
+        parameter named in `placements` is cut to this rank's slice as
+        soon as its block is drawn."""
         cfg = self.cfg
         dtype = _dtype(cfg)
+        placements = placements or {}
+
+        def cut(prefix: str, t):
+            if isinstance(t, dict):
+                return {k: cut(f"{prefix}{k}.", v) for k, v in t.items()}
+            pl = placements.get(prefix[:-1])
+            return t if pl is None else reshard(t, pl)
+
         if cfg.n_codebooks:
             shape = (cfg.n_codebooks, cfg.vocab_size, cfg.d_model)
         else:
             shape = (cfg.vocab_size, cfg.d_model)
-        self.embed = nn.Parameter(L.normal(gen, shape, 0.02, dtype, device))
+        self.embed = _param(cut("embed.", L.normal(gen, shape, 0.02, dtype,
+                                                    device)))
         pattern = cfg.block_pattern
         self.blocks = nn.ModuleList(
-            Block(kind, _INIT[kind](gen, cfg, dtype, device))
-            for kind in (pattern[i % len(pattern)]
-                         for i in range(cfg.n_layers)))
+            Block(kind, cut(f"blocks.{i}.",
+                            _INIT[kind](gen, cfg, dtype, device)))
+            for i, kind in ((i, pattern[i % len(pattern)])
+                            for i in range(cfg.n_layers)))
         self.final_norm = nn.Parameter(L.vector(cfg.d_model, 1.0, device))
         head = None
         if not cfg.tie_embeddings:
@@ -307,8 +421,23 @@ class LM(nn.Module):
             else:
                 head = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
                                     device)
-            head = nn.Parameter(head)
+            head = _param(cut("head.", head))
         self.head = head
+
+    def assign_params(self, state: Dict[str, torch.Tensor]) -> "LM":
+        """Every parameter replaced by the tensor of its name in `state`:
+        `load_state_dict(state, assign=True)` for a rank's slices too
+        (`convert.lm_params_from_repro(..., shardings=)`), each keeping its
+        placement.  `state` names every parameter."""
+        names = set(dict(self.named_parameters()))
+        if set(state) != names:
+            raise KeyError(f"state and model differ: missing "
+                           f"{sorted(names - set(state))[:4]}, unexpected "
+                           f"{sorted(set(state) - names)[:4]}")
+        for name, t in state.items():
+            mod, _, attr = name.rpartition(".")
+            setattr(self.get_submodule(mod) if mod else self, attr, _param(t))
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -329,7 +458,9 @@ class LM(nn.Module):
             first = trees[0]
             if isinstance(first, dict):
                 return {k: stack([t[k] for t in trees]) for k in first}
-            return Stacked(trees)
+            pl = placement_of(first)
+            return with_placement(Stacked(trees), None if pl is None else
+                                  Placement(pl.mesh, (None,) + pl.spec))
 
         blocks = tuple(
             stack([self.blocks[c * period + i].tree() for c in range(n_cyc)])
@@ -359,10 +490,10 @@ class LM(nn.Module):
         cfg = self.cfg
         if cfg.n_codebooks:
             # tokens [B, S, n_cb]: summed codebook embeddings
-            x = sum(self.embed[c][tokens[..., c]]
+            x = sum(tp.lookup(tp.index(self.embed, c), tokens[..., c])
                     for c in range(cfg.n_codebooks))
         else:
-            x = self.embed[tokens]
+            x = tp.lookup(self.embed, tokens)
         if patch_embeds is not None:
             x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
         return constrain(x, "dp", "sp", None)
@@ -370,9 +501,11 @@ class LM(nn.Module):
     def _head(self, x, x32=None):
         cfg = self.cfg
         xf = L.rmsnorm(x, self.final_norm, cfg.norm_eps, x32)
+        # the logits whole on every rank (each rank's picks agree)
         if cfg.n_codebooks:
-            return torch.einsum("bsd,cdv->bscv", xf, self.head)
-        return xf @ (self.embed.T if cfg.tie_embeddings else self.head)
+            return tp.matmul(xf, self.head, fn=_codebook_logits)
+        return tp.matmul(xf, tp.transpose(self.embed) if cfg.tie_embeddings
+                         else self.head)
 
     # -- layer stack -----------------------------------------------------------------
 

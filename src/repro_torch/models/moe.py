@@ -7,6 +7,13 @@ reference cuts the global batch's tokens into g = axis_size("fsdp")
 groups; where the batch's rows are split over ranks (`act.batch_split`)
 each rank's tokens are g / shards of those groups, and the load-balance
 means run over every rank's tokens.
+
+On ranks under the "tp" serve rules (`dist/tp.py`) the router and the
+experts' products follow their weights' placements: no serve placement
+of any configuration splits the expert dim E (E is smaller than D and
+F), so the experts' F or D dim is split, every rank dispatches every
+token, and no token crosses ranks.  The reference's `ep_spec` marks the
+dispatch buffer as it does; they mark, they move nothing.
 """
 
 from __future__ import annotations
@@ -16,8 +23,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tp
 from repro_torch.dist.act import (axis_size, batch_shards, constrain,
-                                  psum_batch)
+                                  is_serve, psum_batch)
 from repro_torch.models.layers import dense_init, silu
 
 
@@ -56,7 +64,7 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     t = b * s
     xt = x.reshape(t, d)
 
-    logits = xt.float() @ p.router                             # [T, E]
+    logits = tp.matmul(xt.float(), p.router)                  # [T, E]
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k(probs, k)                             # [T, k]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)            # renormalize
@@ -98,10 +106,23 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     grp = torch.arange(g, device=x.device)[:, None].expand(g, tg * k)
     buf = torch.zeros((g, e, cap, d), dtype=x.dtype, device=x.device)
     buf.index_put_((grp, eg, pos_c), upd, accumulate=True)     # [G, E, C, D]
+    # the reference's expert-parallel marks: experts over "tp" where E
+    # divides it; otherwise per-group capacity, or (decode-scale serve
+    # batches) the groups alone
+    if e % max(axis_size("tp"), 1) == 0:
+        ep_spec = ("fsdp", "tp", None, None)
+    elif is_serve() and t_all <= 4096:
+        ep_spec = ("fsdp", None, None, None)
+    else:
+        ep_spec = ("fsdp", None, "tp", None)
+    buf = constrain(buf, *ep_spec)
 
     w = p.experts
-    h = silu(buf @ w.w1) * (buf @ w.w3)                      # [G, E, C, F]
-    out = h @ w.w2                                             # [G, E, C, D]
+    loc = tp.divides(cfg.d_ff)              # this rank's chunk of F
+    h = silu(tp.matmul(buf, w.w1, local=loc)) * tp.matmul(buf, w.w3,
+                                                          local=loc)
+    h = constrain(h, *ep_spec)                                 # [G, E, C, F]
+    out = constrain(tp.matmul(h, w.w2, x_local=loc), *ep_spec)  # [G,E,C,D]
 
     gathered = out[grp, eg, pos_c]                             # [G, Tg*k, D]
     weight = (pg * keep).to(x.dtype)

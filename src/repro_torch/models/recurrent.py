@@ -4,6 +4,14 @@ Recurrence: h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 with a_t = exp(c * r_t * log sigmoid(Lambda)), r/i gates linear in the branch
 input.  Train/prefill runs a log-step scan over the sequence; decode is the
 same scan over one step.
+
+On ranks under the "tp" serve rules (`dist/tp.py`) the block runs over
+this rank's chunk of the R channels, as the reference marks them: the
+gate and input products give the rank's channels, the conv, the gates'
+elementwise math and the scan are per channel, the square gate matrices
+gather their input and give the rank's channels, and the output product
+and the MLP follow their weights' placements.  The cache holds the
+rank's channels.
 """
 
 from __future__ import annotations
@@ -14,10 +22,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tp
 from repro_torch.dist.act import constrain
-from repro_torch.models.layers import (activation, dense_init, normal,
-                                       residual, rmsnorm, sigmoid, silu,
-                                       vector)
+from repro_torch.models.layers import (dense_init, mlp, normal, residual,
+                                       rmsnorm, sigmoid, silu, vector)
 
 _C = 8.0  # Griffin's fixed exponent scale
 
@@ -57,6 +65,8 @@ def _uniform(gen, shape, lo: float, hi: float, device) -> torch.Tensor:
 
 def init_rglru_cache(cfg, batch: int, dtype, device) -> dict:
     r = cfg.d_rnn_eff
+    if tp.divides(r):
+        r //= tp.size()                     # this rank's channels
     return {
         "h": torch.zeros((batch, r), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=dtype,
@@ -106,15 +116,20 @@ def rglru_block(x: torch.Tensor, p, cfg, cache: Optional[dict], x32=None
                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """x [B, S, D] -> (x + block(x), cache written in place, the output's
     unrounded float32 value); x32 as in `model.attn_block`."""
+    loc = tp.divides(cfg.d_rnn_eff)         # this rank's chunk of channels
     h = rmsnorm(x, p.ln, cfg.norm_eps, x32)
-    gate = constrain(silu(h @ p.w_gate), "dp", None, "tp")
-    u = constrain(h @ p.w_in, "dp", None, "tp")               # [B,S,R]
+    gate = constrain(silu(tp.matmul(h, p.w_gate, local=loc)), "dp", None,
+                     "tp")
+    u = constrain(tp.matmul(h, p.w_in, local=loc), "dp", None, "tp")
     uf, conv_state = causal_conv(
-        u, p.conv_w, cache["conv"] if cache is not None else None, f32=True)
+        u, tp.local(p.conv_w, loc), cache["conv"] if cache is not None else None, f32=True)
 
-    r = sigmoid(uf @ p.w_r.float() + p.b_r)
-    i = sigmoid(uf @ p.w_i.float() + p.b_i)
-    log_a = _C * r * F.logsigmoid(p.lam)                      # [B,S,R] (<0)
+    # uf @ w_r.float(): the one-device product in float32
+    r = sigmoid(tp.matmul(uf, p.w_r, x_local=loc, local=loc)
+                + tp.chunk(p.b_r, loc))
+    i = sigmoid(tp.matmul(uf, p.w_i, x_local=loc, local=loc)
+                + tp.chunk(p.b_i, loc))
+    log_a = _C * r * F.logsigmoid(tp.chunk(p.lam, loc))      # [B,S,R] (<0)
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     b = beta * (i * uf)
@@ -124,11 +139,11 @@ def rglru_block(x: torch.Tensor, p, cfg, cache: Optional[dict], x32=None
                            device=x.device))
     hs = lru_scan(a, b, h0)                                   # [B,S,R] f32
 
-    x, x32 = residual(x, (gate * hs.to(x.dtype)) @ p.w_out)
+    x, x32 = residual(x, tp.matmul(gate * hs.to(x.dtype), p.w_out,
+                                   x_local=loc))
     if "w1" in p:  # Griffin: MLP block after every temporal-mixing block
-        h2 = rmsnorm(x, p.ln2, cfg.norm_eps, x32)
-        a = constrain(activation(h2 @ p.w1, cfg.act), "dp", None, "tp")
-        x, x32 = residual(x, (a * (h2 @ p.w3)) @ p.w2)
+        x, x32 = residual(x, mlp(rmsnorm(x, p.ln2, cfg.norm_eps, x32), p,
+                                 cfg))
     if cache is not None:
         cache["h"].copy_(hs[:, -1, :])
         cache["conv"].copy_(conv_state)

@@ -6,6 +6,11 @@ decode takes one step on the carried state.  The reference pads a prefill
 to a multiple of its 128-step chunk and carries the state through the
 padded steps too, so after a prompt of any other length its cache is not
 the state after the prompt; the port's is (ROADMAP C).
+
+On ranks under the "tp" serve rules the reference marks nothing in these
+blocks, so each block gathers its split weights whole at use
+(`dist.tp.gathered`, counted in `tp.GATHERED`) and every rank runs the
+block whole; their caches stay whole.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tp
 from repro_torch.models.layers import (dense_init, normal, residual,
                                        rmsnorm, sigmoid, silu, silu32,
                                        vector)
@@ -95,6 +101,7 @@ def mlstm_block(x: torch.Tensor, p, cfg, cache: Optional[dict], x32=None
     float32 value); x32 as in `model.attn_block`."""
     b, s, d = x.shape
     di, h, dh = _mlstm_dims(cfg)
+    p = tp.gathered(p)
     xn = rmsnorm(x, p.ln, cfg.norm_eps, x32)
     u, z = torch.chunk(xn @ p.w_up, 2, dim=-1)       # [B,S,di] each
     uc, conv_state = causal_conv(u, p.conv_w,
@@ -201,6 +208,7 @@ def slstm_block(x: torch.Tensor, p, cfg, cache: Optional[dict], x32=None
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
+    p = tp.gathered(p)
     xf = rmsnorm(x, p.ln, cfg.norm_eps, x32).float()
     zx = xf @ p.wz.float() + p.bz
     ix = xf @ p.wi.float() + p.bi

@@ -1164,3 +1164,31 @@ def test_fsdp_step_and_pipeline_on_the_card_match_the_cpu(cuda, tmp_path):
     assert abs(p["pipelined"] - p["sequential"]) < 1e-5
     for g, w in zip(p["grads"], p["want"]):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_tp_serving_on_the_card_matches_one_process(cuda, tmp_path):
+    """A (1, 2) gloo world of two ranks sharing the card under the "tp"
+    rules: qwen2.5-14b's float32 smoke config drawn on the card as each
+    rank's slices of `LM(cfg, seed=0)`, prefill of 20 tokens and 2 decode
+    steps, held at 1e-4 against `LM(cfg, seed=0)` in this process."""
+    import dataclasses
+    import torch_tp_ranks as ranks
+    from repro_torch import configs
+    from repro_torch.dist.world import run_world
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+    from torch_multidev_ref import TP_S, tp_inputs
+    out = run_world(ranks.cuda_world, 2, device="cuda",
+                    store_dir=str(tmp_path))
+    cfg = dataclasses.replace(configs.get_smoke("qwen2.5-14b"),
+                              param_dtype="float32")
+    engine = ServeEngine(LM(cfg, device="cuda", seed=0), max_len=32)
+    t = torch.from_numpy(tp_inputs(cfg)[0]).cuda()
+    cache = engine.new_cache(t.shape[0])
+    want = [engine.prefill(t[:, :TP_S], cache)[0]]
+    for j in range(2):
+        want.append(engine.decode(t[:, TP_S + j:TP_S + j + 1], cache)[0])
+    for got, w in zip(out["logits"], want):
+        np.testing.assert_allclose(got, w.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    assert out["calls"] == 3 * (5 * cfg.n_layers + 2)

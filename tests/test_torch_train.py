@@ -495,8 +495,10 @@ def test_reshard_and_constrain_raise_on_a_split_axis():
     """One device: every placement is the device and constrain the
     identity.  An axis of two devices without a process group: a split
     raises and names the process group (it never replicates); a "tp"
-    split raises and names ROADMAP A12.2c (tests/test_torch_train_fsdp.py
-    runs the splits on a world of ranks)."""
+    split in a serve context without a process group raises and names
+    it, and in training raises and names ROADMAP A12.2d
+    (tests/test_torch_train_fsdp.py and tests/test_torch_tp.py run the
+    splits on a world of ranks)."""
     x = torch.ones(8, 4)
     one = tsh.ShardingRules(make_host_mesh(device="cpu"), "dp")
     big = tsh.ShardingRules(make_mesh((2, 1), ("data", "model"),
@@ -519,8 +521,12 @@ def test_reshard_and_constrain_raise_on_a_split_axis():
         y = torch.ones(3, 4)
         assert act.constrain(y, "dp", None) is y
     tp = tsh.ShardingRules(make_mesh((1, 2), ("data", "model")), "tp")
+    with act.activation_sharding(tp, serve=True):
+        with pytest.raises(RuntimeError, match="process group"):
+            act.constrain(x, None, "tp")
+        assert act.constrain(x, "dp", None) is x
     with act.activation_sharding(tp):
-        with pytest.raises(NotImplementedError, match="A12.2c"):
+        with pytest.raises(NotImplementedError, match="A12.2d"):
             act.constrain(x, None, "tp")
         assert act.constrain(x, "dp", None) is x
     # and outside any context the hooks are the identity again

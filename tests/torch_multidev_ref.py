@@ -18,6 +18,25 @@ which the port's rank side shares) imports no JAX.  Parts:
              batch of 6 rows, which the dp axis does not divide; the
              param/batch shardings' specs of every smoke architecture on
              (4, 1) and (2, 2)
+  tp_a, tp_b - tests/test_torch_tp*.py's serving cases (`TP_CASES`):
+             each smoke architecture of the part in float32 and bf16 on
+             one device, from `LM(cfg).init(PRNGKey(0))` (the weights
+             the port's world converts): prefill of `TP_S` tokens and
+             `TP_STEPS` decode steps fed the prompt's next tokens, the
+             logits of each; and greedy tokens (`TP_STEPS` of them:
+             prefill, then decode steps on the picks).  For the
+             recurrent bf16 cases also the spread of the forward's logits
+             when one embedding weight of a prompt token moves by one ulp
+             (tests/test_torch_models_zoo.py's bar for them)
+  tp_mesh    - the `TP_MESH` cases on a (2, 2) ("data", "model") mesh
+             under the "tp" rules, as `specs.build_cell` runs a serve
+             cell (params placed by `param_shardings(serve=True)`, the
+             cache by `cache_shardings`, the batch by `batch_shardings`,
+             the calls inside `activation_sharding(rules, serve=True)`),
+             the same steps and logits; and the same cases on one device
+  tp_specs   - the "tp" rules' serve param, cache and batch shardings'
+             specs of every smoke architecture on (1, 2), (2, 2) and
+             (1, 4)
 """
 
 import dataclasses
@@ -35,6 +54,33 @@ OPT = dict(peak_lr=LR, warmup_steps=2, total_steps=10)
 #: four dp groups drop others than one group would, so a step that ranks
 #: and caps the batch as one group misses the bars
 OVERRIDES = {"mixtral-8x7b": {"capacity_factor": 1.0}}
+
+#: the "tp" serving cases: (architecture, dtype) of each part
+TP_ARCHS = {"tp_a": ("minicpm-2b", "qwen3-32b", "qwen2.5-14b",
+                     "phi4-mini-3.8b", "pixtral-12b"),
+            "tp_b": ("mixtral-8x7b", "qwen3-moe-235b-a22b",
+                     "recurrentgemma-9b", "xlstm-350m", "musicgen-medium")}
+TP_CASES = {part: [(a, d) for a in archs for d in ("float32", "bfloat16")]
+            for part, archs in TP_ARCHS.items()}
+TP_MESH = [(a, d) for a in ("qwen2.5-14b", "mixtral-8x7b")
+           for d in ("float32", "bfloat16")]
+TP_RECURRENT = ("recurrentgemma-9b", "xlstm-350m")
+TP_B, TP_S, TP_STEPS = 2, 20, 4
+TP_SPEC_SHAPES = ((1, 2), (2, 2), (1, 4))
+
+
+def tp_inputs(cfg, seed: int = 0):
+    """numpy tokens [TP_B, TP_S + TP_STEPS(, n_cb)] and patch embeddings
+    (or None) of a serving case."""
+    rng = np.random.default_rng(seed)
+    shape = (TP_B, TP_S + TP_STEPS) + ((cfg.n_codebooks,)
+                                       if cfg.n_codebooks else ())
+    toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    pe = None
+    if cfg.patch_prefix:
+        pe = rng.standard_normal((TP_B, cfg.patch_prefix,
+                                  cfg.d_model)).astype(np.float32)
+    return toks, pe
 
 
 def _np(tree):
@@ -156,10 +202,159 @@ def fsdp():
     return out
 
 
+def _tp_model(name, dtype):
+    import jax
+    from repro import configs
+    from repro.models import LM
+    cfg = dataclasses.replace(configs.get_smoke(name), param_dtype=dtype)
+    f32 = LM(dataclasses.replace(cfg, param_dtype="float32")).init(
+        jax.random.PRNGKey(0))
+    want = jax.eval_shape(lambda: LM(cfg).init(jax.random.PRNGKey(0)))
+    # the bf16 init is the float32 draw cast (tests/torch_lm_parity.py)
+    params = jax.tree.map(lambda a, w: a.astype(w.dtype), f32, want)
+    return cfg, LM(cfg), params
+
+
+def _tp_run(cfg, model, params, wrap=lambda f: f, place=lambda t, k: t):
+    """Prefill and decode logits fed the prompt's next tokens, and the
+    greedy tokens, of one serving case (`wrap` jits each call in a
+    sharding context, `place` puts an input on its shardings)."""
+    import jax.numpy as jnp
+    toks, pe = tp_inputs(cfg)
+    pej = () if pe is None else (place(jnp.asarray(pe), "batch"),)
+    pre, dec = wrap(model.prefill), wrap(model.decode_step)
+
+    def cache():
+        return place(model.init_cache(TP_B, 32 + cfg.patch_prefix), "cache")
+    logits = []
+    lg, c = pre(params, place(jnp.asarray(toks[:, :TP_S]), "batch"),
+                cache(), *pej)
+    logits.append(np.asarray(lg.astype(jnp.float32)))
+    for j in range(TP_STEPS):
+        lg, c = dec(params, place(jnp.asarray(
+            toks[:, TP_S + j:TP_S + j + 1]), "batch"), c)
+        logits.append(np.asarray(lg.astype(jnp.float32)))
+    lg, c = pre(params, place(jnp.asarray(toks[:, :TP_S]), "batch"),
+                cache(), *pej)
+    greedy = []
+    for j in range(TP_STEPS):
+        tok = jnp.argmax(lg[:, -1:], axis=-1).astype(jnp.int32)
+        greedy.append(np.asarray(tok))
+        if j < TP_STEPS - 1:
+            lg, c = dec(params, place(tok, "batch"), c)
+    return {"logits": logits, "greedy": np.concatenate(greedy, axis=1)}
+
+
+def _tp_spread(cfg, model, params):
+    """How far the forward's bf16 logits move when one embedding weight of
+    a prompt token moves by one ulp."""
+    import jax
+    import jax.numpy as jnp
+    toks, _ = tp_inputs(cfg)
+    fwd = jax.jit(model.forward_train)
+    want = np.asarray(fwd(params, jnp.asarray(toks))[0].astype(jnp.float32))
+    emb = params["embed"]
+    tok, col = int(toks[0, 3]), 5
+    bumped = dict(params, embed=emb.at[tok, col].set(jnp.nextafter(
+        emb[tok, col], jnp.asarray(np.inf, emb.dtype))))
+    got = np.asarray(fwd(bumped, jnp.asarray(toks))[0].astype(jnp.float32))
+    return float(np.abs(got - want).max())
+
+
+def _tp_serving(part):
+    import jax
+    out = {}
+    for name, dtype in TP_CASES[part]:
+        cfg, model, params = _tp_model(name, dtype)
+        res = _tp_run(cfg, model, params, wrap=jax.jit)
+        if dtype == "bfloat16" and name in TP_RECURRENT:
+            res["spread"] = _tp_spread(cfg, model, params)
+        out[(name, dtype)] = res
+    return out
+
+
+def tp_a():
+    return _tp_serving("tp_a")
+
+
+def tp_b():
+    return _tp_serving("tp_b")
+
+
+def tp_mesh():
+    import jax
+    from repro.dist.act import activation_sharding
+    from repro.dist.sharding import (ShardingRules, batch_shardings,
+                                     cache_shardings, param_shardings)
+    mesh = _mesh((2, 2))
+    rules = ShardingRules(mesh, "tp")
+
+    def wrap(fn):
+        def ctx(*a):
+            with activation_sharding(rules, serve=True):
+                return fn(*a)
+        jitted = jax.jit(ctx)
+
+        def call(*a):
+            with mesh:
+                return jitted(*a)
+        return call
+
+    def place(t, kind):
+        sh = (cache_shardings if kind == "cache" else batch_shardings)(
+            rules, t)
+        return jax.device_put(t, sh)
+    out = {"one": {}, "mesh": {}}
+    for name, dtype in TP_MESH:
+        cfg, model, params = _tp_model(name, dtype)
+        out["one"][(name, dtype)] = _tp_run(cfg, model, params, jax.jit)
+        placed = jax.device_put(params, param_shardings(rules, params,
+                                                        serve=True))
+        out["mesh"][(name, dtype)] = _tp_run(cfg, model, placed, wrap, place)
+    return out
+
+
+def tp_specs():
+    import jax
+    from repro import configs
+    from repro.data.pipeline import SyntheticTokens
+    from repro.dist.sharding import (ShardingRules, batch_shardings,
+                                     cache_shardings, param_shardings)
+    from repro.models import LM
+
+    def norm(spec):
+        return [list(p) if isinstance(p, tuple) else p for p in spec]
+    out = {}
+    for shape in TP_SPEC_SHAPES:
+        n = shape[0] * shape[1]
+        mesh = jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(shape),
+                                 ("data", "model"))
+        r = ShardingRules(mesh, "tp")
+        for name in configs.ARCH_NAMES:
+            cfg = configs.get_smoke(name)
+            model = LM(cfg)
+            params = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0)))
+            cache = jax.eval_shape(lambda: model.init_cache(
+                8, 32 + cfg.patch_prefix))
+            batch = jax.eval_shape(lambda: SyntheticTokens(
+                cfg.vocab_size, 8, 32, n_codebooks=cfg.n_codebooks,
+                patch_prefix=cfg.patch_prefix, d_model=cfg.d_model,
+                seed=0)(0))
+            out[(shape, name)] = (
+                [norm(s.spec) for s in jax.tree_util.tree_leaves(
+                    param_shardings(r, params, serve=True))],
+                [norm(s.spec) for s in jax.tree_util.tree_leaves(
+                    cache_shardings(r, cache))],
+                {k: norm(s.spec) for k, s in
+                 batch_shardings(r, batch).items()})
+    return out
+
+
 if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    parts = {"pipeline": pipeline, "fsdp": fsdp}
+    parts = {"pipeline": pipeline, "fsdp": fsdp, "tp_a": tp_a, "tp_b": tp_b,
+             "tp_mesh": tp_mesh, "tp_specs": tp_specs}
     result = {p: parts[p]() for p in sys.argv[2:]}
     with open(sys.argv[1], "wb") as f:
         pickle.dump(result, f)
