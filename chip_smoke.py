@@ -86,7 +86,7 @@ Phases (any failure exits non-zero before the last line is printed):
 7. The serve front at full size, with the first session freed: the
    open-loop harness (obs.loadgen: seeded Poisson arrivals with a burst
    envelope, 64 tenants on the default family mix pagerank/ppr/sssp/bfs,
-   81 requests over a horizon of 200 ticks, a mutation_stream batch of 8 inserts and 4 deletes every 80 ticks
+   62 requests over a horizon of 160 ticks, a mutation_stream batch of 8 inserts and 4 deletes every 80 ticks
    forwarded to notify_group_update) admits requests through a
    ConcurrentServeScheduler over 1024 request groups (one per block)
    into GraphSession(rmat_graph(2**16, 8), 64, capacity=8,
@@ -184,7 +184,7 @@ Phases (any failure exits non-zero before the last line is printed):
    plus lr x the difference of the two sides' AdamW directions (read
    from their moments); bf16 loss at 2e-2.  11b: minicpm-2b at its published widths, 40
    layers, bf16, seeded weights drawn on the card, launch.train's AdamW
-   (WSD), SyntheticTokens(seed=0) batches of 8 x 2048, 10 steps through
+   (WSD), SyntheticTokens(seed=0) batches of 8 x 2048, 8 steps through
    make_train_step: each step's loss, grad norm, lr, s and tokens/s
    beside the 0.29 s bound, peak memory split into state and the rest,
    the step's parts timed one by one; the loss must fall and every grad
@@ -193,7 +193,7 @@ Phases (any failure exits non-zero before the last line is printed):
    CUBLAS_WORKSPACE_CONFIG before CUDA starts: launch.train's
    RestartManager loop at the same widths cut to 2 layers, a checkpoint
    every 4 steps under build/chip_smoke/ckpt (removed after), a failure
-   injected at step 6, under deterministic algorithms: one restart, the replayed losses bit-equal to their
+   injected at step 5, under deterministic algorithms: one restart, the replayed losses bit-equal to their
    first pass, the final state equal to an uninterrupted run's; the
    checkpoint's GB and its save and restore s.
 
@@ -219,13 +219,14 @@ Phases (any failure exits non-zero before the last line is printed):
    copies apart) and their share of the step; each rank's peak.  The
    restart loop's full-width checkpoints (2 x 32.7 GB) stay out of 12b;
    12d runs the loop.  12c: a ("pod",) world of 4 ranks, the 40 blocks
-   in 4 stages of 10 (each block under a checkpoint, the model's remat),
-   the batch in 4 microbatches, the loss the final norm and the chunked
-   cross-entropy with the tied head, held within 2e-2 of the 40 blocks
-   run in sequence on rank 0; s a step, bytes a tick, each rank's peak.
+   cut to 20, in 4 stages of 5 (each block under a checkpoint, the
+   model's remat), the batch in 4 microbatches, the loss the final norm
+   and the chunked cross-entropy with the tied head, held within 2e-2 of
+   the same blocks run in sequence on rank 0; s a step, bytes a tick,
+   each rank's peak.
    12d, in a child process with cuBLAS's deterministic workspace (`--phases
    12d`): launch.train's loop at the same widths cut to 2 layers in a
-   (2, 1) world, a checkpoint every 4 steps, a failure injected at step 6
+   (2, 1) world, a checkpoint every 4 steps, a failure injected at step 5
    on every rank: one restart, the replayed losses bit-equal; the world's
    last checkpoint restored on one device and a checkpoint of the
    gathered state restored onto the world, each bit for bit.
@@ -251,10 +252,33 @@ Phases (any failure exits non-zero before the last line is printed):
    rank's peak.  13c: the same widths and traffic in float32 at 2
    layers, at 1e-4.
 
+14. LM training under the "tp" rules (repro_torch.launch.specs'
+   train cell, the train layout of .dist.tp, LM.loss within
+   .dist.act.seq_split, the gradient sums over "model"), which launches
+   none of the kernels above either; two ranks share the card over gloo
+   in a (1, 2) ("data", "model") world through `run_world` (their
+   allocator on expandable segments), each holding whole weights, the
+   whole batch and its half of every sequence, held against one process
+   on the card with the same weights and batches, run first in this
+   process and freed before the world starts.  14a: mixtral-8x7b's
+   (capacity factor 1) and qwen2.5-14b's float32 smoke configs (TF32
+   off): the loss, every gradient (within 1e-4 of each leaf's largest
+   entry), one make_train_step step at accum 2 (loss and grad norm at
+   1e-4, every first moment as the gradients).  14b: mixtral-8x7b at its
+   published widths cut to 1 layer (1,713,418,240 parameters), bf16,
+   through `specs.build_cell("mixtral-8x7b", "train_4k", mesh,
+   model=...)` (the "tp" policy), SyntheticTokens(seed=0) batches of 4 x
+   4096, 2 AdamW steps: each loss within 2e-2 of the one process's and
+   each grad norm within 2e-2 relative; per step s, tokens/s, the
+   collectives' calls, bytes and host s (copies apart) and their share,
+   the bytes of the gradient sums over "model", each rank's peak beside
+   the one process's, `launch.analytic`'s bound of the same cell.
+
 Then one JSON line of kernel figures, one of the LM figures, one of the
 training figures, one of the multi-rank training figures, one of the
-tensor-parallel serving figures, the card's name and power limit, and
-last {"ok": true, "device": {...}}.
+tensor-parallel serving figures, one of the tensor-parallel training
+figures, the card's name and power limit, and last {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --trace
 
@@ -268,10 +292,12 @@ give the end-to-end numbers.
     python3 chip_smoke.py --phases 11 [--trace]
     python3 chip_smoke.py --phases 12
     python3 chip_smoke.py --phases 13
+    python3 chip_smoke.py --phases 14
 
 run phase 1 and phase 10 (the LM serving path), phase 11 (training),
-phase 12 (training over ranks) or phase 13 (serving over ranks) alone,
-for iterating; no kernels line.
+phase 12 (training over ranks), phase 13 (serving over ranks) or phase
+14 (training under the "tp" rules) alone, for iterating; no kernels
+line.
 """
 
 from __future__ import annotations
@@ -325,10 +351,10 @@ STREAM_DELETE = 1              # UpdateBatch.op of a delete
 SERVE_CAPACITY = 8             # the session's job slots per view
 SERVE_MAX_RUNNING = 8          # admitted jobs sharing the supersteps
 SERVE_STEPS_PER_TICK = 8
-# phase 7's horizon (81 requests) and 9b's (22 arrivals, both BFS, one
+# phase 7's horizon and 9b's (22 arrivals, both BFS, one
 # update at tick 40) are cut in depth so that the whole script keeps
 # inside its time limit
-SERVE_LOAD = dict(seed=33, ticks=200, base_rate=0.4, burst_amplitude=0.6,
+SERVE_LOAD = dict(seed=33, ticks=160, base_rate=0.4, burst_amplitude=0.6,
                   burst_period=60, n_tenants=64, update_every=80)
 SERVE_PT_CHECKED = 3           # PageRank/PPR results held per run
 # phase 8: the multi-device engine, ranks sharing the card over gloo
@@ -3081,13 +3107,13 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5, "bf16_loss": 2e-2}
 # bar themselves
 TRAIN_NOISE_FLOOR = 1e-7
 # 11b: minicpm-2b at its published widths, launch.train's AdamW (WSD)
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 10
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 8
 TRAIN_PEAK_CAP = 75e9          # above it the batch is halved (and said so)
 # 11c: the restart loop at the same widths, cut to 2 layers, in a child
 # process: cuBLAS reads its workspace setting once, when CUDA starts, and
 # the deterministic one slows the other phases' GEMMs
-TRAIN_RESTART_LAYERS, TRAIN_RESTART_STEPS = 2, 8
-TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 4, 6
+TRAIN_RESTART_LAYERS, TRAIN_RESTART_STEPS = 2, 6
+TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 4, 5
 RESTART_CUBLAS = ":4096:8"
 RESTART_TAG = "11c-result: "
 
@@ -3387,7 +3413,7 @@ def _kernel_kinds(rows) -> dict:
 def train_full_phase(torch, trace: bool, bars) -> dict:
     """11b: minicpm-2b at its published widths, all 40 layers, bf16,
     seeded weights drawn on the card, launch.train's AdamW (WSD, peak
-    3e-4, warmup 1, 10 steps), SyntheticTokens(seed=0) batches of 8 x
+    3e-4, warmup 1, 8 steps), SyntheticTokens(seed=0) batches of 8 x
     2048 through make_train_step: each step's loss, grad norm, lr, s and
     tokens/s beside the bound; the loss must fall (the mean of the last
     five below the first five) and every grad norm be finite."""
@@ -3542,7 +3568,7 @@ def _restart_run(torch, cfg, ckpt, fail_at):
 
 def train_restart_phase(torch, out_dir, bars) -> dict:
     """11c: launch.train's loop with RestartManager at 11b's widths cut to
-    2 layers, a checkpoint every 4 steps, a failure injected at step 6,
+    2 layers, a checkpoint every 4 steps, a failure injected at step 5,
     under deterministic algorithms: one restart, the replayed steps'
     losses bit-equal to their first pass, the final state equal to an
     uninterrupted run's; the checkpoint's GB and save/restore s."""
@@ -3682,7 +3708,8 @@ def train_phase(torch, trace: bool, out_dir) -> dict:
 DIST_RANKS = 2                 # 12-0, 12a, 12b: a (2, 1) world on the card
 DIST_STEPS = 2                 # 12b: held to the one-device run's first two
 DIST_TOL = 2e-2                # 12b/12c: losses; 12b's grad norm, relative
-PIPE_RANKS, PIPE_MICRO = 4, 4  # 12c: a ("pod",) world, 4 stages of 10
+PIPE_RANKS, PIPE_MICRO = 4, 4  # 12c: a ("pod",) world, 4 stages of 5
+PIPE_LAYERS = 20               # 12c: minicpm-2b's 40 blocks cut to 20
 PIPE_TOL = {"loss": 1e-5, "rtol": 1e-4, "atol": 1e-5}   # 12a's pipeline
 DIST_TAG = "12d-result: "
 PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
@@ -3989,12 +4016,13 @@ def dist_rank(rank: int) -> dict:
 
 def pipe_rank(rank: int) -> dict:
     """12c on a rank of a ("pod",) world of PIPE_RANKS on the card:
-    minicpm-2b at its published widths drawn from the seed, this rank's
-    stage of 40 / PIPE_RANKS blocks stacked and placed P("pod"), the
-    global batch of 8 x 2048 in PIPE_MICRO microbatches, the loss the
-    final norm and the chunked cross-entropy with the tied head; one
-    forward and backward.  Rank 0 then runs the 40 blocks in sequence
-    (no grad) for the loss it is held to."""
+    minicpm-2b at its published widths, its 40 blocks cut to PIPE_LAYERS,
+    drawn from the seed, this rank's stage of PIPE_LAYERS / PIPE_RANKS
+    blocks stacked and placed P("pod"), the global batch of 8 x 2048 in
+    PIPE_MICRO microbatches, the loss the final norm and the chunked
+    cross-entropy with the tied head; one forward and backward.  Rank 0
+    then runs the blocks in sequence (no grad) for the loss it is held
+    to."""
     import torch
     import torch.distributed as dist
     from torch.utils.checkpoint import checkpoint
@@ -4011,7 +4039,7 @@ def pipe_rank(rank: int) -> dict:
     from repro_torch.tree import leaves, tree_map
     lserve.set_numerics()
     dev = torch.device(CARD)
-    cfg = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=PIPE_LAYERS)
     model = LM(cfg, device=dev, seed=0)
     per = cfg.n_layers // PIPE_RANKS
     mesh = make_mesh((PIPE_RANKS,), ("pod",), [dev] * PIPE_RANKS)
@@ -4085,7 +4113,7 @@ def restart_rank(rank: int, root: str) -> dict:
     """12d on a rank of a (2, 1) world on the card (cuBLAS's
     deterministic workspace set before CUDA started, deterministic
     algorithms): launch.train's loop at 11b's widths cut to 2 layers, a
-    checkpoint every 4 steps, a failure injected at step 6 on every rank;
+    checkpoint every 4 steps, a failure injected at step 5 on every rank;
     then the final state gathered, the world's last checkpoint restored
     on one device, and a checkpoint of the whole state (what one device
     writes) restored onto the world's placements, both bit for bit."""
@@ -4263,7 +4291,8 @@ def dist_phase(torch, out_dir, one_device) -> dict:
     d = abs(c["loss"] - c["loss_sequential"])
     bars.check(d <= DIST_TOL and c["grads_finite"],
                f"12c {PIPE_RANKS}-stage GPipe of {TRAIN_ARCH}'s "
-               f"{configs.get(TRAIN_ARCH).n_layers} blocks, "
+               f"{PIPE_LAYERS} blocks (of "
+               f"{configs.get(TRAIN_ARCH).n_layers}), "
                f"{PIPE_MICRO} microbatches: loss {c['loss']:.5f} against "
                f"{c['loss_sequential']:.5f} in sequence on one rank (|d| "
                f"{d:.2e}, bar 2e-2); stage gradients finite")
@@ -4732,20 +4761,304 @@ def tp_phase(torch, out_dir) -> dict:
     bars.raise_if_failed("phase 13")
     return out
 
+# -- phase 14: LM training under the "tp" rules over ranks -----------------
+
+TPT_RANKS = 2                  # a (1, 2) ("data", "model") world on the card
+TPT_ARCH = "mixtral-8x7b"
+TPT_LAYERS = 1                 # 14b: two layers' state on two ranks (38 GB
+#                                each) would not fit one card
+TPT_B, TPT_S = 4, 4096         # train_4k's sequence; its batch of 256 cut
+TPT_STEPS = 2
+TPT_TOL = 2e-2                 # 14b: each loss; each grad norm, relative
+TPT_SMOKE = ("mixtral-8x7b", "qwen2.5-14b")     # 14a, float32, TF32 off
+TPT_SMOKE_TOL = 1e-4
+#: the ranks' allocator: two ranks' state and activations share the card
+TPT_ALLOC = "expandable_segments:True"
+
+
+def _tpt_cfg():
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(TPT_ARCH), n_layers=TPT_LAYERS)
+
+
+def _scaled_err(got, want) -> float:
+    """The largest |got - want| of any leaf over that leaf's largest
+    |want| plus 1e-8 of the largest |want| of all (lists of tensors)."""
+    top = max(float(w.abs().max()) for w in want)
+    return max(float((g - w).abs().max())
+               / (float(w.abs().max()) + 1e-8 * top + 1e-30)
+               for g, w in zip(got, want))
+
+
+def _tpt_smoke_side(torch, rules) -> dict:
+    """14a on this process under `rules` (a (1, 1) mesh in the parent,
+    (1, 2) in the world): per architecture `LM(cfg, seed=0)` at its
+    float32 smoke config (the MoE at capacity factor 1) on the card, the
+    loss and every gradient of one batch, then one make_train_step step
+    at accum 2 (loss, grad norm, every first moment), on the CPU."""
+    from repro_torch.dist import act
+    from repro_torch.dist.sharding import batch_shardings, reshard
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import (_batch_axes, _value_and_grad,
+                                              make_train_step)
+    from repro_torch.tree import leaves, members
+
+    def host(tree):
+        return [m.detach().float().cpu() for leaf in leaves(tree)
+                for m in members(leaf)]
+    out = {}
+    for name in TPT_SMOKE:
+        cfg = dataclasses.replace(_smoke(name), param_dtype="float32")
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, capacity_factor=1.0)
+        model = LM(cfg, device=CARD, seed=0)
+        b = _train_batch(torch, cfg, TRAIN_SMOKE_B, TRAIN_SMOKE_S)
+        b = {k: v.to(CARD) for k, v in b.items()}
+        batch = reshard(b, batch_shardings(rules, b))
+        params = model.param_tree()
+        with act.activation_sharding(rules):
+            loss, grads = _value_and_grad(model, params, batch,
+                                          *_batch_axes(batch))
+            grads = host(grads)
+            state = {"params": params, "opt": adamw_init(params)}
+            step = make_train_step(model, AdamWConfig(
+                peak_lr=TRAIN_SMOKE_LR), accum_steps=2)
+            state, m = step(state, batch)
+        out[name] = {"loss": float(loss), "grads": grads,
+                     "step_loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "mu": host(state["opt"]["mu"])}
+        del model, params, grads, state
+    return out
+
+
+def _tpt_full(torch, mesh) -> dict:
+    """14b on this process's `mesh`: mixtral-8x7b at its published widths
+    cut to TPT_LAYERS, bf16, `LM(cfg, seed=0)` on the card, stepped by
+    `specs.build_cell(TPT_ARCH, "train_4k", mesh, model=...)`'s function
+    (the "tp" policy, the cell's AdamW) on SyntheticTokens(seed=0)
+    batches of TPT_B x TPT_S: per step the loss, grad norm, s, the
+    collectives and the gradient sums over "model"; the peak."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import (MODEL_SUMS, batch_shardings,
+                                           reset_model_sums, reshard)
+    from repro_torch.launch import specs
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import adamw_init
+    cfg = _tpt_cfg()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=CARD, seed=0)
+    cell = specs.build_cell(TPT_ARCH, "train_4k", mesh, model=model)
+    rules = cell.meta["rules"]
+    params = reshard(model.param_tree(), cell.in_shardings[0]["params"])
+    state = {"params": params, "opt": adamw_init(params)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticTokens(cfg.vocab_size, TPT_B, TPT_S, seed=0,
+                           device=CARD)
+    rows = []
+    for i in range(TPT_STEPS):
+        batch = data(i)
+        batch = reshard(batch, batch_shardings(rules, batch))
+        torch.cuda.synchronize()
+        comm.reset_stats()
+        reset_model_sums()
+        t1 = time.perf_counter()
+        state, m = cell.fn(state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        rows.append({"step": i + 1, "loss": loss, "grad_norm": gn,
+                     "lr": float(m["lr"]), "s": time.perf_counter() - t1,
+                     "model_sum_calls": MODEL_SUMS["calls"],
+                     "model_sum_bytes": MODEL_SUMS["bytes"],
+                     **{f"collective_{k}": v for k, v in
+                        comm.STATS.items()}})
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"rows": rows, "policy": cell.meta["policy"], "init_s": init_s,
+           "n_params": n_params,
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, cell, params, state, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpt_rank(rank: int) -> dict:
+    """A rank of phase 14's (1, 2) world on the card under the "tp"
+    rules: 14a, then 14b; every rank's peak; B1-B4's launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.priority_pairs import kernel as pk
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch.mesh import make_host_mesh
+    lserve.set_numerics()
+    kernels0 = (dict(fk.launches), dict(mk.launches), dict(pk.launches))
+    mesh = make_host_mesh(model_axis=TPT_RANKS, device=CARD)
+    t0 = time.perf_counter()
+    out = {"smoke": _tpt_smoke_side(torch, ShardingRules(mesh, "tp"))}
+    out["smoke_s"] = time.perf_counter() - t0
+    out["full"] = _tpt_full(torch, mesh)
+    peaks = [torch.zeros(1, dtype=torch.float64)
+             for _ in range(dist.get_world_size())]
+    dist.all_gather(peaks, torch.tensor([out["full"]["peak_gb"]],
+                                        dtype=torch.float64))
+    out["peaks_gb"] = [float(p) for p in peaks]
+    out["kernel_launches"] = sum(
+        sum(now.values()) - sum(then.values()) for now, then in zip(
+            (fk.launches, mk.launches, pk.launches), kernels0))
+    if rank != 0:
+        out["smoke"] = {}
+    return out
+
+
+def tpt_phase(torch, out_dir) -> dict:
+    """Phase 14: one process on the card (14a's smoke configs, 14b), then
+    a (1, 2) world of ranks sharing the card under the "tp" rules: 14a at
+    TPT_SMOKE_TOL, 14b's losses within TPT_TOL of the one process and its
+    grad norms within TPT_TOL relative.  Raises at its end if any check
+    failed."""
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.dist.world import choose_backend, run_world
+    from repro_torch.launch import analytic
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeConfig
+    lserve.set_numerics()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bars = Bars()
+    t_phase = time.perf_counter()
+    one = make_host_mesh(device=CARD)
+    ref_smoke = _tpt_smoke_side(torch, ShardingRules(one, "tp"))
+    ref = _tpt_full(torch, one)
+    ref_s = time.perf_counter() - t_phase
+    log(f"14: one-process references in {ref_s:.1f} s; {TPT_RANKS} ranks "
+        f"on {torch.cuda.device_count()} card(s) over "
+        f"{choose_backend('cuda', TPT_RANKS)}")
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TPT_ALLOC     # the ranks' own
+    try:
+        with MemoryPoll() as mem:
+            res = run_world(tpt_rank, TPT_RANKS, device=CARD,
+                            store_dir=str(out_dir / "world14"),
+                            threads=TP_THREADS)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    world_s = time.perf_counter() - t0
+    out = {"world_s": world_s, "reference_s": ref_s,
+           "smi_peak_mib": mem.peak_mib,
+           "kernel_launches": res["kernel_launches"], "smoke": {}}
+
+    # 14a
+    for name in TPT_SMOKE:
+        g, w = res["smoke"][name], ref_smoke[name]
+        errs = {"loss": abs(g["loss"] - w["loss"]),
+                "grads": _scaled_err(g["grads"], w["grads"]),
+                "step_loss": abs(g["step_loss"] - w["step_loss"]),
+                "grad_norm": abs(g["grad_norm"] - w["grad_norm"])
+                / w["grad_norm"],
+                "mu": _scaled_err(g["mu"], w["mu"])}
+        tol = TPT_SMOKE_TOL
+        ok = (errs["loss"] <= tol * (1 + abs(w["loss"]))
+              and errs["step_loss"] <= tol * (1 + abs(w["step_loss"]))
+              and errs["grads"] <= tol and errs["grad_norm"] <= tol
+              and errs["mu"] <= tol)
+        bars.check(ok, f"14a {name} float32 smoke on (1, {TPT_RANKS}) "
+                       f"against one process: loss |d| "
+                       f"{errs['loss']:.2e}, gradients "
+                       f"{errs['grads']:.2e} of each leaf's largest, step "
+                       f"(accum 2) loss |d| {errs['step_loss']:.2e}, grad "
+                       f"norm {errs['grad_norm']:.2e} relative, mu "
+                       f"{errs['mu']:.2e} (bar {tol})")
+        out["smoke"][name] = errs
+    log(f"14a: {len(TPT_SMOKE)} cases in {res['smoke_s']:.1f} s in the "
+        f"world")
+
+    # 14b
+    f = res["full"]
+    cfg = _tpt_cfg()
+    bars.check(f["policy"] == "tp" and ref["policy"] == "tp",
+               f"14b build_cell({TPT_ARCH!r}, 'train_4k') chose "
+               f"{f['policy']!r} on (1, {TPT_RANKS}) and {ref['policy']!r}"
+               f" on one device")
+    for g, w in zip(f["rows"], ref["rows"]):
+        dl = abs(g["loss"] - w["loss"])
+        dg = abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+        bars.check(dl <= TPT_TOL and dg <= TPT_TOL and
+                   np.isfinite(g["loss"]),
+                   f"14b step {g['step']}: loss {g['loss']:.5f} against "
+                   f"{w['loss']:.5f} in one process (|d| {dl:.2e}, bar "
+                   f"{TPT_TOL}); grad norm {g['grad_norm']:.5f} against "
+                   f"{w['grad_norm']:.5f} ({dg:.2e} relative, bar "
+                   f"{TPT_TOL})")
+    tokens = TPT_B * TPT_S
+    an = analytic.cell_flops(cfg, ShapeConfig("14b", "train", TPT_S, TPT_B))
+    bound_s = an["hlo_est_flops"] / BF16_FLOPS
+    log(f"14b {TPT_ARCH} at its published widths, {TPT_LAYERS} layer(s), "
+        f"bf16: {f['n_params']:,} parameters, {f['weight_bytes'] / 1e9:.3f}"
+        f" GB; drawn and placed on each rank in {f['init_s']:.2f} s")
+    for g, w in zip(f["rows"], ref["rows"]):
+        share = g["collective_seconds"] / g["s"]
+        log(f"14b step {g['step']}: {g['s']:.3f} s on (1, {TPT_RANKS}) "
+            f"({tokens / g['s']:.0f} tokens/s) against {w['s']:.3f} s in "
+            f"one process ({tokens / w['s']:.0f} tokens/s); "
+            f"launch.analytic's bound {bound_s * 1e3:.1f} ms "
+            f"({an['hlo_est_flops'] / 1e12:.2f} TFLOP at "
+            f"{BF16_FLOPS / 1e12:.0f} TFLOP/s); collectives "
+            f"{g['collective_calls']} calls, "
+            f"{g['collective_bytes'] / 1e9:.4f} GB, "
+            f"{g['collective_seconds']:.3f} s host "
+            f"({g['collective_copy_seconds']:.3f} s of it host copies), "
+            f"{100 * share:.1f}% of the step; gradient sums over \"model\" "
+            f"{g['model_sum_calls']} calls, "
+            f"{g['model_sum_bytes'] / 1e9:.4f} GB")
+    log(f"14b peak a rank {', '.join(f'{p:.2f}' for p in res['peaks_gb'])}"
+        f" GB against {ref['peak_gb']:.2f} GB in one process; nvidia-smi "
+        f"peak {mem.peak_mib} MiB; world {world_s:.1f} s")
+    out["full"] = {
+        "arch": TPT_ARCH, "layers": TPT_LAYERS, "batch": [TPT_B, TPT_S],
+        "n_params": f["n_params"], "weight_bytes": f["weight_bytes"],
+        "rows": f["rows"], "one_process": {"rows": ref["rows"],
+                                           "peak_gb": ref["peak_gb"]},
+        "peaks_gb": res["peaks_gb"], "init_s": f["init_s"],
+        "analytic_flops": an["hlo_est_flops"], "bound_ms": 1e3 * bound_s}
+    bars.check(res["kernel_launches"] == 0,
+               f"14: B1-B4 launched {res['kernel_launches']} times in the "
+               f"world (the LM path reaches none)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 in {out['phase_s']:.1f} s")
+    bars.raise_if_failed("phase 14")
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
     ap.add_argument("--phases", choices=("all", "10", "11", "11c", "12",
-                                         "12d", "13"),
+                                         "12d", "13", "14"),
                     default="all",
-                    help="'10' / '11' / '12' / '13': phase 1 and the LM "
-                         "serving / training / multi-rank training / "
-                         "tensor-parallel serving phase alone (for "
-                         "iterating; no kernels line); '11c' / '12d': that "
-                         "part alone, the child process phase 11 / 12 "
-                         "starts")
+                    help="'10' / '11' / '12' / '13' / '14': phase 1 and the "
+                         "LM serving / training / multi-rank training / "
+                         "tensor-parallel serving / tensor-parallel "
+                         "training phase alone (for iterating; no kernels "
+                         "line); '11c' / '12d': that part alone, the child "
+                         "process phase 11 / 12 starts")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if args.phases in ("11c", "12d"):
@@ -4801,7 +5114,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases in ("10", "11", "12", "13"):
+    if args.phases in ("10", "11", "12", "13", "14"):
         if args.phases == "10":
             print(json.dumps({"lm": lm_phase(torch, args.trace)}),
                   flush=True)
@@ -4810,6 +5123,9 @@ def main() -> int:
                                                    out_dir)}), flush=True)
         elif args.phases == "13":
             print(json.dumps({"tp": tp_phase(torch, out_dir)}), flush=True)
+        elif args.phases == "14":
+            print(json.dumps({"tp_train": tpt_phase(torch, out_dir)}),
+                  flush=True)
         else:
             print(json.dumps({"dist": dist_phase(torch, out_dir, None)}),
                   flush=True)
@@ -4929,6 +5245,9 @@ def main() -> int:
     # -- phase 13: tensor-parallel serving over ranks (none either) ----------
     tp = tp_phase(torch, out_dir)
 
+    # -- phase 14: training under the "tp" rules over ranks (none either) ---
+    tp_train = tpt_phase(torch, out_dir)
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -4977,6 +5296,7 @@ def main() -> int:
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"dist": dist}), flush=True)
     print(json.dumps({"tp": tp}), flush=True)
+    print(json.dumps({"tp_train": tp_train}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

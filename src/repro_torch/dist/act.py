@@ -15,8 +15,18 @@ of the batch ("dp", "fsdp").  In a serve context a split over "tp",
 parallelism) is the rank's heads, channels or features where the
 compute produced them; over "sp" the stream stays whole on every rank
 of "model" (the reference splits it for training memory and for
-GSPMD's prefill reshards).  Outside a serve context such a split is
-training under "tp", which is not ported (ROADMAP A12.2d), and raises.
+GSPMD's prefill reshards).  In a train context the loss runs within
+`seq_split` (below): the residual stream is the rank's positions of the
+sequence, and the blocks split heads, features and experts over "model"
+from whole weights (`dist/tp.py`).
+
+Reductions over the sequence.  Within `seq_split(mesh, axes)` the
+positions of the sequence are split over those mesh axes, rank i of n
+holding the i-th of n equal contiguous pieces (`seq_shard`), and
+`psum_seq` sums a rank's term over them: the loss's NLL and count, the
+MoE statistics.  `seq_axes` says which axes a train context splits the
+sequence over (the "sp" axis of more than one device): the loss enters
+`seq_split` over them, and the train step sums each gradient over them.
 
 Reductions over the batch.  Within `batch_split(mesh, axes)` the rows of
 the batch are split over those mesh axes (the train step enters it):
@@ -25,14 +35,19 @@ them, so that a mean over every row of the batch (the loss's, the MoE
 load-balance statistics') is the reference's.  Outside it both are the
 identity of one shard.
 
-The contexts are thread-local and re-entrant, as in the reference.
+The contexts are thread-local and re-entrant, as in the reference.  A
+recomputation in the backward pass may run on another thread (the
+autograd engine's, for CUDA tensors): `checkpoint_contexts` re-enters
+there the contexts its forward ran in.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
+
+import torch.distributed as dist
 
 _local = threading.local()
 
@@ -59,31 +74,19 @@ def activation_sharding(rules, serve: bool = False):
         _stack().pop()
 
 
-_BATCH_LOGICAL = ("dp", "fsdp")
-
-
 def constrain(x, *logical_axes):
-    """`x` itself: outside any context, where the rules split it over no
-    mesh axis of more than one device, over "dp"/"fsdp" only (this rank's
-    rows), or in a serve context (the layout the compute produced).  A
-    split over "tp", "sp" or "ep" outside a serve context raises, and so
-    does any split without a process group of the mesh's size."""
+    """`x` itself: a mark.  The layout is the one the compute produced:
+    this rank's rows ("dp"/"fsdp"), its positions ("sp" in a train
+    context), its heads, channels, features or experts ("tp", "ep").
+    A split over a mesh axis of more than one device raises without a
+    process group of the mesh's size."""
     cur = _current()
     if cur is None:
         return x
     from repro_torch.dist import comm
     from repro_torch.dist.sharding import split_axes
-    rules, serve = cur
-    spec = rules.spec(x.shape, logical_axes)
-    for part, logical in zip(spec, logical_axes):
-        split = split_axes(rules.mesh, (part,))
-        if split and logical not in _BATCH_LOGICAL and not serve:
-            raise NotImplementedError(
-                f"constrain {tuple(logical_axes)} splits {tuple(x.shape)} "
-                f"over mesh axes {split} as {logical!r} outside a serve "
-                f"context: training under tensor, sequence and expert "
-                f"parallelism is not ported yet (ROADMAP A12.2d)")
-    if split_axes(rules.mesh, spec):
+    rules = cur[0]
+    if split_axes(rules.mesh, rules.spec(x.shape, logical_axes)):
         comm.coords(rules.mesh, f"constrain {tuple(logical_axes)}")
     return x
 
@@ -142,3 +145,94 @@ def psum_batch(x):
         return x
     from repro_torch.dist import comm
     return comm.psum(x, st[-1][0])
+
+
+def seq_axes() -> Tuple[str, ...]:
+    """The mesh axes of more than one device that the active train
+    context's rules split the sequence over ("sp"); () outside a context,
+    in a serve context, or where "sp" spans one device."""
+    cur = _current()
+    if cur is None or cur[1]:
+        return ()
+    rules = cur[0]
+    return tuple(a for a in rules.mesh_axes("sp") if rules.mesh.shape[a] > 1)
+
+
+class SeqShard(NamedTuple):
+    """The positions this rank holds: piece `i` of `n` of a sequence, over
+    the process group `group` of the ranks that hold the others."""
+    i: int
+    n: int
+    group: object
+
+    def span(self, s_local: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's `s_local` positions in the sequence."""
+        return self.i * s_local, (self.i + 1) * s_local
+
+
+def _seq_stack() -> list:
+    if not hasattr(_local, "seq"):
+        _local.seq = []
+    return _local.seq
+
+
+@contextlib.contextmanager
+def seq_split(mesh, axes):
+    """Within: the sequence's positions are split over `axes` of `mesh`
+    (this rank holds its piece, `seq_shard`); empty `axes` means every
+    rank holds them all."""
+    from repro_torch.dist import comm
+    axes = tuple(axes)
+    shard = None
+    if axes:
+        grp, members = comm.group(mesh, axes)
+        shard = SeqShard(members.index(dist.get_rank()), len(members), grp)
+    _seq_stack().append(shard)
+    try:
+        yield shard
+    finally:
+        _seq_stack().pop()
+
+
+def seq_shard() -> Optional[SeqShard]:
+    """This rank's piece of the sequence within `seq_split` (None outside
+    it, or where it splits nothing)."""
+    st = _seq_stack()
+    return st[-1] if st else None
+
+
+def psum_seq(x):
+    """`x` summed over the ranks that split the sequence (`x` itself where
+    none do), with `psum_batch`'s backward: each rank's term once."""
+    sh = seq_shard()
+    if sh is None:
+        return x
+    from repro_torch.dist import comm
+    return comm.psum(x, sh.group)
+
+
+def _stacks() -> tuple:
+    return _stack(), _batch_stack(), _seq_stack()
+
+
+@contextlib.contextmanager
+def _entered(state: tuple):
+    """Within: the contexts of `state` (`_stacks()` copied) on this
+    thread, whatever it held before."""
+    saved = tuple(list(st) for st in _stacks())
+    for st, entries in zip(_stacks(), state):
+        st[:] = entries
+    try:
+        yield
+    finally:
+        for st, entries in zip(_stacks(), saved):
+            st[:] = entries
+
+
+def checkpoint_contexts():
+    """`torch.utils.checkpoint`'s `context_fn`: nothing around the
+    forward, and around its recomputation the contexts active now (the
+    rules, the batch's and the sequence's splits), on whatever thread
+    the backward pass recomputes it."""
+    state = tuple(list(st) for st in _stacks())
+    return contextlib.nullcontext(), _entered(state)

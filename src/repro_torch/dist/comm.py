@@ -1,7 +1,10 @@
 """The training path's collectives over torch.distributed, each one
 counted: the gathers and reductions of placed state (`dist.sharding`),
 the batch sums of the loss (`dist.act`), the pipeline's exchange
-(`dist.pipeline`), the barriers of checkpoints.
+(`dist.pipeline`), the barriers of checkpoints, and the sequence's
+gathers and scatters of training under the "tp" rules (`dist.tp`), whose
+autograd counterparts (`AllGather`, `ReduceScatter`, `Psum`) carry a
+backward.
 
 Ranks sit on a mesh (`launch.mesh.Mesh`): a rank's coordinates are its
 global rank unravelled row-major in the mesh's axis order, and the ranks
@@ -267,3 +270,42 @@ class Psum(torch.autograd.Function):
 
 def psum(x: torch.Tensor, g=None, src: Optional[int] = None) -> torch.Tensor:
     return Psum.apply(x, g, src)
+
+
+class AllGather(torch.autograd.Function):
+    """`all_gather` whose backward is the reduce-scatter of the cotangent:
+    each rank's gathered copy feeds its own share of the work, so the
+    gradient of a rank's piece is the sum of every rank's cotangent of
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g, n):
+        ctx.args = (dim, g, n)
+        return all_gather(x, dim, g, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (reduce_scatter(grad.contiguous(), *ctx.args), None, None,
+                None)
+
+
+class ReduceScatter(torch.autograd.Function):
+    """`reduce_scatter` whose backward is the all-gather of the
+    cotangent: every rank's term reaches every piece of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g, n):
+        ctx.args = (dim, g, n)
+        return reduce_scatter(x, dim, g, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad.contiguous(), *ctx.args), None, None, None
+
+
+def all_gather_ad(x: torch.Tensor, dim: int, g, n: int) -> torch.Tensor:
+    return AllGather.apply(x, dim, g, n)
+
+
+def reduce_scatter_ad(x: torch.Tensor, dim: int, g, n: int) -> torch.Tensor:
+    return ReduceScatter.apply(x, dim, g, n)

@@ -289,17 +289,38 @@ def gather(tree: Any) -> Any:
     return tree_map(gather_leaf, tree)
 
 
+#: gradient sums over the sequence's ranks ("model", training under the
+#: "tp" rules) since the last `reset_model_sums`: calls and bytes
+MODEL_SUMS = {"calls": 0, "bytes": 0}
+
+
+def reset_model_sums() -> None:
+    MODEL_SUMS.update(calls=0, bytes=0)
+
+
 def reduce_grad(g, pl: Optional[Placement], batch_axes: Tuple[str, ...],
-                mesh: Optional[Mesh] = None):
+                mesh: Optional[Mesh] = None,
+                model_axes: Tuple[str, ...] = ()):
     """The gradient `pl`'s slice holds, from this rank's whole gradient
     `g` of its rows' loss terms: the sum over the ranks that split the
     batch along `batch_axes` of `mesh` (none: `g` is the whole batch's),
     cut to this rank's slice.  Where the slice and the batch split over
     the same axes this is one reduce-scatter; otherwise the sum is an
     all-reduce over the batch's axes and the slice is cut here.  A Stacked
-    `g` goes as one stacked array."""
+    `g` goes as one stacked array.
+
+    `model_axes` (training under the "tp" rules, `act.seq_axes`): `g` is
+    the gradient of this rank's share of the work (its positions, heads,
+    features, experts), and the slice is then summed over those axes too
+    (an all-reduce, counted in `MODEL_SUMS`).  That sum is exact where
+    the shares are disjoint parts of the weight (the q/k/v and w1/w3
+    columns, the wo/w2 rows, an expert's weights: one rank's entry meets
+    zeros) and rounds where every rank adds a partial sum over its own
+    positions (the norms, the router, the embedding, the head, and every
+    weight of a block that runs whole)."""
     if isinstance(g, Stacked):
-        part = reduce_grad(torch.stack(list(g)), pl, batch_axes, mesh)
+        part = reduce_grad(torch.stack(list(g)), pl, batch_axes, mesh,
+                           model_axes)
         return with_placement(Stacked(part.unbind(0)), pl)
     splits = split_dims(pl) if pl is not None else []
     if pl is not None:
@@ -307,11 +328,16 @@ def reduce_grad(g, pl: Optional[Placement], batch_axes: Tuple[str, ...],
     if len(splits) == 1 and splits[0][1] == tuple(batch_axes):
         d, axes = splits[0]
         grp, ranks = comm.group(mesh, axes)
-        return with_placement(comm.reduce_scatter(g, d, grp, len(ranks)),
-                              pl)
-    if batch_axes:
-        comm.all_reduce(g, comm.group(mesh, batch_axes)[0])
-    return _slice(g, pl) if splits else g
+        out = with_placement(comm.reduce_scatter(g, d, grp, len(ranks)), pl)
+    else:
+        if batch_axes:
+            comm.all_reduce(g, comm.group(mesh, batch_axes)[0])
+        out = _slice(g, pl) if splits else g
+    if model_axes:
+        comm.all_reduce(out, comm.group(mesh, model_axes)[0])
+        MODEL_SUMS["calls"] += 1
+        MODEL_SUMS["bytes"] += out.numel() * out.element_size()
+    return out
 
 
 def reshard(tree: Any, shardings: Any) -> Any:

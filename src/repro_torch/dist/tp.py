@@ -1,4 +1,5 @@
-"""Tensor-parallel products: the "tp" policy's serving path on ranks.
+"""Tensor-parallel products: the "tp" policy's serving and training
+paths on ranks.
 
 Within `activation_sharding(rules, serve=True)` whose "tp" logical axis
 spans n > 1 devices (the "model" mesh axis), each rank holds the slices
@@ -27,7 +28,26 @@ biases, the RG-LRU's gates) stay whole on every rank from placement on
 compute is split.  `gathered` gathers a block's split weights at use
 (the xLSTM blocks, which the reference marks nothing in).  Every weight
 gathered at use is counted in `GATHERED`; every collective in
-`comm.STATS`.  Outside such a context (one device, training) every
+`comm.STATS`.
+
+Training under the "tp" rules.  Within a train context's
+`act.seq_split` (the loss enters it) the "model" axis answers too, and
+the layout differs: every weight is whole on the rank (the train
+placements split only over the batch axes, and the step binds them
+whole), and the residual stream is the rank's positions of the
+sequence.  A block gathers the normed stream over "model"
+(`seq_gather`, an all-gather whose backward is the reduce-scatter of
+the cotangent), multiplies the whole sequence by the rank's chunk of
+the weight's columns (`matmul(..., local=True)`: cut from the whole
+weight, no collective), and brings a product by the chunk's rows back
+to the rank's positions as the float32 sum of every rank's partial
+product, rounded once (`matmul(..., x_local=True)`: a reduce-scatter of
+the sequence, whose backward is the all-gather).  So each rank computes
+its share of the heads, features or channels, and its gradient of a
+whole weight is that share's; the train step sums them over "model"
+(`dist.sharding.reduce_grad`).  A block that splits nothing over
+"model" runs whole on the gathered sequence and keeps the rank's
+positions (`seq_whole`).  Outside both contexts (one device) every
 function is the plain one-device operation.
 """
 
@@ -52,22 +72,73 @@ def reset_gathered() -> None:
 
 
 class Axis(NamedTuple):
-    """The active serve context's "tp" axis: its device count, this
-    rank's index along it and the process group of its ranks."""
+    """The active context's "tp" axis: its device count, this rank's
+    index along it and the process group of its ranks."""
     n: int
     i: int
     group: object
 
 
 def axis() -> Optional[Axis]:
-    """The "tp" axis of the active serve context, None where it has one
-    device (or outside a serve context).  Raises without a process group
-    of the mesh's size."""
+    """The "tp" axis of the active serve context, or of a train context
+    within its `act.seq_split`; None where it has one device (or outside
+    both).  Raises without a process group of the mesh's size."""
     rules = act.current_rules()
-    if rules is None or not act.is_serve() or rules.axis_size("tp") <= 1:
+    if rules is None or rules.axis_size("tp") <= 1:
+        return None
+    if not act.is_serve() and act.seq_shard() is None:
         return None
     g, members = comm.group(rules.mesh, rules.mesh_axes("tp"))
     return Axis(len(members), members.index(dist.get_rank()), g)
+
+
+def training() -> bool:
+    """Whether the "tp" axis is a train context's: whole weights, the
+    stream on the rank's positions."""
+    return not act.is_serve() and axis() is not None
+
+
+def seq_gather(x: torch.Tensor, on: bool = True) -> torch.Tensor:
+    """The whole sequence (dim 1) of the stream from every rank's
+    positions, in training (`x` itself when `on` is False or elsewhere);
+    its backward sums every rank's cotangent of the rank's positions."""
+    sh = act.seq_shard()
+    if sh is None or not on:
+        return x
+    return comm.all_gather_ad(x, 1, sh.group, sh.n)
+
+
+def seq_take(y: torch.Tensor) -> torch.Tensor:
+    """The rank's positions (dim 1) of a whole sequence, in training."""
+    sh = act.seq_shard()
+    if sh is None or y is None:
+        return y
+    lo, hi = sh.span(y.shape[1] // sh.n)
+    return y[:, lo:hi]
+
+
+def seq_whole(fn, x: torch.Tensor, x32: Optional[torch.Tensor] = None):
+    """`fn(x, x32)` -> (y, cache, y32) of a block run on the whole
+    sequence: in training the stream (and its unrounded value) is
+    gathered, the block runs whole on every rank of "model", and each
+    keeps its positions of y and y32 (the gradient of each rank's
+    positions only, so the sum over "model" counts every position
+    once)."""
+    if act.seq_shard() is None:
+        return fn(x, x32)
+    xw, xw32 = seq_gather(x), None if x32 is None else seq_gather(x32)
+    with act.seq_split(None, ()):           # the block itself splits nothing
+        y, cache, y32 = fn(xw, xw32)
+    return seq_take(y), cache, seq_take(y32)
+
+
+def _rows(w: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """This rank's chunk of `w`'s input dim (its second last)."""
+    k = w.shape[-2] // ax.n
+    if k * ax.n != w.shape[-2]:
+        raise ValueError(f"{w.shape[-2]} input features do not split into "
+                         f"{ax.n} chunks")
+    return w.narrow(-2, ax.i * k, k)
 
 
 def size() -> int:
@@ -135,9 +206,10 @@ def local(w: torch.Tensor, on: bool = True) -> torch.Tensor:
 
 
 def gather(x: torch.Tensor, ax: Optional[Axis] = None) -> torch.Tensor:
-    """The whole last dim from every rank's chunk (an all-gather)."""
+    """The whole last dim from every rank's chunk (an all-gather; its
+    backward sums the ranks' cotangents of the rank's chunk)."""
     ax = ax or axis()
-    return comm.all_gather(x, x.dim() - 1, ax.group, ax.n)
+    return comm.all_gather_ad(x, x.dim() - 1, ax.group, ax.n)
 
 
 def psum32(partial: torch.Tensor, dtype: torch.dtype,
@@ -146,6 +218,19 @@ def psum32(partial: torch.Tensor, dtype: torch.dtype,
     `dtype`."""
     ax = ax or axis()
     return comm.all_reduce(partial.float(), ax.group).to(dtype)
+
+
+def seq_scatter32(partial: torch.Tensor, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """In training, the rank's positions (dim 1) of the sum over "model"
+    of float32 partial products of the whole sequence, rounded once to
+    `dtype` (a reduce-scatter whose backward is the all-gather); in a
+    serve context the whole sum (`psum32`)."""
+    ax = axis()
+    if act.is_serve():
+        return psum32(partial, dtype, ax)
+    return comm.reduce_scatter_ad(partial.float(), 1, ax.group,
+                                  ax.n).to(dtype)
 
 
 def whole(w: torch.Tensor) -> torch.Tensor:
@@ -180,7 +265,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, x_local: bool = False,
     dim whole, or (`x_local`) this rank's chunk of it; returns the
     product's last dim whole, or (`local`) this rank's chunk.  `w`'s last
     two dims are its input and output dims (a leading dim is a batch of
-    weights: experts, codebooks).  Without an axis: `fn(x, w)`."""
+    weights: experts, codebooks).  Without an axis: `fn(x, w)`.
+
+    In training (`training()`, whole weights) the rank's chunk of the
+    output is the product by the chunk of w's columns, of an input whole
+    in its last dim and (the caller's `seq_gather`) in its sequence; a
+    product from the rank's chunk of the input (`x_local` alone) is the
+    float32 sum over "model" of the partial products by w's rows,
+    reduce-scattered onto the rank's positions of the sequence (dim 1)
+    and rounded once."""
     ax = axis()
     d = _split(w)
     if ax is None:
@@ -189,6 +282,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, x_local: bool = False,
                 "a placed weight multiplies outside a serve context of its "
                 "rules: run the model inside activation_sharding(rules, "
                 "serve=True)")
+        return fn(x, _cast(w, x.dtype))
+    if d is None and not act.is_serve():
+        if x_local and local:
+            x = gather(x, ax)
+        if local:
+            return fn(x, _cast(chunk(w), x.dtype))
+        if x_local:
+            return seq_scatter32(fn(x.float(), _rows(w, ax).float()),
+                                 x.dtype)
         return fn(x, _cast(w, x.dtype))
     if d is not None and d < w.dim() - 2:
         w, d = whole(w), None

@@ -234,8 +234,10 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 def mlp(h: torch.Tensor, p, cfg) -> torch.Tensor:
     """A block's gated MLP, `swiglu` over its weights p.w1, p.w3, p.w2, its
     hidden features this rank's chunk where they split over "tp"
-    (`dist/tp.py`)."""
+    (`dist/tp.py`; in training from the whole sequence, gathered, and
+    back onto the rank's positions)."""
     loc = tp.divides(cfg.d_ff)
+    h = tp.seq_gather(h, loc)
     h1 = constrain(activation(tp.matmul(h, p.w1, local=loc), cfg.act),
                    "dp", None, "tp")
     return tp.matmul(h1 * tp.matmul(h, p.w3, local=loc), p.w2, x_local=loc)

@@ -31,6 +31,15 @@ every head on every rank, "sp" staying whole), the MLP over its hidden
 features, the embedding over its vocabulary rows.  The residual stream
 and the returned logits are whole on every rank, and the KV cache holds
 the rank's KV heads where they split.
+
+Training under the "tp" rules (a train context whose "sp" axis spans
+more than one device).  `loss` runs within `act.seq_split`: the weights
+are whole on every rank, the stream between blocks (what remat saves a
+cycle) is the rank's 1/n of the positions, each block gathers the
+normed stream and computes its share of the heads, features, channels
+or experts (`dist/tp.py`), and the NLL, its count and the MoE
+statistics are summed over every rank's positions.  The train step
+sums each gradient over "model" (`dist.sharding.reduce_grad`).
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist import tp
-from repro_torch.dist.act import axis_size, constrain, psum_batch
+from repro_torch.dist import act
+from repro_torch.dist.act import axis_size, constrain, psum_batch, psum_seq
 from repro_torch.dist.sharding import (Placement, placement_of, reshard,
                                        split_axes, split_dims,
                                        with_placement)
@@ -207,27 +217,43 @@ def attn_block(x, p, cfg: ModelConfig, kind: str, cache: Optional[dict],
     kvl = kv // n if kv_split else kv
 
     hnorm = L.rmsnorm(x, p.ln1, cfg.norm_eps, x32)
-    q = tp.matmul(hnorm, p.wq, local=heads)
-    k = tp.matmul(hnorm, p.wk, local=kv_split)
-    v = tp.matmul(hnorm, p.wv, local=kv_split)
+    # training under "tp" (x the rank's positions): k and v, and q in the
+    # heads layout, come from the whole sequence gathered over "model";
+    # in the sequence layout q keeps the rank's positions
+    train = tp.training()
+    hw = tp.seq_gather(hnorm, train)
+    q_pos = kv_pos = positions
+    if train:
+        kv_pos = torch.arange(hw.shape[1], dtype=torch.int32,
+                              device=x.device).expand(b, hw.shape[1])
+        if heads:
+            q_pos = kv_pos
+    q = tp.matmul(hw if heads else hnorm, p.wq, local=heads)
+    k = tp.matmul(hw, p.wk, local=kv_split)
+    v = tp.matmul(hw, p.wv, local=kv_split)
     if cfg.qkv_bias:
         q = q + tp.chunk(p.bq, heads).to(q.dtype)
         k = k + tp.chunk(p.bk, kv_split).to(k.dtype)
         v = v + tp.chunk(p.bv, kv_split).to(v.dtype)
-    q = constrain(q.reshape(b, s, hl, hd), *qspec)
-    k = constrain(k.reshape(b, s, kvl, hd), *kvspec)
-    v = constrain(v.reshape(b, s, kvl, hd), *kvspec)
+    sq, skv = q.shape[1], k.shape[1]
+    q = constrain(q.reshape(b, sq, hl, hd), *qspec)
+    k = constrain(k.reshape(b, skv, kvl, hd), *kvspec)
+    v = constrain(v.reshape(b, skv, kvl, hd), *kvspec)
     if cfg.qk_norm:
         q = _head_norm(q, p.q_norm, cfg.norm_eps)
         k = _head_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.use_rope:
-        cos, sin = L.rope_tables(positions, hd, cfg.rope_base)
-        q = L.apply_rope(q, cos, sin)
+        cos, sin = L.rope_tables(kv_pos, hd, cfg.rope_base)
         k = L.apply_rope(k, cos, sin)
+        if q_pos is not kv_pos:
+            cos, sin = L.rope_tables(q_pos, hd, cfg.rope_base)
+        q = L.apply_rope(q, cos, sin)
 
     # a prefill (s > 1) attends within its own sequence: the cache write
-    # never feeds the attention read
-    kk, vv, kv_pos, triangular = k, v, positions, True
+    # never feeds the attention read; the rank's query positions against
+    # the whole sequence (training's sequence layout) are masked, not
+    # cut at the diagonal
+    kk, vv, triangular = k, v, sq == skv
     if cache is not None and "pos_arr" in cache:      # sliding-window ring
         w = cache["k"].shape[1]
         if s == 1:
@@ -259,13 +285,14 @@ def attn_block(x, p, cfg: ModelConfig, kind: str, cache: Optional[dict],
         idx = (tp.axis().i * hl + torch.arange(hl, device=x.device)) \
             // (h_ // kv)
         kk, vv = kk.index_select(2, idx), vv.index_select(2, idx)
-    o = L.flash_attention(q, kk, vv, positions, kv_pos, window=window,
+    o = L.flash_attention(q, kk, vv, q_pos, kv_pos, window=window,
                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                           triangular=triangular)
     # wo / w2: a float32 sum rounded once to the activation dtype (the
     # reference's reduce_dtype only changes a sharded reduction's wire type;
-    # split over ranks, the float32 partials are summed: `tp.matmul`)
-    x, x32 = L.residual(x, tp.matmul(o.reshape(b, s, hl * hd), p.wo,
+    # split over ranks, the float32 partials are summed, in training onto
+    # the rank's positions: `tp.matmul`)
+    x, x32 = L.residual(x, tp.matmul(o.reshape(b, sq, hl * hd), p.wo,
                                      x_local=heads))
     x = constrain(x, "dp", "sp", None)
 
@@ -487,7 +514,21 @@ class LM(nn.Module):
     # -- embedding / head ---------------------------------------------------------
 
     def _embed(self, tokens, patch_embeds=None):
+        """The stream of the embedded tokens after the patch embeddings:
+        within `act.seq_split`, the rank's positions."""
         cfg = self.cfg
+        sh = act.seq_shard()
+        if sh is not None:
+            s_all = tokens.shape[1] + (0 if patch_embeds is None
+                                       else patch_embeds.shape[1])
+            if s_all % sh.n:
+                raise ValueError(
+                    f"a sequence of {s_all} positions does not split over "
+                    f"{sh.n} ranks of \"model\": training under the \"tp\" "
+                    f"rules needs a length they divide")
+            if patch_embeds is None:
+                lo, hi = sh.span(s_all // sh.n)
+                tokens = tokens[:, lo:hi]
         if cfg.n_codebooks:
             # tokens [B, S, n_cb]: summed codebook embeddings
             x = sum(tp.lookup(tp.index(self.embed, c), tokens[..., c])
@@ -495,7 +536,7 @@ class LM(nn.Module):
         else:
             x = tp.lookup(self.embed, tokens)
         if patch_embeds is not None:
-            x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+            x = tp.seq_take(torch.cat([patch_embeds.to(x.dtype), x], dim=1))
         return constrain(x, "dp", "sp", None)
 
     def _head(self, x, x32=None):
@@ -528,9 +569,10 @@ class LM(nn.Module):
         for start in range(0, scanned, period):
             layers = range(start, start + period)
             if remat:
-                x, aux_total = checkpoint(self._cycle_carry, layers, x,
-                                          aux_total, positions,
-                                          use_reentrant=False)
+                x, aux_total = checkpoint(
+                    self._cycle_carry, layers, x, aux_total, positions,
+                    use_reentrant=False,
+                    context_fn=act.checkpoint_contexts)
             else:
                 x, aux_total, _ = self._cycle(layers, x, aux_total, caches,
                                               positions, pos0)
@@ -582,35 +624,57 @@ class LM(nn.Module):
         next token (over the codebooks' mean) plus 0.01 x the MoE
         load-balance loss.  Where the batch's rows are split over ranks
         (`act.batch_split`), the mean and the load-balance statistics run
-        over every rank's rows."""
+        over every rank's rows.  In a train context whose rules split the
+        sequence ("sp" over "model", the "tp" policy) the loss runs
+        within `act.seq_split`: each rank carries its positions of the
+        stream, predicts their next tokens, and the sums run over every
+        rank's positions (`act.psum_seq`)."""
+        axes = act.seq_axes()
+        if not axes:
+            return self._loss(batch)
+        with act.seq_split(act.current_rules().mesh, axes):
+            return self._loss(batch)
+
+    def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(tokens, batch.get("patch_embeds"))
         b, s = x.shape[0], x.shape[1]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
-        x, aux, x32 = self._run_blocks(x, None, positions, None)
+        sh = act.seq_shard()
+        lo = 0 if sh is None else sh.span(s)[0]
+        pos = lo + torch.arange(s, dtype=torch.int32, device=x.device)
+        x, aux, x32 = self._run_blocks(x, None, pos.expand(b, s), None)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps, x32)
-        if cfg.patch_prefix:
-            x = x[:, cfg.patch_prefix:]
-        x = x[:, :-1]
-        labels = tokens[:, 1:].long()
-        total, count = self.chunked_nll(x, labels)
-        # over every rank's rows where the batch is split (`act.batch_split`)
-        total, count = psum_batch(total), psum_batch(count)
+        if sh is None:
+            if cfg.patch_prefix:
+                x = x[:, cfg.patch_prefix:]
+            x = x[:, :-1]
+            labels, weights = tokens[:, 1:].long(), None
+        else:
+            # position p predicts text token p - P + 1, where there is one
+            nxt = pos.long() - cfg.patch_prefix + 1
+            real = (nxt >= 1) & (nxt < tokens.shape[1])
+            labels = tokens[:, nxt.clamp(0, tokens.shape[1] - 1)].long()
+            weights = real.float().expand(b, s)
+        total, count = self.chunked_nll(x, labels, weights)
+        # over every rank's positions and rows where they are split
+        total = psum_batch(psum_seq(total))
+        count = psum_batch(psum_seq(count))
         return total / torch.clamp(count, min=1.0) + 0.01 * aux
 
-    def chunked_nll(self, x, labels):
+    def chunked_nll(self, x, labels, weights=None):
         """(sum of the next-token NLL, count of real positions) of hidden
-        states x [B, T, D] against labels [B, T(, n_cb)]: the head product
-        and the cross-entropy per chunk of 256 positions, each recomputed
-        in the backward pass (the reference's `jax.remat` body), the tail
-        chunk padded with zero weights."""
+        states x [B, T, D] against labels [B, T(, n_cb)] (`weights` [B, T]
+        marks the real positions: all of them when None): the head
+        product and the cross-entropy per chunk of 256 positions, each
+        recomputed in the backward pass (the reference's `jax.remat`
+        body), the tail chunk padded with zero weights."""
         chunk = max(1, min(256, x.shape[1]))
         n_chunk = -(-x.shape[1] // chunk)
         pad = n_chunk * chunk - x.shape[1]
-        weights = torch.ones(x.shape[:2], dtype=torch.float32,
-                             device=x.device)
+        if weights is None:
+            weights = torch.ones(x.shape[:2], dtype=torch.float32,
+                                 device=x.device)
         if pad:
             x = F.pad(x, (0, 0, 0, pad))
             labels = F.pad(labels, (0, 0) * (labels.dim() - 2) + (0, pad))

@@ -14,6 +14,22 @@ of any configuration splits the expert dim E (E is smaller than D and
 F), so the experts' F or D dim is split, every rank dispatches every
 token, and no token crosses ranks.  The reference's `ep_spec` marks the
 dispatch buffer as it does; they mark, they move nothing.
+
+Training under the "tp" rules (`act.seq_split`: the stream is the rank's
+positions, the weights whole).  The rank gathers its rows' whole
+sequence over "model", routes it, and ranks and caps every token of its
+groups in the reference's (batch, position) order, so each rank
+dispatches the same tokens to the same slots; the groups are
+g = axis_size("fsdp"), the batch's axes alone ("data").  The rank
+computes its share of the dispatch buffer as `ep_spec` marks it: its
+experts where E divides "model", else its capacity rows where they
+divide, else the whole buffer.  Its combine is then every token's sum of
+the choices it computed, in float32, reduce-scattered onto the rank's
+positions and rounded once (the one-device combine is the same float32
+sum of the same rounded products); with the whole buffer it keeps its
+positions of the whole combine.  The load-balance statistics count the
+rank's positions and are summed over "model" (`act.psum_seq`), so every
+token counts once.
 """
 
 from __future__ import annotations
@@ -25,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist import tp
 from repro_torch.dist.act import (axis_size, batch_shards, constrain,
-                                  is_serve, psum_batch)
+                                  is_serve, psum_batch, psum_seq, seq_shard)
 from repro_torch.models.layers import dense_init, silu
 
 
@@ -59,10 +75,12 @@ def capacity(cfg, tokens_per_group: int) -> int:
 
 def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux_loss scalar f32)."""
-    b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    sharded = seq_shard() is not None
+    xw = tp.seq_gather(x)                  # training under "tp": every position
+    b, s, d = xw.shape
     t = b * s
-    xt = x.reshape(t, d)
+    xt = xw.reshape(t, d)
 
     logits = tp.matmul(xt.float(), p.router)                  # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -70,13 +88,17 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)            # renormalize
 
     # load-balance aux loss (Switch proxy): E * sum_e P_e * f, over the
-    # whole batch's t_all tokens
+    # whole batch's t_all tokens (each rank of "model" counts its positions)
     shards = batch_shards()
     t_all = t * shards
-    me = (probs.mean(dim=0) if shards == 1
-          else psum_batch(probs.sum(dim=0)) / t_all)
-    ce = torch.mean(psum_batch(F.one_hot(top_i[:, 0], e).float().sum(dim=0))
-                    / t_all)
+    mine_p, mine_i = probs, top_i[:, 0]
+    if sharded:
+        mine_p = tp.seq_take(probs.reshape(b, s, e)).reshape(-1, e)
+        mine_i = tp.seq_take(mine_i.reshape(b, s)).reshape(-1)
+    me = (probs.mean(dim=0) if shards == 1 and not sharded
+          else psum_batch(psum_seq(mine_p.sum(dim=0))) / t_all)
+    ce = torch.mean(psum_batch(psum_seq(
+        F.one_hot(mine_i, e).float().sum(dim=0))) / t_all)
     aux = e * me.sum() * ce
 
     # ranking and capacity per group of the whole batch (g = 1 outside a
@@ -116,6 +138,10 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     else:
         ep_spec = ("fsdp", None, "tp", None)
     buf = constrain(buf, *ep_spec)
+    weight = (pg * keep).to(x.dtype)
+    if sharded:
+        return _train_share(buf, p.experts, grp, eg, pos_c, weight, ep_spec,
+                            (b, s, d), k), aux
 
     w = p.experts
     loc = tp.divides(cfg.d_ff)              # this rank's chunk of F
@@ -125,6 +151,42 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     out = constrain(tp.matmul(h, w.w2, x_local=loc), *ep_spec)  # [G,E,C,D]
 
     gathered = out[grp, eg, pos_c]                             # [G, Tg*k, D]
-    weight = (pg * keep).to(x.dtype)
     y = (gathered * weight[..., None]).reshape(t, k, d).sum(dim=1)
     return y.reshape(b, s, d), aux
+
+
+def _experts(buf, w1, w3, w2, ep_spec):
+    h = silu(buf @ w1) * (buf @ w3)
+    h = constrain(h, *ep_spec)                                 # [G, E, C, F]
+    return constrain(h @ w2, *ep_spec)                         # [G, E, C, D]
+
+
+def _train_share(buf, w, grp, eg, pos_c, weight, ep_spec, shape, k):
+    """Training under "tp": the combine of this rank's share of the
+    dispatch buffer `buf` [G, E, C, D] (whole on every rank), onto the
+    rank's positions of the stream [B, S/n, D] (see the module's
+    docstring)."""
+    b, s, d = shape
+    ax = tp.axis()
+    e, cap = buf.shape[1], buf.shape[2]
+    if ep_spec[1] == "tp" or (ep_spec[2] == "tp" and cap % ax.n == 0):
+        dim = 1 if ep_spec[1] == "tp" else 2        # experts, else rows
+        size = buf.shape[dim] // ax.n
+        lo = ax.i * size
+        ids = eg if dim == 1 else pos_c
+        mine = (ids >= lo) & (ids < lo + size)
+        rel = (ids - lo).clamp(0, size - 1)
+        if dim == 1:
+            sl = slice(lo, lo + size)
+            out = _experts(buf[:, sl], w.w1[sl], w.w3[sl], w.w2[sl], ep_spec)
+            got = out[grp, rel, pos_c]
+        else:
+            out = _experts(buf.narrow(2, lo, size), w.w1, w.w3, w.w2,
+                           ep_spec)
+            got = out[grp, eg, rel]
+        part = (got * (weight * mine)[..., None]).float()
+        part = part.reshape(b * s, k, d).sum(dim=1)
+        return tp.seq_scatter32(part.reshape(b, s, d), buf.dtype)
+    out = _experts(buf, w.w1, w.w3, w.w2, ep_spec)
+    y = (out[grp, eg, pos_c] * weight[..., None]).reshape(b * s, k, d)
+    return tp.seq_take(y.sum(dim=1).reshape(b, s, d))

@@ -12,6 +12,12 @@ elementwise math and the scan are per channel, the square gate matrices
 gather their input and give the rank's channels, and the output product
 and the MLP follow their weights' placements.  The cache holds the
 rank's channels.
+
+Training under the "tp" rules (`dist/tp.py`, weights whole, the stream
+the rank's positions): the normed stream is gathered over "model" and
+the block runs over the rank's channels of the whole sequence, its
+output product summed back onto the rank's positions; where the
+channels do not split, the block runs whole (`tp.seq_whole`).
 """
 
 from __future__ import annotations
@@ -117,7 +123,10 @@ def rglru_block(x: torch.Tensor, p, cfg, cache: Optional[dict], x32=None
     """x [B, S, D] -> (x + block(x), cache written in place, the output's
     unrounded float32 value); x32 as in `model.attn_block`."""
     loc = tp.divides(cfg.d_rnn_eff)         # this rank's chunk of channels
-    h = rmsnorm(x, p.ln, cfg.norm_eps, x32)
+    if tp.training() and not loc:
+        return tp.seq_whole(lambda xw, xw32: rglru_block(xw, p, cfg, cache,
+                                                         xw32), x, x32)
+    h = tp.seq_gather(rmsnorm(x, p.ln, cfg.norm_eps, x32), loc)
     gate = constrain(silu(tp.matmul(h, p.w_gate, local=loc)), "dp", None,
                      "tp")
     u = constrain(tp.matmul(h, p.w_in, local=loc), "dp", None, "tp")

@@ -10,7 +10,9 @@ the state after the prompt; the port's is (ROADMAP C).
 On ranks under the "tp" serve rules the reference marks nothing in these
 blocks, so each block gathers its split weights whole at use
 (`dist.tp.gathered`, counted in `tp.GATHERED`) and every rank runs the
-block whole; their caches stay whole.
+block whole; their caches stay whole.  In training under the "tp"
+rules every rank runs each block whole on the sequence gathered over
+"model" and keeps its positions (`tp.seq_whole`).
 """
 
 from __future__ import annotations
@@ -99,6 +101,9 @@ def mlstm_block(x: torch.Tensor, p, cfg, cache: Optional[dict], x32=None
                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (x + block(x), cache written in place, the output's unrounded
     float32 value); x32 as in `model.attn_block`."""
+    if tp.training():
+        return tp.seq_whole(lambda xw, xw32: mlstm_block(xw, p, cfg, cache,
+                                                         xw32), x, x32)
     b, s, d = x.shape
     di, h, dh = _mlstm_dims(cfg)
     p = tp.gathered(p)
@@ -205,6 +210,9 @@ def slstm_block(x: torch.Tensor, p, cfg, cache: Optional[dict], x32=None
                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (x + block(x), cache written in place, the output's unrounded
     float32 value); x32 as in `model.attn_block`."""
+    if tp.training():
+        return tp.seq_whole(lambda xw, xw32: slstm_block(xw, p, cfg, cache,
+                                                         xw32), x, x32)
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h

@@ -18,6 +18,14 @@ rows: the loss's mean and the MoE statistics run over all of them
 rank, and its gradient is not summed.  With accumulation, microbatch i
 is the rows [i B/a, (i+1) B/a) of the whole batch, split again over the
 ranks as the reference's `constrain` places it.
+
+Training under the "tp" rules.  Where the active train context splits
+the sequence over "model" (`act.seq_axes`), each rank's loss runs its
+positions and its share of the heads, features and experts
+(`LM.loss`), so its gradient of a whole weight is that share's: each
+gradient is summed over "model" as well, after the batch's reduction
+(`dist.sharding.reduce_grad`).  The global norm, AdamW and the
+microbatches run as under FSDP.
 """
 
 from __future__ import annotations
@@ -76,7 +84,8 @@ def _value_and_grad(model: LM, params, batch, mesh=None, axes=()):
     """(loss, grads in the parameters' dtype) of one batch; a parameter
     the loss does not reach gets zeros, as `jax.value_and_grad` gives.
     `params` placed: each gradient is its slice's, summed over the ranks
-    that split the batch along `axes` of `mesh`."""
+    that split the batch along `axes` of `mesh`, and over those that
+    split the sequence ("model", `act.seq_axes`)."""
     for p in model.parameters():
         p.grad = None
     with act.batch_split(mesh, axes) if axes else contextlib.nullcontext():
@@ -88,12 +97,16 @@ def _value_and_grad(model: LM, params, batch, mesh=None, axes=()):
             return Stacked(grad(t) for t in p)
         return p.grad if p.grad is not None else torch.zeros_like(p)
 
+    model_axes = act.seq_axes()
+    if model_axes:
+        mesh = mesh or act.current_rules().mesh
+
     def placed(own, p):
         g = grad(own)
         pl = placement_of(p)
-        if pl is None and not axes:
+        if pl is None and not axes and not model_axes:
             return g
-        return reduce_grad(g, pl, axes, mesh)
+        return reduce_grad(g, pl, axes, mesh, model_axes)
     grads = tree_map(placed, model.param_tree(), params)
     for p in model.parameters():
         p.grad = None

@@ -1192,3 +1192,37 @@ def test_tp_serving_on_the_card_matches_one_process(cuda, tmp_path):
         np.testing.assert_allclose(got, w.cpu().numpy(), rtol=1e-4,
                                    atol=1e-4)
     assert out["calls"] == 3 * (5 * cfg.n_layers + 2)
+
+
+def test_tp_training_on_the_card_matches_one_process(cuda, tmp_path):
+    """A (1, 2) gloo world of two ranks sharing the card under the "tp"
+    train rules (phase 14a's smoke world): mixtral-8x7b (capacity factor
+    1) and qwen2.5-14b at their float32 smoke configs from `LM(cfg,
+    seed=0)`, TF32 off: the loss at 1e-4 and each gathered gradient leaf
+    within 1e-4 of its largest entry, against one process on the card
+    with the same weights and batch; one make_train_step step at accum
+    2: its loss and grad norm at 1e-4, each first moment within 1e-4 of
+    its largest entry."""
+    import torch_tp_train_ranks as ranks
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.dist.world import run_world
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import leaves
+    out = run_world(ranks.cuda_world, 2, device="cuda",
+                    store_dir=str(tmp_path))
+    one = ShardingRules(make_host_mesh(device="cuda"), "tp")
+
+    def scaled(got, want):
+        for a, b in zip(leaves(got), leaves(want)):
+            a, b = np.asarray(a), np.asarray(b)
+            assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max() + 1e-8
+    for name, (loss, grads, (sl, sg, st)) in out.items():
+        model = ranks.cuda_case(name)
+        want_loss, want_grads = ranks.loss_grads(model, one, "cuda")
+        wl, wg, wst = ranks.step(model, one, 2, "cuda")
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-4, atol=1e-4)
+        scaled(grads, want_grads)
+        np.testing.assert_allclose(sl, wl, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(sg, wg, rtol=1e-4)
+        assert st["opt"]["step"] == wst["opt"]["step"] == 1
+        scaled(st["opt"]["mu"], wst["opt"]["mu"])

@@ -178,11 +178,11 @@ def test_act_hooks():
     """Outside a context the hooks are the identity; inside one they
     answer from the sharding rules: one device is the identity, a "dp"
     split without a process group raises and names it; a "tp" split in a
-    serve context without a process group raises and names it, and
-    outside a serve context (training under "tp") raises and names
-    ROADMAP A12.2d (tests/test_torch_train.py holds the rules,
-    tests/test_torch_train_fsdp.py and tests/test_torch_tp.py the splits
-    on ranks)."""
+    serve context without a process group raises and names it, and so
+    does one outside a serve context (training under "tp";
+    tests/test_torch_train.py holds the rules,
+    tests/test_torch_train_fsdp.py, tests/test_torch_tp.py and
+    tests/test_torch_tp_train.py the splits on ranks)."""
     from repro_torch.dist.sharding import ShardingRules
     from repro_torch.launch.mesh import make_mesh
     x = torch.ones(2)
@@ -203,7 +203,7 @@ def test_act_hooks():
         with pytest.raises(RuntimeError, match="process group"):
             act.constrain(x, "tp")
     with act.activation_sharding(tp):
-        with pytest.raises(NotImplementedError, match="A12.2d"):
+        with pytest.raises(RuntimeError, match="process group"):
             act.constrain(x, "tp")
     assert act.axis_size("tp") == 1
     assert act.batch_shards() == 1 and act.psum_batch(x) is x

@@ -496,8 +496,8 @@ def test_reshard_and_constrain_raise_on_a_split_axis():
     identity.  An axis of two devices without a process group: a split
     raises and names the process group (it never replicates); a "tp"
     split in a serve context without a process group raises and names
-    it, and in training raises and names ROADMAP A12.2d
-    (tests/test_torch_train_fsdp.py and tests/test_torch_tp.py run the
+    it, and so does one in training (tests/test_torch_train_fsdp.py,
+    tests/test_torch_tp.py and tests/test_torch_tp_train.py run the
     splits on a world of ranks)."""
     x = torch.ones(8, 4)
     one = tsh.ShardingRules(make_host_mesh(device="cpu"), "dp")
@@ -526,7 +526,7 @@ def test_reshard_and_constrain_raise_on_a_split_axis():
             act.constrain(x, None, "tp")
         assert act.constrain(x, "dp", None) is x
     with act.activation_sharding(tp):
-        with pytest.raises(NotImplementedError, match="A12.2d"):
+        with pytest.raises(RuntimeError, match="process group"):
             act.constrain(x, None, "tp")
         assert act.constrain(x, "dp", None) is x
     # and outside any context the hooks are the identity again

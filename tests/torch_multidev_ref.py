@@ -37,6 +37,19 @@ which the port's rank side shares) imports no JAX.  Parts:
   tp_specs   - the "tp" rules' serve param, cache and batch shardings'
              specs of every smoke architecture on (1, 2), (2, 2) and
              (1, 4)
+  tp_train   - tests/test_torch_tp_train.py's training under the "tp"
+             rules, from `LM(cfg).init(PRNGKey(0))` and the batch of
+             `tp_train_inputs`: "one", `jax.value_and_grad(model.loss)`
+             on one device (loss and grads) of every smoke architecture
+             in float32 and of `TPT_BF16` in bf16; "mesh", the `TPT_MESH`
+             architectures in float32 (mixtral-8x7b at capacity factor 1,
+             `OVERRIDES`) on a (2, 2) ("data", "model") mesh as
+             `specs.build_cell`'s train cell runs them under "tp" (params
+             and moments placed by `param_shardings`, the batch by
+             `batch_shardings`, the calls inside `activation_sharding
+             (rules)`): the loss and grads, one `make_train_step` step at
+             accum 1 and 2 (loss, grad norm, the state), and the
+             one-device loss beside them
 """
 
 import dataclasses
@@ -67,6 +80,26 @@ TP_MESH = [(a, d) for a in ("qwen2.5-14b", "mixtral-8x7b")
 TP_RECURRENT = ("recurrentgemma-9b", "xlstm-350m")
 TP_B, TP_S, TP_STEPS = 2, 20, 4
 TP_SPEC_SHAPES = ((1, 2), (2, 2), (1, 4))
+
+
+#: training under the "tp" rules: the bf16 cases on (1, 2), the (2, 2)
+#: cases, the batch (rows x positions, the patch prefix included)
+TPT_BF16 = ("mixtral-8x7b", "qwen2.5-14b")
+TPT_MESH = ("mixtral-8x7b", "qwen2.5-14b")
+TPT_B, TPT_S = 4, 32
+
+
+def tp_train_inputs(cfg, seed: int = 0):
+    """numpy {"tokens" [TPT_B, TPT_S - P(, n_cb)] int32, ("patch_embeds"
+    [TPT_B, P, D] float32)} of a training case."""
+    rng = np.random.default_rng(seed)
+    shape = (TPT_B, TPT_S - cfg.patch_prefix) + (
+        (cfg.n_codebooks,) if cfg.n_codebooks else ())
+    out = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.patch_prefix:
+        out["patch_embeds"] = rng.standard_normal(
+            (TPT_B, cfg.patch_prefix, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def tp_inputs(cfg, seed: int = 0):
@@ -202,11 +235,12 @@ def fsdp():
     return out
 
 
-def _tp_model(name, dtype):
+def _tp_model(name, dtype, **over):
     import jax
     from repro import configs
     from repro.models import LM
-    cfg = dataclasses.replace(configs.get_smoke(name), param_dtype=dtype)
+    cfg = dataclasses.replace(configs.get_smoke(name), param_dtype=dtype,
+                              **over)
     f32 = LM(dataclasses.replace(cfg, param_dtype="float32")).init(
         jax.random.PRNGKey(0))
     want = jax.eval_shape(lambda: LM(cfg).init(jax.random.PRNGKey(0)))
@@ -350,11 +384,66 @@ def tp_specs():
     return out
 
 
+def tp_train():
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.dist.act import activation_sharding
+    from repro.dist.sharding import (ShardingRules, batch_shardings,
+                                     param_shardings)
+    from repro.train.optimizer import AdamWConfig, adamw_init
+    from repro.train.train_step import make_train_step
+
+    def batch_of(cfg):
+        return {k: jnp.asarray(v) for k, v in tp_train_inputs(cfg).items()}
+    out = {"one": {}, "mesh": {}}
+    cases = [(a, "float32") for a in configs.ARCH_NAMES] + [
+        (a, "bfloat16") for a in TPT_BF16]
+    for name, dtype in cases:
+        cfg, model, params = _tp_model(name, dtype)
+        loss, grads = jax.jit(jax.value_and_grad(model.loss))(
+            params, batch_of(cfg))
+        out["one"][(name, dtype)] = (float(loss), _np(grads))
+
+    mesh = _mesh((2, 2))
+    rules = ShardingRules(mesh, "tp")
+
+    def run(fn, *args):
+        def ctx(*a):
+            with activation_sharding(rules):
+                return fn(*a)
+        with mesh:
+            return jax.jit(ctx)(*args)
+    for name in TPT_MESH:
+        cfg, model, params = _tp_model(name, "float32",
+                                       **OVERRIDES.get(name, {}))
+        batch = batch_of(cfg)
+        p_sh = param_shardings(rules, params)
+        state_sh = {"params": p_sh, "opt": {
+            "mu": p_sh, "nu": p_sh, "step": rules.named((), [])}}
+        placed = jax.device_put(batch, batch_shardings(rules, batch))
+        res = {"loss_one_device": float(jax.jit(model.loss)(params, batch))}
+        loss, grads = run(jax.value_and_grad(model.loss),
+                          jax.device_put(params, p_sh), placed)
+        res["loss"], res["grads"] = float(loss), _np(grads)
+        for accum in (1, 2):
+            state = jax.device_put(
+                {"params": params, "opt": adamw_init(params)}, state_sh)
+            step = make_train_step(model, AdamWConfig(**OPT),
+                                   accum_steps=accum)
+            st, met = run(step, state, placed)
+            res[f"step{accum}"] = (float(met["loss"]),
+                                   float(met["grad_norm"]), _np(st))
+        out["mesh"][name] = res
+    return out
+
+
 if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     parts = {"pipeline": pipeline, "fsdp": fsdp, "tp_a": tp_a, "tp_b": tp_b,
-             "tp_mesh": tp_mesh, "tp_specs": tp_specs}
+             "tp_mesh": tp_mesh, "tp_specs": tp_specs,
+             "tp_train": tp_train}
     result = {p: parts[p]() for p in sys.argv[2:]}
     with open(sys.argv[1], "wb") as f:
         pickle.dump(result, f)
