@@ -66,10 +66,10 @@ Phases (any failure exits non-zero before the last line is printed):
    priority_pairs).
 6. Evolving graphs at full size, on the same session: the four jobs
    converge, then take the reference's own update generator,
-   mutation_stream(csr, 4, inserts_per_batch=512, deletes_per_batch=256,
+   mutation_stream(csr, 2, inserts_per_batch=512, deletes_per_batch=256,
    seed=1) (768 updates a batch, about 0.15% of the edges), each batch
    applied with `apply_updates` and the jobs rerun to convergence
-   (Fused() after batches 1 and 3, TwoLevel() after 2 and 4); then a
+   (Fused() after batch 1, TwoLevel() after batch 2); then a
    hand-built batch of inserts on block pairs that own no tile slot (the
    overlay and the kernel route's ride-along, under Fused(), with live
    overlay entries asserted) and a batch with more new pairs in one
@@ -86,7 +86,7 @@ Phases (any failure exits non-zero before the last line is printed):
 7. The serve front at full size, with the first session freed: the
    open-loop harness (obs.loadgen: seeded Poisson arrivals with a burst
    envelope, 64 tenants on the default family mix pagerank/ppr/sssp/bfs,
-   62 requests over a horizon of 160 ticks, a mutation_stream batch of 8 inserts and 4 deletes every 80 ticks
+   35 requests over a horizon of 88 ticks, a mutation_stream batch of 8 inserts and 4 deletes every 80 ticks
    forwarded to notify_group_update) admits requests through a
    ConcurrentServeScheduler over 1024 request groups (one per block)
    into GraphSession(rmat_graph(2**16, 8), 64, capacity=8,
@@ -131,9 +131,9 @@ Phases (any failure exits non-zero before the last line is printed):
    time with the ranks lined up.  B1/B2 launches over every rank and
    run are the `mesh` entry of `launches_by_path`.
 9. Live updates and the serve front on a placed session, in 8a's world
-   after its runs.  9a: phase 6's traffic on the (1 x 4) session (four
-   `mutation_stream` batches of 768 updates, Fused after 1 and 3,
-   TwoLevel after 2 and 4; the overlay batch under Fused; the overflow
+   after its runs.  9a: phase 6's traffic on the (1 x 4) session (two
+   `mutation_stream` batches of 768 updates, Fused after 1, TwoLevel
+   after 2; the overlay batch under Fused; the overflow
    batch, both views compacting, under TwoLevel; then `compact()`),
    each rerun held to phase 3's bars on a plain application of the
    batches; every rank holds B1/B2 on its edited pair shard after the
@@ -184,7 +184,7 @@ Phases (any failure exits non-zero before the last line is printed):
    plus lr x the difference of the two sides' AdamW directions (read
    from their moments); bf16 loss at 2e-2.  11b: minicpm-2b at its published widths, 40
    layers, bf16, seeded weights drawn on the card, launch.train's AdamW
-   (WSD), SyntheticTokens(seed=0) batches of 8 x 2048, 8 steps through
+   (WSD), SyntheticTokens(seed=0) batches of 8 x 2048, 6 steps through
    make_train_step: each step's loss, grad norm, lr, s and tokens/s
    beside the 0.29 s bound, peak memory split into state and the rest,
    the step's parts timed one by one; the loss must fall and every grad
@@ -192,8 +192,8 @@ Phases (any failure exits non-zero before the last line is printed):
    11c, in a child process (`--phases 11c`) that sets
    CUBLAS_WORKSPACE_CONFIG before CUDA starts: launch.train's
    RestartManager loop at the same widths cut to 2 layers, a checkpoint
-   every 4 steps under build/chip_smoke/ckpt (removed after), a failure
-   injected at step 5, under deterministic algorithms: one restart, the replayed losses bit-equal to their
+   every 2 steps under build/chip_smoke/ckpt (removed after), a failure
+   injected at step 3, under deterministic algorithms: one restart, the replayed losses bit-equal to their
    first pass, the final state equal to an uninterrupted run's; the
    checkpoint's GB and its save and restore s.
 
@@ -212,21 +212,21 @@ Phases (any failure exits non-zero before the last line is printed):
    12b, the same world: minicpm-2b at its published widths, 40 layers,
    bf16, FSDP-DP through launch.train's `setup` and step (11b's AdamW,
    its total_steps included), SyntheticTokens(seed=0) batches of 8 x
-   2048 (4 x 2048 a rank), 2 steps, each loss within 2e-2 of phase 11b's
-   same step (or of a one-device run of its first two steps here when
+   2048 (4 x 2048 a rank), 1 step, its loss within 2e-2 of phase 11b's
+   same step (or of a one-device run of its first step here when
    phase 12 runs alone) and its grad norm within 2e-2 relative; per step
    s, tokens/s, the collectives' calls, bytes and host s (the host
    copies apart) and their share of the step; each rank's peak.  The
    restart loop's full-width checkpoints (2 x 32.7 GB) stay out of 12b;
    12d runs the loop.  12c: a ("pod",) world of 4 ranks, the 40 blocks
-   cut to 20, in 4 stages of 5 (each block under a checkpoint, the
+   cut to 8, in 4 stages of 2 (each block under a checkpoint, the
    model's remat), the batch in 4 microbatches, the loss the final norm
    and the chunked cross-entropy with the tied head, held within 2e-2 of
    the same blocks run in sequence on rank 0; s a step, bytes a tick,
    each rank's peak.
    12d, in a child process with cuBLAS's deterministic workspace (`--phases
    12d`): launch.train's loop at the same widths cut to 2 layers in a
-   (2, 1) world, a checkpoint every 4 steps, a failure injected at step 5
+   (2, 1) world, a checkpoint every 2 steps, a failure injected at step 3
    on every rank: one restart, the replayed losses bit-equal; the world's
    last checkpoint restored on one device and a checkpoint of the
    gathered state restored onto the world, each bit for bit.
@@ -242,7 +242,7 @@ Phases (any failure exits non-zero before the last line is printed):
    config, prefill of 20 tokens and 4 decode steps, float32 (TF32 off)
    at rtol = atol = 1e-4, bf16 at 2e-2 (or within the one process's own
    one-ulp spread).  13b: qwen2.5-14b at its published widths, 48
-   layers, bf16: 4 prompts of 512 tokens, then 16 decode steps fed the
+   layers, bf16: 4 prompts of 512 tokens, then 8 decode steps fed the
    one process's greedy picks, each step's logits within 0.25 of the
    one-process logits' std; prefill s and decode ms a step beside the
    one-process times and the bound of `launch.analytic`, the
@@ -274,11 +274,31 @@ Phases (any failure exits non-zero before the last line is printed):
    the bytes of the gradient sums over "model", each rank's peak beside
    the one process's, `launch.analytic`'s bound of the same cell.
 
+15. The dry run (repro_torch.launch.dryrun: a cell's step run once on
+   meta tensors as one rank of a fake world, under FlopCounterMode,
+   MemTracker and dist.comm.record) held against the card; no kernel
+   either.  15a: the dry run of three single-pod (16, 16) cells at
+   published widths (qwen2.5-14b decode_32k, minicpm-2b train_4k,
+   mixtral-8x7b train_4k), each in a process of its own (no card;
+   the whole script starts them beside 12d's child), and `report`'s
+   tables of them; cost.HBM_PER_CARD equal to the card's
+   total_memory.  15b: minicpm-2b at its published widths cut to 4
+   layers, 8 x 2048 (11b's batch), on a (1, 1) mesh through
+   `dryrun.placed_cell` (`specs.build_cell(..., shape=)`), 2 steps on
+   the card against the dry run of the same cell: the argument bytes to
+   the byte, the FLOPs equal to FlopCounterMode's count of step 1 on the
+   card and within 0.5-2x of launch.analytic's forward x 3, the
+   predicted peak within 15% of each step's max_memory_allocated (reset
+   before the step).  15c (when phase 14 ran): 14b's cell in a fake
+   world of 2, ranks 0 and 1: calls and bytes equal to 14b rank 0's
+   `comm.STATS` each step, each rank's predicted peak within 15% of its
+   14b peak.
+
 Then one JSON line of kernel figures, one of the LM figures, one of the
 training figures, one of the multi-rank training figures, one of the
 tensor-parallel serving figures, one of the tensor-parallel training
-figures, the card's name and power limit, and last {"ok": true,
-"device": {...}}.
+figures, one of the dry run's, the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --trace
 
@@ -293,11 +313,12 @@ give the end-to-end numbers.
     python3 chip_smoke.py --phases 12
     python3 chip_smoke.py --phases 13
     python3 chip_smoke.py --phases 14
+    python3 chip_smoke.py --phases 15
 
 run phase 1 and phase 10 (the LM serving path), phase 11 (training),
-phase 12 (training over ranks), phase 13 (serving over ranks) or phase
-14 (training under the "tp" rules) alone, for iterating; no kernels
-line.
+phase 12 (training over ranks), phase 13 (serving over ranks), phase
+14 (training under the "tp" rules) or phase 15 (the dry run; 15c needs
+phase 14 and is skipped) alone, for iterating; no kernels line.
 """
 
 from __future__ import annotations
@@ -344,7 +365,8 @@ PADDED_SLOTS = 3               # padded slots in push_shared's queue
 SELECTION_POINTS = (("early", 0.1), ("middle", 0.5), ("late", 0.9))
 B4_BIG = (16, 16384, 64)       # 16 jobs over 2**20 vertices: 64 MB > L2
 # phase 6: the reference's own update generator, 0.15% of the edges a batch
-STREAM_BATCHES, STREAM_INSERTS, STREAM_DELETES, STREAM_SEED = 4, 512, 256, 1
+# two batches (four before): the whole script's depth, cut for time
+STREAM_BATCHES, STREAM_INSERTS, STREAM_DELETES, STREAM_SEED = 2, 512, 256, 1
 STREAM_DELETE = 1              # UpdateBatch.op of a delete
 # phase 7: the serve front, one request group per block, the load
 # generator's default family mix
@@ -354,7 +376,7 @@ SERVE_STEPS_PER_TICK = 8
 # phase 7's horizon and 9b's (22 arrivals, both BFS, one
 # update at tick 40) are cut in depth so that the whole script keeps
 # inside its time limit
-SERVE_LOAD = dict(seed=33, ticks=160, base_rate=0.4, burst_amplitude=0.6,
+SERVE_LOAD = dict(seed=33, ticks=88, base_rate=0.4, burst_amplitude=0.6,
                   burst_period=60, n_tenants=64, update_every=80)
 SERVE_PT_CHECKED = 3           # PageRank/PPR results held per run
 # phase 8: the multi-device engine, ranks sharing the card over gloo
@@ -1499,8 +1521,8 @@ def new_pairs(sess, grp, rows, per_row, reach):
 def stream_phase(torch, sess, handles, csr, fk):
     """Phase 6: the evolving-graph path at full size on the session of
     phases 3-5.  The jobs converge on the generated graph, then take
-    `mutation_stream` batches (Fused after batches 1 and 3, TwoLevel
-    after 2 and 4), a hand-built batch of inserts on block pairs without
+    `mutation_stream` batches (Fused after batch 1, TwoLevel after
+    batch 2), a hand-built batch of inserts on block pairs without
     a tile slot (the overlay and the kernel route's ride-along, under
     Fused) and a batch that overflows one block row's overlay (compaction,
     under TwoLevel); then an explicit compact().  Each rerun is held to
@@ -2106,9 +2128,9 @@ def cuda_census(torch, min_bytes=2 ** 26):
 
 def mesh_stream(torch, sess, handles, rank: int):
     """Phase 9a in every rank of 8a's world, on its placed session (the
-    four jobs converged by 8a's last run): phase 6's traffic, the four
-    `mutation_stream` batches (Fused after 1 and 3, TwoLevel after 2 and
-    4), the overlay batch (Fused) and the overflow batch (TwoLevel, both
+    four jobs converged by 8a's last run): phase 6's traffic, the two
+    `mutation_stream` batches (Fused after 1, TwoLevel after 2), the
+    overlay batch (Fused) and the overflow batch (TwoLevel, both
     views compact), each applied and rerun to convergence; then an
     explicit compact().  B1/B2 are held against the plain version on
     this rank's edited pair shard after the first batch and on its
@@ -3107,13 +3129,13 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5, "bf16_loss": 2e-2}
 # bar themselves
 TRAIN_NOISE_FLOOR = 1e-7
 # 11b: minicpm-2b at its published widths, launch.train's AdamW (WSD)
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 8
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 6
 TRAIN_PEAK_CAP = 75e9          # above it the batch is halved (and said so)
 # 11c: the restart loop at the same widths, cut to 2 layers, in a child
 # process: cuBLAS reads its workspace setting once, when CUDA starts, and
 # the deterministic one slows the other phases' GEMMs
-TRAIN_RESTART_LAYERS, TRAIN_RESTART_STEPS = 2, 6
-TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 4, 5
+TRAIN_RESTART_LAYERS, TRAIN_RESTART_STEPS = 2, 4
+TRAIN_SAVE_EVERY, TRAIN_FAIL_AT = 2, 3
 RESTART_CUBLAS = ":4096:8"
 RESTART_TAG = "11c-result: "
 
@@ -3413,7 +3435,7 @@ def _kernel_kinds(rows) -> dict:
 def train_full_phase(torch, trace: bool, bars) -> dict:
     """11b: minicpm-2b at its published widths, all 40 layers, bf16,
     seeded weights drawn on the card, launch.train's AdamW (WSD, peak
-    3e-4, warmup 1, 8 steps), SyntheticTokens(seed=0) batches of 8 x
+    3e-4, warmup 1, 6 steps), SyntheticTokens(seed=0) batches of 8 x
     2048 through make_train_step: each step's loss, grad norm, lr, s and
     tokens/s beside the bound; the loss must fall (the mean of the last
     five below the first five) and every grad norm be finite."""
@@ -3568,7 +3590,7 @@ def _restart_run(torch, cfg, ckpt, fail_at):
 
 def train_restart_phase(torch, out_dir, bars) -> dict:
     """11c: launch.train's loop with RestartManager at 11b's widths cut to
-    2 layers, a checkpoint every 4 steps, a failure injected at step 5,
+    2 layers, a checkpoint every 2 steps, a failure injected at step 3,
     under deterministic algorithms: one restart, the replayed steps'
     losses bit-equal to their first pass, the final state equal to an
     uninterrupted run's; the checkpoint's GB and save/restore s."""
@@ -3706,10 +3728,10 @@ def train_phase(torch, trace: bool, out_dir) -> dict:
 # -- phase 12: LM training over several ranks ---------------------------------
 
 DIST_RANKS = 2                 # 12-0, 12a, 12b: a (2, 1) world on the card
-DIST_STEPS = 2                 # 12b: held to the one-device run's first two
+DIST_STEPS = 1                 # 12b: held to the one-device run's first
 DIST_TOL = 2e-2                # 12b/12c: losses; 12b's grad norm, relative
-PIPE_RANKS, PIPE_MICRO = 4, 4  # 12c: a ("pod",) world, 4 stages of 5
-PIPE_LAYERS = 20               # 12c: minicpm-2b's 40 blocks cut to 20
+PIPE_RANKS, PIPE_MICRO = 4, 4  # 12c: a ("pod",) world, 4 stages of 2
+PIPE_LAYERS = 8                # 12c: minicpm-2b's 40 blocks cut to 8
 PIPE_TOL = {"loss": 1e-5, "rtol": 1e-4, "atol": 1e-5}   # 12a's pipeline
 DIST_TAG = "12d-result: "
 PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
@@ -4113,7 +4135,7 @@ def restart_rank(rank: int, root: str) -> dict:
     """12d on a rank of a (2, 1) world on the card (cuBLAS's
     deterministic workspace set before CUDA started, deterministic
     algorithms): launch.train's loop at 11b's widths cut to 2 layers, a
-    checkpoint every 4 steps, a failure injected at step 5 on every rank;
+    checkpoint every 2 steps, a failure injected at step 3 on every rank;
     then the final state gathered, the world's last checkpoint restored
     on one device, and a checkpoint of the whole state (what one device
     writes) restored onto the world's placements, both bit for bit."""
@@ -4198,10 +4220,10 @@ def _one_device_steps(torch) -> list:
     return rows
 
 
-def dist_phase(torch, out_dir, one_device) -> dict:
+def dist_phase(torch, out_dir, one_device, before_12d=None) -> dict:
     """Phase 12: 12-0's probes, then 12a and 12b in a (2, 1) world of ranks
     sharing the card, 12c in a ("pod",) world of PIPE_RANKS, 12d in a child
-    process;
+    process (`before_12d()`, where given, called just before it starts);
     `one_device` is phase 11b's rows (None: run the first DIST_STEPS of it
     here).  Raises at its end if any check failed."""
     from repro_torch import configs
@@ -4272,9 +4294,10 @@ def dist_phase(torch, out_dir, one_device) -> dict:
             f"{r['collective_seconds']:.3f} s host "
             f"({r['collective_copy_seconds']:.3f} s of it host copies), "
             f"{100 * r['collective_seconds'] / r['s']:.1f}% of the step")
-    steady = [r["s"] for r in f["rows"][1:]]
+    # steps 2.. where there are any (DIST_STEPS cut to 1 for time: step 1)
+    steady = [r["s"] for r in f["rows"][1:] or f["rows"]]
     med = statistics.median(steady)
-    log(f"12b median step (2-{DIST_STEPS}) {med:.3f} s, "
+    log(f"12b median step ({min(2, DIST_STEPS)}-{DIST_STEPS}) {med:.3f} s, "
         f"{tokens / med:.0f} tokens/s; peak per rank "
         f"{', '.join(f'{g:.2f}' for g in f['peaks_gb'])} GB; nvidia-smi "
         f"peak {mem.peak_mib} MiB")
@@ -4311,6 +4334,8 @@ def dist_phase(torch, out_dir, one_device) -> dict:
     # 12d: elastic restart in a child process (cuBLAS's workspace)
     gc.collect()
     torch.cuda.empty_cache()
+    if before_12d is not None:
+        before_12d()
     r = child_phase("12d", DIST_TAG, bars)
     first, replay = {}, []
     for s, loss in r["history"]:
@@ -4355,7 +4380,7 @@ def restart_world(out_dir) -> dict:
 # -- phase 13: tensor-parallel serving over ranks sharing the card -----------
 
 TP_RANKS = 2                   # a (1, 2) ("data", "model") world
-TP_B, TP_PROMPT, TP_STEPS = 4, 512, 16     # 13b's traffic (13c's too)
+TP_B, TP_PROMPT, TP_STEPS = 4, 512, 8      # 13b's traffic (13c's too)
 TP_F32_LAYERS = 2              # 13c: 13b's widths in float32 at this depth
 TP_BAR = 0.25                  # 13b: of the one-process logits' std
 TP_THREADS = 4                 # intra-op CPU threads a rank (8 cores)
@@ -5046,19 +5071,275 @@ def tpt_phase(torch, out_dir) -> dict:
     return out
 
 
+# -- phase 15: the dry run held against the card ----------------------------
+
+#: 15a: single-pod (16, 16) cells at their published widths, each in a
+#: process of its own (they need no card: meta tensors in a fake world)
+DRY_CELLS = (("qwen2.5-14b", "decode_32k"), ("minicpm-2b", "train_4k"),
+             ("mixtral-8x7b", "train_4k"))
+DRY_ARCH = "minicpm-2b"        # 15b: published widths cut to 4 layers, 11b's
+DRY_LAYERS = 4                 # batch of 8 x 2048, on a (1, 1) mesh
+DRY_STEPS = 2
+DRY_PEAK_TOL = 0.15            # 15b/15c: the predicted peak, relative
+DRY_FLOP_BAND = (0.5, 2.0)     # 15b: counted FLOPs over the analytic fwd x 3
+DRY_TIMEOUT_S = 600            # 15a's processes
+
+
+def _dry_cfg():
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(DRY_ARCH), n_layers=DRY_LAYERS)
+
+
+def _dry_shape(b, s):
+    from repro_torch.models.config import ShapeConfig
+    return ShapeConfig(f"train_{b}x{s}", "train", s, b)
+
+
+def _dry_card(torch, cfg, shape) -> dict:
+    """15b on the card: the cell of `dryrun.placed_cell` (the port's
+    `specs.build_cell(..., shape=)` train cell on a (1, 1) mesh, the LM
+    drawn from seed 0) stepped DRY_STEPS times on SyntheticTokens(seed=0)
+    batches: the bytes of the placed state and batch, each step's peak
+    (`max_memory_allocated`, reset before the step), loss and s, and
+    `FlopCounterMode`'s count of the first step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cell, (state, batch) = dryrun.placed_cell(
+        DRY_ARCH, "train_4k", make_host_mesh(device=CARD), device=CARD,
+        cfg=cfg, shape=shape)
+    data = SyntheticTokens(cfg.vocab_size, shape.global_batch,
+                           shape.seq_len, seed=0, device=CARD)
+    out = {"policy": cell.meta["policy"], "before_bytes": before,
+           "arg_bytes": dryrun.tensor_bytes(dryrun.members_of(
+               (state, batch))), "rows": []}
+    del batch
+    for i in range(DRY_STEPS):
+        batch = data(i)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc = FlopCounterMode(display=False)
+        t0 = time.perf_counter()
+        with fc if i == 0 else contextlib.nullcontext():
+            state, m = cell.fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        out["rows"].append({"step": i + 1, "loss": loss,
+                            "grad_norm": float(m["grad_norm"]),
+                            "s": time.perf_counter() - t0,
+                            "peak_bytes": torch.cuda.max_memory_allocated(),
+                            "flops": (float(fc.get_total_flops()) if i == 0
+                                      else None)})
+        del m, batch
+    del cell, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dry_procs(out_dir: Path) -> list:
+    """15a's dry runs started, one process a cell: (cell, process, path).
+    They need no card and about a minute of the host's CPU, so the whole
+    script starts them beside 12d's child (a correctness check of the
+    restart loop, whose times no bar holds), where they add nothing to
+    its time."""
+    root = Path(__file__).resolve().parent
+    # one thread each: meta tensors compute nothing, and four processes
+    # (these three and this one) share the host's cores
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DRY_CELLS:
+        path = out_dir / f"dryrun15a_{arch}_{shape}.json"
+        if path.exists():
+            path.unlink()
+        procs.append(((arch, shape), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out",
+             str(path)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), path))
+    return procs
+
+
+def dry_phase(torch, out_dir, tp_train, procs=None) -> dict:
+    """Phase 15: 15a the dry run's tables for DRY_CELLS (processes of
+    their own: `procs` of `_dry_procs` where already started, else
+    started here; meanwhile:) 15b a cut minicpm-2b trained on the card
+    against its dry run, 15c (when phase 14 ran: `tp_train`) 14b's cell
+    in a fake world of 2 against 14b's collectives and peaks.  Raises at
+    its end if any check failed."""
+    if not procs:
+        procs = _dry_procs(out_dir)
+    try:
+        return _dry_checks(torch, out_dir, tp_train, procs)
+    finally:
+        _stop(procs)
+
+
+def _stop(procs) -> None:
+    """Kill those of `procs` (`_dry_procs`'s) still running."""
+    for _, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _dry_checks(torch, out_dir, tp_train, procs) -> dict:
+    """`dry_phase`'s body, 15a's processes started."""
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.priority_pairs import kernel as pk
+    from repro_torch.launch import analytic, cost, dryrun, report
+    bars = Bars()
+    t_phase = time.perf_counter()
+    kernels0 = [sum(k.launches.values()) for k in (fk, mk, pk)]
+    card = card_line()
+    out = {"card": card}
+    total = torch.cuda.get_device_properties(0).total_memory
+    bars.check(cost.HBM_PER_CARD == total,
+               f"15 cost.HBM_PER_CARD {cost.HBM_PER_CARD:,} = the card's "
+               f"total_memory {total:,} ({card})")
+    log(f"15: the dry run's published figures ({card}): "
+        f"{cost.PEAK_FLOPS / 1e12:.1f} TFLOP/s dense bf16, HBM "
+        f"{cost.HBM_BW / 1e12:.2f} TB/s, NVLink {cost.NVLINK_BW / 1e9:.0f}"
+        f" GB/s within a node of {cost.NODE_SIZE}, network "
+        f"{cost.NETWORK_BW / 1e9:.0f} GB/s between nodes")
+
+    # 15b
+    cfg, shape = _dry_cfg(), _dry_shape(TRAIN_B, TRAIN_S)
+    t0 = time.perf_counter()
+    got = _dry_card(torch, cfg, shape)
+    card_s = time.perf_counter() - t0
+    pred = dryrun.run_cell(DRY_ARCH, "train_4k", False, cfg=cfg,
+                           shape=shape, mesh_shape=(1, 1))
+    an = analytic.cell_flops(cfg, shape)
+    fwd3 = 3 * an["fwd_flops"]
+    bars.check(got["policy"] == pred["policy"] == "dp",
+               f"15b policy {got['policy']!r} on the card, "
+               f"{pred['policy']!r} in the dry run")
+    bars.check(pred["arg_bytes_per_dev"] == got["arg_bytes"]
+               and pred["arg_bytes_analytic"] == got["arg_bytes"] + 4,
+               f"15b argument bytes: the placed state and batch on the card "
+               f"{got['arg_bytes']:,}; the dry run's "
+               f"{pred['arg_bytes_per_dev']:,} held, "
+               f"{pred['arg_bytes_analytic']:,} by the reference's rule "
+               f"(the step's int32, a host int in the port, its 4 bytes)")
+    flops = got["rows"][0]["flops"]
+    bars.check(pred["hlo_flops_per_dev"] == flops,
+               f"15b FLOPs: the dry run's {pred['hlo_flops_per_dev']:.6e} "
+               f"= FlopCounterMode's {flops:.6e} of step 1 on the card")
+    ratio = flops / fwd3
+    bars.check(DRY_FLOP_BAND[0] < ratio < DRY_FLOP_BAND[1],
+               f"15b FLOPs {ratio:.3f}x launch.analytic's forward x 3 "
+               f"({fwd3:.6e}; band {DRY_FLOP_BAND})")
+    for r in got["rows"]:
+        err = pred["peak_bytes_per_dev"] / r["peak_bytes"] - 1
+        bars.check(abs(err) <= DRY_PEAK_TOL and np.isfinite(r["loss"]),
+                   f"15b step {r['step']}: peak {r['peak_bytes'] / 1e9:.3f}"
+                   f" GB (max_memory_allocated, reset before the step; "
+                   f"{got['before_bytes'] / 1e6:.1f} MB allocated before the"
+                   f" cell) against the dry run's "
+                   f"{pred['peak_bytes_per_dev'] / 1e9:.3f} GB ({100 * err:+.1f}"
+                   f"%, bar {100 * DRY_PEAK_TOL:.0f}%); loss "
+                   f"{r['loss']:.5f}, {r['s']:.3f} s")
+    log(f"15b {DRY_ARCH} at its published widths, {DRY_LAYERS} layers, "
+        f"{shape.global_batch} x {shape.seq_len}: on the card in "
+        f"{card_s:.1f} s; dry run traced in {pred['trace_s']:.1f} s "
+        f"(peak by kind {pred['peak_by_kind']}, resident "
+        f"{pred['resident_bytes_per_dev'] / 1e9:.3f} GB, temp "
+        f"{pred['temp_bytes_per_dev'] / 1e9:.3f} GB)")
+    out["15b"] = {"card": got, "dry": {k: pred[k] for k in (
+        "arg_bytes_per_dev", "arg_bytes_analytic", "peak_bytes_per_dev",
+        "temp_bytes_per_dev", "hlo_flops_per_dev", "trace_s",
+        "peak_by_kind", "roofline")}, "analytic_fwd3": fwd3}
+
+    # 15c
+    if tp_train is not None:
+        f = tp_train["full"]
+        c_cfg = _tpt_cfg()
+        c_shape = _dry_shape(TPT_B, TPT_S)
+        preds = [dryrun.run_cell(TPT_ARCH, "train_4k", False, cfg=c_cfg,
+                                 shape=c_shape, mesh_shape=(1, TPT_RANKS),
+                                 rank=r) for r in range(TPT_RANKS)]
+        p0 = preds[0]
+        for row in f["rows"]:
+            bars.check(p0["comm_calls"] == row["collective_calls"]
+                       and p0["comm_bytes"] == row["collective_bytes"],
+                       f"15c step {row['step']}: the fake world's "
+                       f"{p0['comm_calls']} calls of "
+                       f"{p0['comm_bytes'] / 1e9:.4f} GB = 14b rank 0's "
+                       f"{row['collective_calls']} of "
+                       f"{row['collective_bytes'] / 1e9:.4f} GB")
+        for r, (p, peak) in enumerate(zip(preds, f["peaks_gb"])):
+            err = p["peak_bytes_per_dev"] / (peak * 1e9) - 1
+            bars.check(abs(err) <= DRY_PEAK_TOL,
+                       f"15c rank {r}: 14b's peak {peak:.3f} GB against the "
+                       f"dry run's {p['peak_bytes_per_dev'] / 1e9:.3f} GB "
+                       f"({100 * err:+.1f}%, bar "
+                       f"{100 * DRY_PEAK_TOL:.0f}%)")
+        c = p0["collectives"]
+        log(f"15c {TPT_ARCH} at 1 layer, {TPT_B} x {TPT_S}, (1, "
+            f"{TPT_RANKS}), rank 0: wire {c['total_wire_bytes'] / 1e9:.4f}"
+            f" GB a device ({c['nvlink_wire_bytes'] / 1e9:.4f} over NVLink)"
+            f", roofline {p0['roofline']}; traced in "
+            f"{p0['trace_s']:.1f} + {preds[1]['trace_s']:.1f} s")
+        out["15c"] = [{k: p[k] for k in (
+            "rank", "comm_calls", "comm_bytes", "peak_bytes_per_dev",
+            "collectives", "roofline", "trace_s")} for p in preds]
+    else:
+        log("15c: phase 14 did not run in this invocation; skipped")
+
+    # 15a
+    records = []
+    for (arch, shape_name), proc, path in procs:
+        try:
+            text, _ = proc.communicate(timeout=DRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        ok = proc.returncode == 0 and path.exists()
+        recs = json.loads(path.read_text()) if path.exists() else []
+        bars.check(ok and len(recs) == 1 and recs[0]["status"] == "ok",
+                   f"15a {arch} {shape_name} (16, 16): exit "
+                   f"{proc.returncode}: {text.strip().splitlines()[-1:]}")
+        records.extend(recs)
+    print(report.dryrun_table(records), flush=True)
+    print(report.roofline_table(records), flush=True)
+    out["15a"] = [{k: r.get(k) for k in (
+        "arch", "shape", "mesh", "status", "policy", "trace_s",
+        "arg_bytes_analytic", "arg_bytes_per_dev", "peak_bytes_per_dev",
+        "fits_80gb", "collectives", "hlo_flops_per_dev",
+        "model_flops_ratio", "roofline")} for r in records]
+    out["kernel_launches"] = sum(sum(k.launches.values()) - n for k, n in
+                                 zip((fk, mk, pk), kernels0))
+    bars.check(out["kernel_launches"] == 0,
+               f"15: B1-B4 launched {out['kernel_launches']} times (the LM "
+               f"path and the meta device reach none)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 in {out['phase_s']:.1f} s")
+    bars.raise_if_failed("phase 15")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
     ap.add_argument("--phases", choices=("all", "10", "11", "11c", "12",
-                                         "12d", "13", "14"),
+                                         "12d", "13", "14", "15"),
                     default="all",
-                    help="'10' / '11' / '12' / '13' / '14': phase 1 and the "
-                         "LM serving / training / multi-rank training / "
-                         "tensor-parallel serving / tensor-parallel "
-                         "training phase alone (for iterating; no kernels "
-                         "line); '11c' / '12d': that part alone, the child "
-                         "process phase 11 / 12 starts")
+                    help="'10' / '11' / '12' / '13' / '14' / '15': phase 1 "
+                         "and the LM serving / training / multi-rank "
+                         "training / tensor-parallel serving / "
+                         "tensor-parallel training / dry-run phase alone "
+                         "(for iterating; no kernels line); '11c' / '12d': "
+                         "that part alone, the child process phase 11 / 12 "
+                         "starts")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if args.phases in ("11c", "12d"):
@@ -5114,7 +5395,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases in ("10", "11", "12", "13", "14"):
+    if args.phases in ("10", "11", "12", "13", "14", "15"):
         if args.phases == "10":
             print(json.dumps({"lm": lm_phase(torch, args.trace)}),
                   flush=True)
@@ -5125,6 +5406,9 @@ def main() -> int:
             print(json.dumps({"tp": tp_phase(torch, out_dir)}), flush=True)
         elif args.phases == "14":
             print(json.dumps({"tp_train": tpt_phase(torch, out_dir)}),
+                  flush=True)
+        elif args.phases == "15":
+            print(json.dumps({"dryrun": dry_phase(torch, out_dir, None)}),
                   flush=True)
         else:
             print(json.dumps({"dist": dist_phase(torch, out_dir, None)}),
@@ -5240,13 +5524,21 @@ def main() -> int:
     train = train_phase(torch, args.trace, out_dir)
 
     # -- phase 12: LM training over ranks sharing the card (none either) -----
-    dist = dist_phase(torch, out_dir, train["full"]["steps"])
+    dry_procs = []
+    try:
+        dist = dist_phase(torch, out_dir, train["full"]["steps"],
+                          lambda: dry_procs.extend(_dry_procs(out_dir)))
 
-    # -- phase 13: tensor-parallel serving over ranks (none either) ----------
-    tp = tp_phase(torch, out_dir)
+        # -- phase 13: tensor-parallel serving over ranks (none either) ------
+        tp = tp_phase(torch, out_dir)
 
-    # -- phase 14: training under the "tp" rules over ranks (none either) ---
-    tp_train = tpt_phase(torch, out_dir)
+        # -- phase 14: training under the "tp" rules over ranks (none either)
+        tp_train = tpt_phase(torch, out_dir)
+
+        # -- phase 15: the dry run against the card (none of the kernels) ---
+        dry = dry_phase(torch, out_dir, tp_train, dry_procs)
+    finally:
+        _stop(dry_procs)
 
     kernels = []
     for sr in SEMIRINGS:
@@ -5297,6 +5589,7 @@ def main() -> int:
     print(json.dumps({"dist": dist}), flush=True)
     print(json.dumps({"tp": tp}), flush=True)
     print(json.dumps({"tp_train": tp_train}), flush=True)
+    print(json.dumps({"dryrun": dry}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,12 +19,21 @@ what gloo takes on CUDA tensors never decides whether a step runs (its
 point-to-point ops read a CUDA tensor's address on the host and fail).
 `STATS` counts every call, the bytes it handles and its host seconds,
 the copies' share apart.
+
+`record()` lists the calls themselves while it is active (a planning
+tool reads them: `launch.dryrun`): one `Call` a collective, its op under
+the reference's HLO name, its bytes as the reference's collective
+inventory counts them (`repro/launch/hlo_analysis.py`: the op's output
+on one device: the whole gathered tensor, the reduced buffer, one
+scattered shard, the sent buffer) and its group's global ranks.  It
+changes neither `STATS` nor any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +47,44 @@ STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "copy_seconds": 0.0}
 _GROUPS: Dict[tuple, Tuple[object, Tuple[int, ...]]] = {}
 
 
+class Call(NamedTuple):
+    """One collective as `record()` lists it."""
+    op: str                  # all-gather, all-reduce, reduce-scatter,
+    #                          broadcast or collective-permute
+    nbytes: int              # the op's output on one device
+    ranks: Tuple[int, ...]   # the group's global ranks
+
+
+#: the lists of the active `record()` contexts (every thread's calls: the
+#: autograd engine's thread runs a backward's collectives)
+_RECORDS: List[List[Call]] = []
+
+
 def reset_stats() -> None:
     STATS.update(calls=0, bytes=0, seconds=0.0, copy_seconds=0.0)
+
+
+def clear_groups() -> None:
+    """Forget every process group `group` built (a world destroyed and
+    another initialized may reuse the old world's id)."""
+    _GROUPS.clear()
+
+
+@contextlib.contextmanager
+def record():
+    """Within: every collective appends its `Call` to the yielded list."""
+    calls: List[Call] = []
+    _RECORDS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDS.remove(calls)
+
+
+def _ranks(g) -> Tuple[int, ...]:
+    if g is None:
+        return tuple(range(dist.get_world_size()))
+    return tuple(dist.get_process_group_ranks(g))
 
 
 def in_world() -> bool:
@@ -123,11 +168,14 @@ def _pinned(shape, dtype) -> torch.Tensor:
 
 
 class _Timed:
-    """Counts one collective of `nbytes` and times it; `host(t)` and
-    `back(t, out)` are the gloo staging copies, timed apart."""
+    """Counts one collective of `nbytes` and times it (and lists it as
+    `op` of `out_bytes` over `ranks`, a callable, where `record()` is
+    active); `host(t)` and `back(t, out)` are the gloo staging copies,
+    timed apart."""
 
-    def __init__(self, nbytes: int):
+    def __init__(self, nbytes: int, op: str, out_bytes: int, ranks):
         self.nbytes = nbytes
+        self.call = (op, out_bytes, ranks)
 
     def __enter__(self):
         self.t0 = time.perf_counter()
@@ -159,6 +207,11 @@ class _Timed:
         STATS["calls"] += 1
         STATS["bytes"] += self.nbytes
         STATS["seconds"] += time.perf_counter() - self.t0
+        if _RECORDS:
+            op, out_bytes, ranks = self.call
+            call = Call(op, int(out_bytes), ranks())
+            for calls in _RECORDS:
+                calls.append(call)
         return False
 
 
@@ -168,7 +221,8 @@ def all_gather(x: torch.Tensor, dim: int, g, n: int,
     order (into `out` when given)."""
     front = x.detach().movedim(dim, 0).contiguous()
     shape = (n * front.shape[0],) + tuple(front.shape[1:])
-    with _Timed(x.numel() * x.element_size() * n) as tm:
+    nbytes = x.numel() * x.element_size() * n
+    with _Timed(nbytes, "all-gather", nbytes, lambda: _ranks(g)) as tm:
         if _staged(x, g):
             src = tm.host(front)
             buf = _pinned(shape, x.dtype)
@@ -189,7 +243,9 @@ def reduce_scatter(x: torch.Tensor, dim: int, g, n: int) -> torch.Tensor:
     """This rank's shard (along `dim`) of the group's sum of `x`."""
     front = x.detach().movedim(dim, 0).contiguous()
     shape = (front.shape[0] // n,) + tuple(front.shape[1:])
-    with _Timed(x.numel() * x.element_size()) as tm:
+    nbytes = x.numel() * x.element_size()
+    with _Timed(nbytes, "reduce-scatter", nbytes // n,
+                lambda: _ranks(g)) as tm:
         if _staged(x, g):
             src = tm.host(front)
             buf = _pinned(shape, x.dtype)
@@ -204,7 +260,8 @@ def reduce_scatter(x: torch.Tensor, dim: int, g, n: int) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, g=None) -> torch.Tensor:
     """The group's sum of `x`, in place."""
-    with _Timed(x.numel() * x.element_size()) as tm:
+    nbytes = x.numel() * x.element_size()
+    with _Timed(nbytes, "all-reduce", nbytes, lambda: _ranks(g)) as tm:
         if _staged(x, g):
             buf = tm.host(x)
             dist.all_reduce(buf, group=g)
@@ -215,7 +272,8 @@ def all_reduce(x: torch.Tensor, g=None) -> torch.Tensor:
 
 def broadcast(x: torch.Tensor, src: int, g=None) -> torch.Tensor:
     """`x` of global rank `src`, in place on every rank."""
-    with _Timed(x.numel() * x.element_size()) as tm:
+    nbytes = x.numel() * x.element_size()
+    with _Timed(nbytes, "broadcast", nbytes, lambda: _ranks(g)) as tm:
         if _staged(x, g):
             buf = tm.host(x)
             dist.broadcast(buf, src, group=g)
@@ -227,7 +285,9 @@ def broadcast(x: torch.Tensor, src: int, g=None) -> torch.Tensor:
 def send_recv(x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
     """Send `x` to global rank `to` and return what `frm` sent (shaped
     and typed as `x`)."""
-    with _Timed(x.numel() * x.element_size()) as tm:
+    nbytes = x.numel() * x.element_size()
+    with _Timed(nbytes, "collective-permute", nbytes,
+                lambda: tuple(sorted({dist.get_rank(), to}))) as tm:
         staged = _staged(x, None)
         src = tm.host(x) if staged else x.contiguous()
         buf = (_pinned(src.shape, src.dtype) if staged

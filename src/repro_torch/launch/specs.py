@@ -14,7 +14,8 @@ serve=...)` on a rank's placed state: `meta["model"]` is the LM it runs
 (pass `model=` a rank's model on its device; the default, on the meta
 device, gives the specs alone).  The train cell's `fn(state, batch)` is
 `make_train_step`'s step on a state placed by `in_shardings[0]`.  A
-serve cell's `fn(params, cache, tokens[, patch_embeds])` serves the
+serve cell's `fn(params, cache, tokens[, patch_embeds])` (under
+`torch.inference_mode()`, as `serve.ServeEngine` serves) serves the
 model's own weights (`params` is its `param_tree()`, placed when the
 model was built with `shardings=`), and takes and returns the cache in
 the reference's layout (`stacked_cache`): each pattern position's
@@ -24,6 +25,7 @@ tensors), the remainder's apart.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -127,14 +129,24 @@ def build_cell(arch: str, shape_name: str, mesh, *,
                cfg: Optional[ModelConfig] = None,
                accum_steps: int = 1,
                policy: Optional[str] = None,
+               force_sp: bool = False,
+               shape: Optional[ShapeConfig] = None,
                model: Optional[LM] = None) -> Cell:
     """Assemble (fn, specs, placements) for one (arch x shape) cell.
     `model` is the LM the cell's fn runs (its cfg replaces `cfg`, and it
     runs its own: build a prefill cell's model with `meta["cfg"]`'s
-    chunks; None: one on the meta device, for the specs alone).  The
-    reference's `force_sp` (a dry run's serve cell outside a serve
-    context) is left to the port of its dry runs."""
-    shape = SHAPES[shape_name]
+    chunks; None: one on the meta device, for the specs alone).  `shape`
+    replaces `SHAPES[shape_name]` (with a cut `cfg`: a cell at a batch
+    and depth one card holds, on the same code path).
+
+    `force_sp` runs a serve cell outside a serve context
+    (`activation_sharding(rules, serve=False)`), as the reference's dry
+    runs try.  The port's train layout (`dist/tp.py`) multiplies whole
+    weights and splits the sequence inside `LM.loss` only, so a prefill
+    or decode step outside a serve context has no layout for weights
+    that `param_shardings(serve=True)` splits: where the rules split any
+    ("tp" over more than one device), it raises NotImplementedError."""
+    shape = shape or SHAPES[shape_name]
     cfg = model.cfg if model is not None else (cfg or configs.get(arch))
     if shape.kind == "prefill" and cfg.q_chunk < 2048:
         # the reference's prefill chunks: its SPMD chunk-boundary reshards
@@ -145,11 +157,22 @@ def build_cell(arch: str, shape_name: str, mesh, *,
         model = LM(cfg, device=META)
     policy = policy or choose_policy(cfg, shape, mesh)
     rules = ShardingRules(mesh, policy)
-    serve = shape.kind != "train"
+    serve = shape.kind != "train" and not force_sp
+    if force_sp and shape.kind != "train" and rules.axis_size("tp") > 1:
+        raise NotImplementedError(
+            f"force_sp: a {shape.kind} step outside a serve context has no "
+            f"layout in the port for weights that param_shardings("
+            f"serve=True) splits over \"tp\" ({rules.axis_size('tp')} "
+            f"devices): the train layout (dist/tp.py) multiplies whole "
+            f"weights and splits the sequence inside LM.loss only")
+
+    # a serve cell records no graph, as the port serves (ServeEngine)
+    grad = contextlib.nullcontext if shape.kind == "train" \
+        else torch.inference_mode
 
     def _ctx(fn):
         def wrapped(*a):
-            with activation_sharding(rules, serve=serve):
+            with activation_sharding(rules, serve=serve), grad():
                 return fn(*a)
         return wrapped
 

@@ -172,3 +172,54 @@ def test_cell_functions_run_on_one_device():
     np.testing.assert_array_equal(lg.numpy(), want.numpy())
     with pytest.raises(ValueError, match="own weights"):
         cell.fn(LM(cfg, device="meta").param_tree(), None, toks)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_force_sp_matches_repro_or_raises(shape):
+    """`build_cell(force_sp=True)`: a train cell as the reference's (its
+    context is a train one either way); a serve cell, whose weights the
+    "tp" rules split over "model" on these meshes, raises with the
+    reason (the port's train layout runs whole weights)."""
+    rmesh, tmesh = AbstractMesh(shape, AXES), make_mesh(shape, AXES)
+    kinds = {"built": 0, "raised": 0}
+    for name in tconfigs.ARCH_NAMES:
+        for sname in SHAPES:
+            want = _ref_cell(rspecs.build_cell(
+                name, sname, rmesh, cfg=rconfigs.get_smoke(name),
+                force_sp=True))
+            if SHAPES[sname].kind == "train":
+                got = _port_cell(tspecs.build_cell(
+                    name, sname, tmesh, cfg=tconfigs.get_smoke(name),
+                    force_sp=True))
+                assert got == want, (name, sname, shape)
+                kinds["built"] += 1
+                continue
+            with pytest.raises(NotImplementedError,
+                               match="whole weights"):
+                tspecs.build_cell(name, sname, tmesh,
+                                  cfg=tconfigs.get_smoke(name),
+                                  force_sp=True)
+            kinds["raised"] += 1
+    assert kinds == {"built": 10, "raised": 30}
+
+
+def test_force_sp_runs_where_nothing_splits_the_weights():
+    """On a mesh whose "model" axis is one device the serve cell runs
+    outside a serve context: its specs are the reference's."""
+    rmesh, tmesh = AbstractMesh((2, 1), AXES), make_mesh((2, 1), AXES)
+    for name in ("qwen2.5-14b", "mixtral-8x7b"):
+        got = tspecs.build_cell(name, "decode_32k", tmesh,
+                                cfg=tconfigs.get_smoke(name), force_sp=True)
+        assert _port_cell(got) == _ref_cell(rspecs.build_cell(
+            name, "decode_32k", rmesh, cfg=rconfigs.get_smoke(name),
+            force_sp=True))
+
+
+def test_shape_overrides_the_named_shape():
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64,
+                                global_batch=8)
+    cell = tspecs.build_cell("minicpm-2b", "train_4k", make_mesh((1, 1), AXES),
+                             cfg=tconfigs.get_smoke("minicpm-2b"),
+                             shape=shape)
+    assert cell.shape == shape
+    assert tuple(cell.args[1]["tokens"].shape) == (8, 64)

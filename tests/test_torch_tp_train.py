@@ -42,6 +42,8 @@ torch = pytest.importorskip("torch")
 import torch_multidev_ref as mref  # noqa: E402
 import torch_tp_train_ranks as ranks  # noqa: E402
 from repro import configs as rconfigs  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.dist.world import run_world  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 from test_torch_train_fsdp import finish_reference, start_reference  # noqa
@@ -158,3 +160,17 @@ def test_the_data_groups_move_the_moe_loss_in_both(world):
     assert abs(ref["loss"] - ref["loss_one_device"]) > 100 * MESH_TOL
     assert abs(got - ref["loss"]) <= MESH_TOL * (1 + abs(ref["loss"]))
     assert abs(got - ref["loss_one_device"]) > 100 * MESH_TOL
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("arch, sname, shape", ranks.DRYRUN_CELLS)
+def test_the_fake_world_predicts_every_collective(world, arch, sname, shape,
+                                                  rank):
+    """`dryrun.run_cell`'s calls in a fake world of 2 (meta tensors) are
+    the (1, 2) gloo world's, call for call: op, bytes, group."""
+    got = world[1]["calls"][rank][(arch, sname)]
+    rec = dryrun.run_cell(arch, sname, False, cfg=tconfigs.get_smoke(arch),
+                          shape=shape, mesh_shape=(1, 2), rank=rank)
+    want = [(op, b, tuple(r)) for op, b, r in rec["calls"]]
+    assert len(got) == rec["comm_calls"] > 0
+    assert got == want

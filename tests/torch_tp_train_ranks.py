@@ -7,18 +7,29 @@ import dataclasses
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import configs, convert
-from repro_torch.dist import act
+from repro_torch.dist import act, comm
 from repro_torch.dist.sharding import (ShardingRules, batch_shardings,
                                        param_shardings, reshard)
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import LM
+from repro_torch.models.config import ShapeConfig
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_step import (_batch_axes, _value_and_grad,
                                           bind_params, make_train_step)
 from repro_torch.tree import Stacked, members, tree_map
 
 from torch_multidev_ref import OPT, OVERRIDES, tp_train_inputs  # noqa: E402
+
+
+#: cells whose collectives the (1, 2) world lists call for call (the
+#: smoke configs; `launch.dryrun` predicts them in a fake world of 2)
+DRYRUN_CELLS = (
+    ("mixtral-8x7b", "train_4k", ShapeConfig("t", "train", 32, 2)),
+    ("qwen2.5-14b", "decode_32k", ShapeConfig("d", "decode", 32, 2)))
 
 
 def _rules(device="cpu"):
@@ -99,7 +110,25 @@ def one_by_two(rank: int, cases: list) -> dict:
             model.loss({"tokens": batch["tokens"][:, :-1]})
     except ValueError as e:
         out["odd"] = str(e)
+    out["calls"] = cell_calls(rules.mesh)
     return out
+
+
+def cell_calls(mesh) -> list:
+    """Every rank's collectives ((op, bytes, ranks) a call, `comm.record`)
+    in one run of each of DRYRUN_CELLS' cells placed by
+    `dryrun.placed_cell` on the CPU, by rank."""
+    mine = {}
+    for arch, sname, shape in DRYRUN_CELLS:
+        cell, args = dryrun.placed_cell(arch, sname, mesh, device="cpu",
+                                        cfg=configs.get_smoke(arch),
+                                        shape=shape)
+        with comm.record() as calls:
+            cell.fn(*args)
+        mine[(arch, sname)] = [tuple(c) for c in calls]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
 
 
 def two_by_two(rank: int, params: dict) -> dict:
