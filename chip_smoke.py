@@ -142,8 +142,8 @@ Phases (any failure exits non-zero before the last line is printed):
    batch: apply_updates seconds on every rank, the collectives it cost,
    the rerun's wall, supersteps and collectives, each rank's memory;
    compact() seconds and build peak per rank; phase 9's nvidia-smi peak.
-   9b: the jobs detached, phase 7's load with its horizon cut to 48
-   ticks and its update period to 40 (`MESH_SERVE_LOAD`) served on the
+   9b: the jobs detached, phase 7's load with its horizon cut to 24
+   ticks and its update period to 20 (`MESH_SERVE_LOAD`) served on the
    same session under TwoLevel(), 8 supersteps a tick, at most 8
    running: groups grow past capacity 4 and the BFS view is built as a
    new view on the mesh.  Every request admitted and completed, 8
@@ -293,12 +293,31 @@ Phases (any failure exits non-zero before the last line is printed):
    world of 2, ranks 0 and 1: calls and bytes equal to 14b rank 0's
    `comm.STATS` each step, each rank's predicted peak within 15% of its
    14b peak.
+16. The graph dry run (repro_torch.launch.graph_dryrun) and the analysis
+   layer (repro_torch.analysis).  16a: the paper's fleet (2^20 vertices,
+   64 PageRank jobs, Vb=512, 32 neighbour blocks a block) dry-run on
+   meta as rank 0 of the (16, 16) and (2, 16, 16) meshes, its table;
+   cost.HBM_PER_CARD equal to the card's total_memory.  16b, in 8a's
+   world as soon as its session is built (the dry run's way: 8a's
+   graph, both views, Vb=64, placed while empty, then its four jobs),
+   before anything else runs on it: every rank runs one recorded
+   Fused(steps_per_sync=1) superstep with every job live through B1/B2
+   (counts set to 0 just before, read just after; the session keeps its
+   state); after the world, here, the dry run of
+   the same session in a fake world of 4, for every rank: calls equal
+   call for call, resident bytes to the byte, the predicted peak (the
+   dry run's, plus what the rank held besides the session) within 15%
+   of max_memory_allocated (reset before the superstep); the measured
+   tile_pair_loads beside the dry run's live-pair estimate, no bar.
+   16c: `analysis.contracts.check_all()` on the card (every chunk under
+   `no_implicit_syncs`, the last bundle through B1/B2), and the lint CLI
+   over src/repro_torch exits 0.
 
 Then one JSON line of kernel figures, one of the LM figures, one of the
 training figures, one of the multi-rank training figures, one of the
 tensor-parallel serving figures, one of the tensor-parallel training
-figures, one of the dry run's, the card's name and power limit, and last
-{"ok": true, "device": {...}}.
+figures, one of the dry run's, one of the graph dry run's (16d), the
+card's name and power limit, and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --trace
 
@@ -314,11 +333,13 @@ give the end-to-end numbers.
     python3 chip_smoke.py --phases 13
     python3 chip_smoke.py --phases 14
     python3 chip_smoke.py --phases 15
+    python3 chip_smoke.py --phases 16
 
 run phase 1 and phase 10 (the LM serving path), phase 11 (training),
 phase 12 (training over ranks), phase 13 (serving over ranks), phase
-14 (training under the "tp" rules) or phase 15 (the dry run; 15c needs
-phase 14 and is skipped) alone, for iterating; no kernels line.
+14 (training under the "tp" rules), phase 15 (the dry run; 15c needs
+phase 14 and is skipped) or phase 16 (16a and 16c; 16b needs 8a's world)
+alone, for iterating; no kernels line.
 """
 
 from __future__ import annotations
@@ -373,8 +394,8 @@ STREAM_DELETE = 1              # UpdateBatch.op of a delete
 SERVE_CAPACITY = 8             # the session's job slots per view
 SERVE_MAX_RUNNING = 8          # admitted jobs sharing the supersteps
 SERVE_STEPS_PER_TICK = 8
-# phase 7's horizon and 9b's (22 arrivals, both BFS, one
-# update at tick 40) are cut in depth so that the whole script keeps
+# phase 7's horizon and 9b's (17 arrivals, both BFS, one
+# update at tick 20) are cut in depth so that the whole script keeps
 # inside its time limit
 SERVE_LOAD = dict(seed=33, ticks=88, base_rate=0.4, burst_amplitude=0.6,
                   burst_period=60, n_tenants=64, update_every=80)
@@ -384,7 +405,7 @@ MESH_RANKS = 4
 MESH_SSSP_SOURCES = (0, 4097, 8192, 49152)   # 8b/8c: the min-plus view only
 MESH_THREADS = 2               # intra-op CPU threads a rank (8 cores, 4 ranks)
 # phase 9: phase 7's load on 8a's mesh, its horizon and update period cut
-MESH_SERVE_LOAD = dict(SERVE_LOAD, ticks=48, update_every=40)
+MESH_SERVE_LOAD = dict(SERVE_LOAD, ticks=24, update_every=20)
 TELEMETRY_PAIRS = 20           # interleaved off/on timings of telemetry
 HOST_TIMED_STEPS = 8           # supersteps per timed TwoLevel() run
 # back-to-back calls per timed run, so that a run lasts about 1 ms or more
@@ -539,15 +560,13 @@ def live_bound(semiring, j, bn_loc, vb, src_np, live_np, runs, chunks):
     all P, the run and chunk tables, the [B_N] mask and the state, each
     read or written once, over the HBM rate vs 2*J*Vb^2 flops per live
     pair over the float32 rate.  Returns (ms, by, live pairs)."""
+    from repro_torch.launch import cost
     on = live_np[src_np]
     n_live = int(on.sum())
     n_src = int(np.unique(src_np[on]).size)
-    states = 2 if semiring == "plus_times" else 4   # base, out (+values, dout)
-    nbytes = (4 * n_live * vb * vb + 4 * j * n_src * vb
-              + 4 * (len(src_np) + runs + 1 + 2 * chunks + 1)
-              + live_np.size
-              + 4 * j * bn_loc * vb * states + 4 * 2 * j * bn_loc)
-    flops = 2.0 * j * n_live * vb * vb
+    nbytes = cost.fused_live_bytes(semiring, j, live_np.size, bn_loc, vb,
+                                   len(src_np), n_live, n_src, runs, chunks)
+    flops = cost.fused_live_flops(j, n_live, vb)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", n_live)
@@ -2016,6 +2035,9 @@ def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
     dist.barrier()
     setup_s = time.perf_counter() - t0
+    # 16b: the session as built (placed while empty, then its jobs), before
+    # anything else runs on it or caches a kernel table in its shards
+    graph = graph_rank(torch, sess) if plan.get("graph") else None
     shard_err = shard_kernels(torch, sess, rank)
 
     def collective_ms(numel, device, reps=10):
@@ -2042,7 +2064,7 @@ def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
                    for g in sess.view_groups()},
         jobs_local={g.semiring: int(g.values.shape[0])
                     for g in sess.view_groups()},
-        shard_err=shard_err, runs=[])
+        shard_err=shard_err, runs=[], graph=graph)
     info = dict(q=sess.q, num_blocks=sess.scheduler.num_blocks,
                 mesh_ready_s=mesh_ready - world_t0,
                 collective_ms={(n, dev): collective_ms(n, dev)
@@ -2528,7 +2550,8 @@ def mesh_phase(torch, csr, refs, fk, out_dir):
         ("8a (1 x 4)", dict(mesh=(1, MESH_RANKS), views=2, runs=[
             ("TwoLevel()", "TwoLevel()", False),
             ("Fused()", "Fused()", False),
-            ("Fused() compress_halo", "Fused()", True)], stream=True), refs),
+            ("Fused() compress_halo", "Fused()", True)], stream=True,
+            graph=True), refs),
         ("8b (2 x 2)", dict(mesh=(2, 2), views=1, runs=[
             ("TwoLevel(device, 8)", "TwoLevel(device, 8)", False)],
             checkpoint=("TwoLevel(device, 8)", "TwoLevel(device, 8)")),
@@ -2585,7 +2608,8 @@ def mesh_phase(torch, csr, refs, fk, out_dir):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phases 8-9: {time.perf_counter() - t_phase:.1f} s")
-    return totals, stream_totals, serve_totals, errs
+    return (totals, stream_totals, serve_totals, errs,
+            [r["graph"] for r in outs["8a"]["ranks"]])
 
 
 # -- phase 10: the LM serving path -------------------------------------------
@@ -5326,18 +5350,182 @@ def _dry_checks(torch, out_dir, tp_train, procs) -> dict:
     return out
 
 
+# -- phase 16: the graph dry run and the analysis layer ----------------------
+
+GRAPH_PEAK_BAR = 0.15          # 16b: predicted peak against the card's
+
+
+def graph_session(csr, mesh, device):
+    """8a's session as the graph dry run builds it (and as `mesh_rank`
+    builds it): 8a's graph, block size, capacity and four jobs (both
+    views), placed on `mesh` while empty, then submitted."""
+    from repro_torch.core import GraphSession
+    from repro_torch.dist.mesh2d import shard_session_2d
+    sess = GraphSession(csr, BLOCK, capacity=CAPACITY, seed=0, device=device)
+    shard_session_2d(mesh, sess)
+    for alg in mesh_algs(2):
+        sess.submit(alg)
+    return sess
+
+
+def graph_rank(torch, sess) -> dict:
+    """16b in one rank of 8a's world: one recorded `Fused(steps_per_sync=1)`
+    superstep with every job live on 8a's session as built (the session
+    keeps its state: the carry is not written back), through B1/B2
+    (counts set to 0 just before, read just after): its calls, the bytes
+    the session holds, the card's memory around it (`max_memory_allocated`
+    reset before), its launches and the carry's tile_pair_loads share."""
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.launch.graph_dryrun import recorded_step
+    fk.reset_launches()
+    rec = recorded_step(sess, count_flops=False)
+    return dict(calls=[tuple(c) for c in rec["calls"]],
+                resident=rec["resident_bytes"], base=rec["card_base_bytes"],
+                peak=rec["card_peak_bytes"], launches=dict(fk.launches),
+                pair_loads=int(rec["state"][5]), step_s=rec["trace_s"],
+                q=int(sess.q))
+
+
+def graph_records(torch, bars) -> list:
+    """16a: the two published records of the paper's fleet on meta."""
+    from repro_torch.launch import cost
+    from repro_torch.launch import graph_dryrun as G
+    total = torch.cuda.get_device_properties(0).total_memory
+    bars.check(cost.HBM_PER_CARD == total,
+               f"16a cost.HBM_PER_CARD {cost.HBM_PER_CARD:,} = the card's "
+               f"total_memory {total:,}")
+    recs = []
+    for mp in (False, True):
+        r = G.run(multi_pod=mp)
+        recs.append(r)
+        bars.check((r["q"], r["num_blocks"], r["vb"]) == (200, 2048, 512),
+                   f"16a {r['mesh']}: q {r['q']}, B_N {r['num_blocks']}, "
+                   f"Vb {r['vb']} (the reference's 200, 2048, 512)")
+        bars.check(r["kernel_route"].startswith("plain only"),
+                   f"16a {r['mesh']}: kernel route {r['kernel_route']!r}")
+        held = r["arg_bytes_per_dev"] + r["temp_bytes_per_dev"]
+        log(f"16a {r['mesh']}: held {r['arg_bytes_per_dev']:,} B + temp "
+            f"{r['temp_bytes_per_dev']:,} B a rank = {held / total:.3f} of "
+            f"the card; wire {r['collectives']['total_wire_bytes']:,.0f} B "
+            f"a superstep; traced in {r['trace_s']:.3f} s")
+    log("16a the graph dry run's records (one rank, meta device):\n"
+        + G.graph_table(recs))
+    return recs
+
+
+def graph_superstep(torch, csr, ranks, bars) -> dict:
+    """16b's parent side: the dry run of `graph_session` in a fake world
+    of 4 for every rank, against what each rank of 8a's world measured."""
+    from repro_torch.graph.structure import block_adjacency
+    from repro_torch.launch.graph_dryrun import dry_run_session
+    rows = []
+    for rank, got in enumerate(ranks):
+        t0 = time.perf_counter()
+        dry = dry_run_session(
+            lambda mesh, dev: graph_session(csr, mesh, dev),
+            (1, MESH_RANKS), rank)
+        dry_s = time.perf_counter() - t0
+        calls = [tuple(c) for c in dry["calls"]]
+        bars.check(calls == got["calls"],
+                   f"16b rank {rank}: {len(calls)} calls equal call for "
+                   f"call (op, bytes, group, dtype, shape): "
+                   f"{[(c[0], c[3], c[4]) for c in calls]}")
+        bars.check(dry["resident_bytes"] == got["resident"],
+                   f"16b rank {rank}: resident {dry['resident_bytes']:,} B "
+                   f"in the dry run, {got['resident']:,} B on the card")
+        other = got["base"] - got["resident"]
+        pred = dry["peak_bytes"] + other
+        rel = (pred - got["peak"]) / got["peak"]
+        bars.check(abs(rel) <= GRAPH_PEAK_BAR,
+                   f"16b rank {rank}: predicted peak {pred / 1e9:.3f} GB "
+                   f"(the dry run's {dry['peak_bytes'] / 1e9:.3f} GB + "
+                   f"{other / 1e6:.1f} MB the rank held besides) against "
+                   f"max_memory_allocated {got['peak'] / 1e9:.3f} GB "
+                   f"({100 * rel:+.1f}%, bar {100 * GRAPH_PEAK_BAR:.0f}%)")
+        bars.check(all(got["launches"][sr] > 0 for sr in SEMIRINGS),
+                   f"16b rank {rank}: B1/B2 launches {got['launches']}")
+        rows.append(dict(rank=rank, calls=len(calls),
+                         resident=got["resident"], pred_peak=pred,
+                         card_peak=got["peak"], rel=rel,
+                         dry_temp=dry["peak_bytes"] - dry["tracked_bytes"],
+                         card_temp=got["peak"] - got["base"],
+                         step_s=got["step_s"], dry_s=dry_s))
+    q = ranks[0]["q"]
+    est = 0.0
+    for alg in mesh_algs(2)[::2]:            # one job of each view
+        g = csr.symmetrized() if alg.graph_symmetrize else csr
+        adj = block_adjacency(g, BLOCK, alg.graph_normalize)
+        est += q * len(adj.tile_sb) / adj.num_blocks
+    measured = sum(r["pair_loads"] for r in ranks)
+    log(f"16b tile_pair_loads of the superstep: {measured} measured (both "
+        f"views), the dry run's live-pair estimate q x pairs per block "
+        f"{est:.0f} (no bar)")
+    return dict(ranks=rows, tile_pair_loads=measured, live_estimate=est,
+                launches={sr: sum(r["launches"][sr] for r in ranks)
+                          for sr in SEMIRINGS})
+
+
+def graph_analysis(torch, root, bars) -> dict:
+    """16c: `analysis.contracts.check_all()` on the card (each chunk under
+    `no_implicit_syncs`, the last bundle through B1/B2, counts set to 0
+    just before and read just after), then the lint CLI over
+    src/repro_torch."""
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.__main__ import main as lint_main
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    t0 = time.perf_counter()
+    fk.reset_launches()
+    results = contracts.check_all()
+    launches = dict(fk.launches)
+    contracts_s = time.perf_counter() - t0
+    for r in results:
+        bars.check(r.ok, f"16c {r.name}: {r.detail}")
+    bars.check(all(launches[sr] > 0 for sr in SEMIRINGS),
+               f"16c B1/B2 launched by the contracts: {launches}")
+    t0 = time.perf_counter()
+    rc = lint_main([str(root / "src" / "repro_torch")])
+    bars.check(rc == 0, f"16c python -m repro_torch.analysis src/repro_torch"
+                        f" exits {rc} (empty baseline)")
+    return dict(contracts=[r.to_dict() for r in results],
+                contracts_s=contracts_s, lint_rc=rc,
+                lint_s=time.perf_counter() - t0, launches=launches)
+
+
+def graph_phase(torch, root, csr=None, ranks=None) -> dict:
+    """Phase 16: 16a the fleet's published records, 16b (when 8a's world
+    ran it: `ranks`) one superstep on every rank against the dry run of
+    the same session, 16c the contracts and the lint on the card.
+    Raises at its end if any check failed; returns 16d's figures."""
+    bars = Bars()
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "16a": graph_records(torch, bars)}
+    zero = {sr: 0 for sr in SEMIRINGS}
+    out["launches"] = {"16b": zero}
+    if ranks is not None:
+        out["16b"] = graph_superstep(torch, csr, ranks, bars)
+        out["launches"]["16b"] = out["16b"]["launches"]
+    out["16c"] = graph_analysis(torch, root, bars)
+    out["launches"]["16c"] = out["16c"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 in {out['phase_s']:.1f} s ({card})")
+    bars.raise_if_failed("phase 16")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
     ap.add_argument("--phases", choices=("all", "10", "11", "11c", "12",
-                                         "12d", "13", "14", "15"),
+                                         "12d", "13", "14", "15", "16"),
                     default="all",
-                    help="'10' / '11' / '12' / '13' / '14' / '15': phase 1 "
-                         "and the LM serving / training / multi-rank "
-                         "training / tensor-parallel serving / "
-                         "tensor-parallel training / dry-run phase alone "
-                         "(for iterating; no kernels line); '11c' / '12d': "
+                    help="'10' / '11' / '12' / '13' / '14' / '15' / '16': "
+                         "phase 1 and the LM serving / training / "
+                         "multi-rank training / tensor-parallel serving / "
+                         "tensor-parallel training / dry-run / graph "
+                         "dry-run and analysis phase alone (for iterating; "
+                         "no kernels line; 16 without 16b); '11c' / '12d': "
                          "that part alone, the child process phase 11 / 12 "
                          "starts")
     args = ap.parse_args()
@@ -5395,7 +5583,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases in ("10", "11", "12", "13", "14", "15"):
+    if args.phases in ("10", "11", "12", "13", "14", "15", "16"):
         if args.phases == "10":
             print(json.dumps({"lm": lm_phase(torch, args.trace)}),
                   flush=True)
@@ -5409,6 +5597,9 @@ def main() -> int:
                   flush=True)
         elif args.phases == "15":
             print(json.dumps({"dryrun": dry_phase(torch, out_dir, None)}),
+                  flush=True)
+        elif args.phases == "16":
+            print(json.dumps({"graph_dryrun": graph_phase(torch, root)}),
                   flush=True)
         else:
             print(json.dumps({"dist": dist_phase(torch, out_dir, None)}),
@@ -5514,8 +5705,8 @@ def main() -> int:
     # -- phases 8-9: the multi-device engine (ranks sharing the card) -----
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_launches, mesh_stream_launches, mesh_serve_launches, mesh_errs = \
-        mesh_phase(torch, csr, refs, fk, out_dir)
+    (mesh_launches, mesh_stream_launches, mesh_serve_launches, mesh_errs,
+     graph_ranks) = mesh_phase(torch, csr, refs, fk, out_dir)
 
     # -- phase 10: the LM serving path (launches none of the kernels) -------
     lm = lm_phase(torch, args.trace)
@@ -5540,6 +5731,9 @@ def main() -> int:
     finally:
         _stop(dry_procs)
 
+    # -- phase 16: the graph dry run (16b in 8a's world) and the analysis
+    graph = graph_phase(torch, root, csr, graph_ranks)
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -5549,14 +5743,19 @@ def main() -> int:
             "launches": (launches[sr] + dev_launches[sr]
                          + stream_launches[sr] + serve_launches[sr]
                          + mesh_launches[sr] + mesh_stream_launches[sr]
-                         + mesh_serve_launches[sr]),
+                         + mesh_serve_launches[sr]
+                         + graph["launches"]["16b"][sr]
+                         + graph["launches"]["16c"][sr]),
             "launches_by_path": {"host_two_level": launches[sr],
                                  "device_fused": dev_launches[sr],
                                  "stream": stream_launches[sr],
                                  "serve": serve_launches[sr],
                                  "mesh": mesh_launches[sr],
                                  "mesh_stream": mesh_stream_launches[sr],
-                                 "mesh_serve": mesh_serve_launches[sr]},
+                                 "mesh_serve": mesh_serve_launches[sr],
+                                 "graph_superstep": graph["launches"][
+                                     "16b"][sr],
+                                 "contracts": graph["launches"]["16c"][sr]},
             "max_abs_err": max([f["max_abs_err"], mesh_errs[sr]] + [
                 x["max_abs_err"] for x in sel_figures[sr]]),
             "mesh_shard_max_abs_err": mesh_errs[sr],
@@ -5590,6 +5789,7 @@ def main() -> int:
     print(json.dumps({"tp": tp}), flush=True)
     print(json.dumps({"tp_train": tp_train}), flush=True)
     print(json.dumps({"dryrun": dry}), flush=True)
+    print(json.dumps({"graph_dryrun": graph}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,7 @@ def De_In_Priority(alg: Algorithm, values: torch.Tensor,
                    deltas: torch.Tensor, q: int, rng: np.random.Generator,
                    samples: int = DEFAULT_SAMPLES) -> List[np.ndarray]:
     """Per-job priority queues for stacked [J, B_N, Vb] state."""
-    node_un, p_mean = (x.cpu().numpy()
+    node_un, p_mean = (x.cpu().numpy()  # noqa: RPT002 - the two pair arrays, one read each
                        for x in compute_pairs(alg, values, deltas))
     sched = TwoLevelScheduler(node_un.shape[1], q, samples=samples)
     sched.rng = rng  # caller-owned stream, paper-API style

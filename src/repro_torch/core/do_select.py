@@ -165,7 +165,7 @@ def do_select_device(node_un: torch.Tensor, p_mean: torch.Tensor, q: int,
     s_cap = max(1, min(int(s), b_n))
     _, samp_idx = _top_k(torch.where(live, noise, neg), s_cap)
     s_eff = torch.clamp(n_live, max=s_cap)
-    ar = torch.arange(s_cap, device=node_un.device)
+    ar = torch.arange(s_cap, dtype=torch.int64, device=node_un.device)
     samp_scores = torch.where(ar < s_eff, score.gather(-1, samp_idx), neg)
     samp_sorted = torch.sort(samp_scores, dim=-1, descending=True).values
 

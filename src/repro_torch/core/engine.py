@@ -191,5 +191,6 @@ class ConcurrentEngine:
         out = []
         for j, a in enumerate(r.algs):
             res = a.result(values[j], deltas[j])
-            out.append(res.reshape(-1)[:r.graph.n_real].cpu().numpy())
+            res = res.reshape(-1)[:r.graph.n_real]
+            out.append(res.cpu().numpy())  # noqa: RPT002 - a result a job, after the run
         return np.stack(out)

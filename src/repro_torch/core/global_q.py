@@ -150,7 +150,8 @@ def synthesize_topq(pri: torch.Tensor, heads: torch.Tensor, q: int,
     taken = _scatter_any(taken, s2, m2 > 0)
     s3, m3 = priority_topq(torch.where(taken, 0.0, pri), n_res)
     spare = n_res - m2.sum()
-    m3 = m3 * (torch.arange(n_res, device=pri.device) < spare)
+    m3 = m3 * (torch.arange(n_res, dtype=torch.int64, device=pri.device)
+               < spare)
     cand = torch.cat([s1, s2, s3])
     cmsk = torch.cat([m1, m2, m3])
     order = torch.argsort((cmsk <= 0).to(torch.int32), stable=True)[:q]

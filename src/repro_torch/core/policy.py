@@ -255,8 +255,8 @@ def _read_pairs(node_un: torch.Tensor, p_mean: torch.Tensor,
 def _read_counts(counts: torch.Tensor, resid: torch.Tensor):
     """[cap] unconverged counts and the max residual in one copy (float64
     holds both exactly)."""
-    flat = torch.cat([counts.to(torch.float64),
-                      resid.reshape(1).to(torch.float64)]).cpu().numpy()
+    flat = torch.cat([counts.to(torch.float64),  # noqa: RPT006 - exact counts
+                      resid.reshape(1).to(torch.float64)]).cpu().numpy()  # noqa: RPT006 - exact
     return flat[:-1].astype(np.int64), float(flat[-1])
 
 
@@ -292,7 +292,7 @@ def _run_host(policy: SchedulePolicy, sess,
                                      sess.use_pallas) for g in groups]
         indep_fns = [indep_push_fn(g.push_one) for g in groups]
     # host mirror of the per-source-block real-pair counts, read once
-    nnz_host = [p.src_nnz.cpu().numpy() for p in grp_pairs]
+    nnz_host = [p.src_nnz.cpu().numpy() for p in grp_pairs]  # noqa: RPT002 - once a run
     m = RunMetrics(
         iterations_per_job=np.zeros(int(offs[-1]), dtype=np.int64))
     telemetry = sess.telemetry is not None
@@ -366,7 +366,7 @@ def _run_host(policy: SchedulePolicy, sess,
                             sess._counts(g), g.alg.vertex_priority(
                                 g.values, g.deltas).max())
                     else:
-                        counts = sess._counts(g).cpu().numpy()
+                        counts = sess._counts(g).cpu().numpy()  # noqa: RPT002 - host driver's read
                     node_un.append(counts)
                     actives.append(counts > 0)
                 if not actives[gi].any():
@@ -666,7 +666,7 @@ def _run_device(policy: SchedulePolicy, sess,
         with _profiler_span(sess, "device_chunk"):
             state, un = step_fn(state, *args, budget, seed, pos)
             # the ONE host read of the chunk: (it, unconverged_total)
-            it_h, un_h = torch.stack([state[0],
+            it_h, un_h = torch.stack([state[0],  # noqa: RPT002 - the driver's one read a chunk
                                       un.to(torch.int64)]).tolist()
         m.host_syncs += 1
         if trace:
@@ -688,8 +688,8 @@ def _finish_device(sess, state, it_h: int, m: RunMetrics) -> None:
     """The one-device run's totals, iteration counts and series into `m`
     in one read (float64 holds the counts exactly up to 2^53)."""
     groups = sess.view_groups()
-    parts = [torch.stack([state[3], state[4], state[5]]).to(torch.float64)]
-    parts += [x.to(torch.float64) for x in state[6]]
+    parts = [torch.stack([state[3], state[4], state[5]]).to(torch.float64)]  # noqa: RPT006 - exact
+    parts += [x.to(torch.float64) for x in state[6]]  # noqa: RPT006 - exact iteration counts
     if sess.telemetry is not None:
         parts.append(device_rows(state[8], it_h).reshape(-1))
     flat = torch.cat(parts).cpu().numpy()

@@ -26,7 +26,9 @@ the reference's HLO name, its bytes as the reference's collective
 inventory counts them (`repro/launch/hlo_analysis.py`: the op's output
 on one device: the whole gathered tensor, the reduced buffer, one
 scattered shard, the sent buffer) and its group's global ranks.  It
-changes neither `STATS` nor any result.
+changes neither `STATS` nor any result.  The graph engine's collectives
+(`dist.mesh2d.Mesh2DSpec.all_reduce`, counted in its own `COLLECTIVES`)
+list theirs through `add_call`, with their dtype and shape.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ class Call(NamedTuple):
     #                          broadcast or collective-permute
     nbytes: int              # the op's output on one device
     ranks: Tuple[int, ...]   # the group's global ranks
+    dtype: str = ""          # the tensor's dtype and shape, where the
+    shape: Tuple[int, ...] = ()  # caller lists them (`add_call`)
 
 
 #: the lists of the active `record()` contexts (every thread's calls: the
@@ -79,6 +83,18 @@ def record():
         yield calls
     finally:
         _RECORDS.remove(calls)
+
+
+def recording() -> bool:
+    """Whether a `record()` is active."""
+    return bool(_RECORDS)
+
+
+def add_call(call: Call) -> None:
+    """List `call` in every active `record()` (a collective made outside
+    this module: `dist.mesh2d.Mesh2DSpec.all_reduce`)."""
+    for calls in _RECORDS:
+        calls.append(call)
 
 
 def _ranks(g) -> Tuple[int, ...]:
@@ -209,9 +225,7 @@ class _Timed:
         STATS["seconds"] += time.perf_counter() - self.t0
         if _RECORDS:
             op, out_bytes, ranks = self.call
-            call = Call(op, int(out_bytes), ranks())
-            for calls in _RECORDS:
-                calls.append(call)
+            add_call(Call(op, int(out_bytes), ranks()))
         return False
 
 

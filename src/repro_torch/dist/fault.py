@@ -116,8 +116,8 @@ def checkpoint_session(sess) -> dict:
     vals, dels = [], []
     for g in groups:
         v, d, _ = sess._full_state(g)
-        vals.append(v.cpu().numpy().copy())
-        dels.append(d.cpu().numpy().copy())
+        vals.append(v.cpu().numpy().copy())  # noqa: RPT002 - a checkpoint, a read a view
+        dels.append(d.cpu().numpy().copy())  # noqa: RPT002 - a checkpoint, a read a view
     return {"keys": [g.key for g in groups], "values": vals,
             "deltas": dels, "step": int(sess.scheduler._step),
             "rng": sess.scheduler.rng.bit_generator.state}

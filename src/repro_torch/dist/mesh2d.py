@@ -79,6 +79,7 @@ from repro_torch.core.do_select import (do_select_device, step_key,
                                         uniform_noise)
 from repro_torch.core.global_q import accumulate_priority, synthesize_topq
 from repro_torch.core.push import compute_pairs
+from repro_torch.dist import comm
 from repro_torch.dist.compression import quantize_ef
 from repro_torch.graph.structure import (BlockedGraph, BlockPairs,
                                          build_view_shard, chunk_table,
@@ -310,11 +311,18 @@ class Mesh2DSpec:
 
     def all_reduce(self, t: torch.Tensor, op, group=None) -> torch.Tensor:
         """`dist.all_reduce` in place (world by default), counted and
-        timed on the host."""
+        timed on the host, and listed in `dist.comm.record()`'s open
+        lists with its dtype, shape and group."""
         t0 = time.perf_counter()
         dist.all_reduce(t, op=op, group=group)
         COLLECTIVES["seconds"] += time.perf_counter() - t0
         COLLECTIVES["count"] += 1
+        if comm.recording():
+            ranks = (tuple(range(dist.get_world_size())) if group is None
+                     else tuple(dist.get_process_group_ranks(group)))
+            comm.add_call(comm.Call("all-reduce",
+                                    t.numel() * t.element_size(), ranks,
+                                    str(t.dtype), tuple(t.shape)))
         return t
 
 
@@ -892,11 +900,11 @@ def build_device_step_2d(policy, sess, spec: Mesh2DSpec):
         and head flags."""
         tot = offs[-1]
         extra = 2 * bn if mode == "two" else 0
-        buf = torch.zeros(tot + extra, dtype=torch.float64, device=dev)
+        buf = torch.zeros(tot + extra, dtype=torch.float64, device=dev)  # noqa: RPT006 - exact sum
         for gi in range(n_groups):
             j0, jl = jr[gi]
             buf[offs[gi] + j0:offs[gi] + j0 + jl] = (
-                node_uns[gi].sum(-1).to(torch.float64) * w_cnt[gi])
+                node_uns[gi].sum(-1).to(torch.float64) * w_cnt[gi])  # noqa: RPT006 - exact sum
         if mode == "two":
             pri = torch.zeros(bn, dtype=torch.float32, device=dev)
             heads = torch.zeros(bn, dtype=torch.bool, device=dev)
@@ -907,13 +915,13 @@ def build_device_step_2d(policy, sess, spec: Mesh2DSpec):
                     sels[gi], msks[gi], q)
                 pri = pri + p_l * w_cnt[gi]
                 heads = heads | (h_l & bool(w_cnt[gi]))
-            buf[tot:tot + bn] = pri.to(torch.float64)
-            buf[tot + bn:] = heads.to(torch.float64)
+            buf[tot:tot + bn] = pri.to(torch.float64)  # noqa: RPT006 - exact world sum
+            buf[tot + bn:] = heads.to(torch.float64)  # noqa: RPT006 - exact world sum
         return spec.all_reduce(buf, SUM)
 
     def unconverged_total(vs, ds):
         dev = vs[0].device
-        buf = torch.zeros(1, dtype=torch.float64, device=dev)
+        buf = torch.zeros(1, dtype=torch.float64, device=dev)  # noqa: RPT006 - exact world sum
         for gi in range(n_groups):
             buf += algs[gi].unconverged(vs[gi], ds[gi]).sum() * w_cnt[gi]
         return spec.all_reduce(buf, SUM)[0]
@@ -1057,9 +1065,9 @@ def build_device_step_2d(policy, sess, spec: Mesh2DSpec):
                 job_block_pushes=sel_pushes, gq_occupancy=occ_t,
                 dirty_blocks=(boost > 0).sum() * once,
                 unconverged=torch.stack([c.sum() * once for c in counts_g]),
-                max_residual=torch.stack(resids).to(torch.float64),
+                max_residual=torch.stack(resids).to(torch.float64),  # noqa: RPT006 - telemetry row
                 tile_pair_loads=pair_step,
-                halo_bytes=halo_step.to(torch.float64))
+                halo_bytes=halo_step.to(torch.float64))  # noqa: RPT006 - telemetry rows are float64
         li = live.to(torch.int64)
         return (it + li, tuple(new_vs), tuple(new_ds),
                 loads + li * tile_loads, pushes + li * sel_pushes,
@@ -1127,13 +1135,13 @@ def finish_device_2d(sess, state, it_h: int, m) -> None:
     # up to 2^53); the rows' max_residual columns in one max
     caps = [g.capacity for g in groups]
     offs = np.cumsum([0] + caps).tolist()
-    iters = torch.zeros(offs[-1], dtype=torch.float64, device=dev)
+    iters = torch.zeros(offs[-1], dtype=torch.float64, device=dev)  # noqa: RPT006 - exact world sum
     for gi, (g, lay) in enumerate(zip(groups, lays)):
         j0, jl = spec.job_range(g.capacity, lay)
         iters[offs[gi] + j0:offs[gi] + j0 + jl] = (
-            state[6][gi].to(torch.float64) * float(spec.counted_rows(lay)))
+            state[6][gi].to(torch.float64) * float(spec.counted_rows(lay)))  # noqa: RPT006 - exact
     parts = [torch.stack([state[3], state[4], state[5], state[9]]).to(
-        torch.float64), iters]
+        torch.float64), iters]  # noqa: RPT006 - exact world sum
     n_sum = len(SERIES_FIELDS) + len(groups)
     rows = device_rows(state[8], it_h) if tel_cap else None
     if tel_cap:

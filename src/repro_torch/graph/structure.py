@@ -390,6 +390,29 @@ def block_adjacency(csr: CSRGraph, block_size: int,
         tile_slot=np.arange(len(keys)) - row_start[tile_sb])
 
 
+def _tiles_on(dev: torch.device, shape, fill: float, write):
+    """[shape] float32 tiles on `dev`: filled with `fill`, written on the
+    host by `write(array)` and moved.  On the meta device they are
+    allocated there and never filled (a dry run reads their shape only),
+    so no host memory holds them."""
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    tiles = np.full(shape, fill, dtype=np.float32)
+    write(tiles)
+    return torch.from_numpy(tiles).to(dev)
+
+
+def _fill_ell(tiles: np.ndarray, adj: BlockAdjacency, b0: int,
+              b_loc: int) -> None:
+    """Write the edges of source blocks [b0, b0 + b_loc) into their ELL
+    tiles."""
+    vb = adj.block_size
+    sb = adj.src // vb
+    e = np.flatnonzero((sb >= b0) & (sb < b0 + b_loc))
+    tiles[sb[e] - b0, adj.tile_slot[adj.edge_tile[e]], adj.src[e] % vb,
+          adj.dst[e] % vb] = adj.w[e]
+
+
 def _ell_rows(adj: BlockAdjacency, fill: float, b0: int, b_loc: int,
               dev: torch.device) -> BlockedGraph:
     """The ELL rows of source blocks [b0, b0 + b_loc) as a BlockedGraph
@@ -397,22 +420,17 @@ def _ell_rows(adj: BlockAdjacency, fill: float, b0: int, b_loc: int,
     vb, bn = adj.block_size, adj.num_blocks
     nbr_ids = np.zeros((b_loc, adj.k_max), dtype=np.int32)
     nbr_mask = np.zeros((b_loc, adj.k_max), dtype=bool)
-    tiles = np.full((b_loc, adj.k_max, vb, vb), fill, dtype=np.float32)
     t = np.flatnonzero((adj.tile_sb >= b0) & (adj.tile_sb < b0 + b_loc))
     nbr_ids[adj.tile_sb[t] - b0, adj.tile_slot[t]] = adj.tile_db[t]
     nbr_mask[adj.tile_sb[t] - b0, adj.tile_slot[t]] = True
-    sb = adj.src // vb
-    e = np.flatnonzero((sb >= b0) & (sb < b0 + b_loc))
-    tiles[sb[e] - b0, adj.tile_slot[adj.edge_tile[e]], adj.src[e] % vb,
-          adj.dst[e] % vb] = adj.w[e]
 
     vmask = np.zeros((bn, vb), dtype=bool)
     vmask.reshape(-1)[:adj.n] = True
 
     # the ELL tiles dominate host memory (15 GB per view at 2^16 vertices,
-    # Vb=64): move them and drop the numpy copy before returning
-    tiles_t = torch.from_numpy(tiles).to(dev)
-    del tiles
+    # Vb=64): their numpy copy lives only inside `_tiles_on`
+    tiles_t = _tiles_on(dev, (b_loc, adj.k_max, vb, vb), fill,
+                        lambda tiles: _fill_ell(tiles, adj, b0, b_loc))
     return BlockedGraph(
         n_real=adj.n, block_size=vb, num_blocks=bn, max_nbr_blocks=adj.k_max,
         fill=float(fill),
@@ -460,17 +478,17 @@ def _pair_slice(adj: BlockAdjacency, fill: float, n_shards: int,
     last = np.ones(len(sel), np.int32)
     last[:-1] = first[1:]
     touched[dl] = True
-    # each edge of the shard's pairs lands in its pair's tile
-    pos = np.full(len(adj.tile_sb), -1, dtype=np.int64)
-    pos[sel] = np.arange(len(sel))
-    p = pos[adj.edge_tile]
-    e = np.flatnonzero(p >= 0)
-    tiles = np.full((len(sel), vb, vb), fill, dtype=np.float32)
-    tiles[p[e], adj.src[e] % vb, adj.dst[e] % vb] = adj.w[e]
     rs = run_starts(first)
     chunk_start, chunk_run = chunk_table(rs)
-    tiles_t = torch.from_numpy(tiles).to(dev)
-    del tiles
+
+    def write(tiles):
+        # each edge of the shard's pairs lands in its pair's tile
+        pos = np.full(len(adj.tile_sb), -1, dtype=np.int64)
+        pos[sel] = np.arange(len(sel))
+        p = pos[adj.edge_tile]
+        e = np.flatnonzero(p >= 0)
+        tiles[p[e], adj.src[e] % vb, adj.dst[e] % vb] = adj.w[e]
+    tiles_t = _tiles_on(dev, (len(sel), vb, vb), fill, write)
     return BlockPairs(
         num_pairs=len(sel), block_size=vb, num_blocks=b_loc,
         src=t(sb), dst=t(dl), slot=t(adj.tile_slot[sel]), first=t(first),

@@ -98,6 +98,27 @@ def collective_summary(colls: List[Collective]) -> Dict[str, float]:
     return by_op
 
 
+def fused_live_bytes(semiring: str, j: int, bn: int, bn_loc: int, vb: int,
+                     n_pairs: int, n_live: int, n_src: int, runs: int,
+                     chunks: int) -> int:
+    """Least bytes one fused superstep call (B1 plus-times, B2 min-plus)
+    moves on a selection, each read or written once: the tiles of the
+    `n_live` live pairs (source selected) and the d rows of their
+    `n_src` distinct sources, src of all `n_pairs` pairs, the run and
+    chunk tables, the [B_N] mask and the [J, B_loc] state (base and out;
+    min-plus values and its out too) with its (node_un, p_sum)."""
+    states = 2 if semiring == "plus_times" else 4
+    return (4 * n_live * vb * vb + 4 * j * n_src * vb
+            + 4 * (n_pairs + runs + 1 + 2 * chunks + 1) + bn
+            + 4 * j * bn_loc * vb * states + 4 * 2 * j * bn_loc)
+
+
+def fused_live_flops(j: int, n_live: int, vb: int) -> float:
+    """The FLOPs of the same call: a [Vb] row times a [Vb, Vb] tile for
+    every job and live pair."""
+    return 2.0 * j * n_live * vb * vb
+
+
 def roofline_terms(flops_per_dev: float, hbm_bytes_per_dev: float,
                    nvlink_wire_bytes: float,
                    network_wire_bytes: float = 0.0) -> Dict[str, float]:

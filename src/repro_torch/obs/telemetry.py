@@ -175,7 +175,7 @@ def device_buffers(capacity: int, n_groups: int, device) -> torch.Tensor:
     then max_residual [G].  float64 holds the counts and the float32
     residuals exactly, so one row write serves every field."""
     return torch.zeros((capacity, len(SERIES_FIELDS) + 2 * n_groups),
-                       dtype=torch.float64, device=device)
+                       dtype=torch.float64, device=device)  # noqa: RPT006 - exact counts
 
 
 def device_write(buf: torch.Tensor, idx: torch.Tensor, live: torch.Tensor,
@@ -194,8 +194,8 @@ def device_write(buf: torch.Tensor, idx: torch.Tensor, live: torch.Tensor,
     address.  Returns `buf`."""
     counts = torch.stack([active_jobs, tile_loads, job_block_pushes,
                           gq_occupancy, dirty_blocks, tile_pair_loads]
-                         ).to(torch.float64)
-    halo = (torch.zeros(1, dtype=torch.float64, device=buf.device)
+                         ).to(torch.float64)  # noqa: RPT006 - the row's dtype
+    halo = (torch.zeros(1, dtype=torch.float64, device=buf.device)  # noqa: RPT006 - the row's dtype
             if halo_bytes is None else halo_bytes.reshape(1))
     # cat promotes the float32 columns to float64, exactly
     new = torch.cat([counts, halo, unconverged, max_residual])

@@ -207,7 +207,7 @@ def reseed_min_plus(grp, fwd, rev, seeds: List[int],
             continue
         dist = values_h[j].reshape(-1)[:n]
         init_v, init_d = grp.algs[j].init(g)
-        iv = init_v.cpu().numpy().reshape(-1)[:n]
+        iv = init_v.cpu().numpy().reshape(-1)[:n]  # noqa: RPT002 - a reseeded job's init
         if exact:
             aff = _affected_support(n, fwd, rev, dist, iv, seeds)
         else:
@@ -218,7 +218,7 @@ def reseed_min_plus(grp, fwd, rev, seeds: List[int],
             continue
         reseeded += len(idx)
         union |= aff
-        id_ = init_d.cpu().numpy().reshape(-1)[:n]
+        id_ = init_d.cpu().numpy().reshape(-1)[:n]  # noqa: RPT002 - a reseeded job's init
         bs, us = host_to(values, idx // vb), host_to(values, idx % vb)
         values[j, bs, us] = host_to(values, iv[idx], torch.float32)
         deltas[j, bs, us] = host_to(values, id_[idx], torch.float32)

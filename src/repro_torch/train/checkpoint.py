@@ -39,7 +39,7 @@ from repro_torch.dist.sharding import gather_leaf
 from repro_torch.tree import (Stacked, flatten_with_paths, leaves,
                               treedef_str, tree_map, unflatten)
 
-_NP = {torch.float32: np.float32, torch.float64: np.float64,
+_NP = {torch.float32: np.float32, torch.float64: np.float64,  # noqa: RPT006 - dtype table
        torch.float16: np.float16, torch.int32: np.int32,
        torch.int64: np.int64, torch.int16: np.int16, torch.int8: np.int8,
        torch.uint8: np.uint8, torch.bool: np.bool_}

@@ -205,6 +205,41 @@ def test_blocks_mesh_halo_bounded(world4, policy):
                                   m["halo_bytes"])
 
 
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_graph_dryrun_equals_the_world_call_for_call(world4, shape):
+    """One `Fused(steps_per_sync=1)` superstep of a session placed empty
+    and then given its jobs: the graph dry run of every rank in a fake
+    world of 4 on the meta device makes the gloo world's calls (op,
+    bytes, group, dtype, shape), holds its bytes to the byte and counts
+    its FLOPs."""
+    from repro_torch.launch.graph_dryrun import dry_run_session
+    real = world4["dryrun/%dx%d" % shape]
+    assert len(real) == 4
+    for rank, mine in enumerate(real):
+        dry = dry_run_session(ranks.dry_core, shape, rank)
+        assert [tuple(c) for c in dry["calls"]] == mine["calls"], rank
+        assert dry["resident_bytes"] == mine["resident_bytes"], rank
+        assert dry["flops"] == mine["flops"] > 0, rank
+        assert len(mine["calls"]) >= 3
+
+
+@pytest.mark.parametrize("policy", ["fused", "two_level"])
+def test_record_hook_changes_no_count_or_result(world4, policy):
+    """`Mesh2DSpec.all_reduce` lists its calls in `comm.record()`; inside
+    it the (1 x 4) runs keep `COLLECTIVES`, `comm.STATS`, their metrics
+    and their results bit for bit."""
+    plain, rec = world4["plain/" + policy], world4["recorded/" + policy]
+    assert plain["calls"] == [] and len(rec["calls"]) == rec["collectives"]
+    assert rec["collectives"] == plain["collectives"] > 0
+    assert rec["comm_stats"] == plain["comm_stats"]
+    for key, val in plain["metrics"].items():
+        if key not in ("wall_time_s", "collective_s"):
+            np.testing.assert_array_equal(rec["metrics"][key], val, key)
+    for got, want in zip(rec["results"], plain["results"]):
+        np.testing.assert_array_equal(got, want)
+    assert {c.op for c in rec["calls"]} == {"all-reduce"}
+
+
 def test_host_halo_is_the_frontier(world4):
     """On the host driver every superstep's halo is the occupied queue
     slots x Vb x 4 bytes x live jobs (`host_halo_bytes`)."""

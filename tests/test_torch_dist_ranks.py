@@ -9,6 +9,7 @@ check that neither JAX nor `repro` was imported into them.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import warnings
 
@@ -94,6 +95,22 @@ def job_algs(n=8):
     return algs[:n]
 
 
+def dry_core(mesh, device):
+    """`build_core`'s graph and jobs the way the graph dry run builds a
+    session: placed on `mesh` while empty, then its jobs submitted."""
+    import repro_torch.algorithms as ta
+    import repro_torch.core as tc
+    import repro_torch.graph as tg
+    from repro_torch.dist.mesh2d import shard_session_2d
+    sess = tc.GraphSession(tg.rmat_graph(128, 4, seed=7), BLOCK, capacity=2,
+                           seed=0, device=device)
+    shard_session_2d(mesh, sess)
+    for a in (ta.PageRank(), ta.PageRank(damping=0.7), ta.SSSP(source=3),
+              ta.SSSP(source=17)):
+        sess.submit(a)
+    return sess
+
+
 def _metrics(m) -> dict:
     d = m.to_dict()
     d["collectives"] = m.collectives
@@ -128,12 +145,17 @@ GRID = [
 
 def world4(rank: int) -> dict:
     """Every 4-rank scenario: the (1 x 4) blocks mesh, the (2 x 2) policy
-    grid, compression, layout fallbacks, the step cache and a mid-run
-    checkpoint on (2 x 2)."""
+    grid, compression, layout fallbacks, the step cache, a mid-run
+    checkpoint on (2 x 2), one recorded superstep of a session built the
+    graph dry run's way on both placements, and the (1 x 4) runs again
+    inside `comm.record()`."""
     import repro_torch.core as tc
+    from repro_torch.dist import comm
+    from repro_torch.dist import mesh2d as m2
     from repro_torch.dist.fault import checkpoint_session
     from repro_torch.dist.graph import shard_session, unshard_session
     from repro_torch.dist.mesh2d import make_mesh2d, reset_layout_warnings
+    from repro_torch.launch.graph_dryrun import recorded_step
     from repro_torch.obs.telemetry import TelemetryConfig
 
     out = {"imports_clean": _imports_clean()}
@@ -220,6 +242,27 @@ def world4(rank: int) -> dict:
     m = sess.run(tc.TwoLevel(), 5, mesh=mesh22)
     out["fault"] = dict(metrics=_metrics(m),
                         snapshot=checkpoint_session(sess))
+
+    # -- the graph dry run's session, one recorded superstep ---------------
+    for shape, mesh in (("1x4", mesh14), ("2x2", mesh22)):
+        rec = recorded_step(dry_core(mesh, "cpu"))
+        out["dryrun/" + shape] = _all_ranks(dict(
+            calls=[tuple(c) for c in rec["calls"]],
+            resident_bytes=rec["resident_bytes"], flops=rec["flops"]))
+
+    # -- the (1 x 4) runs without and inside comm.record() -----------------
+    for name, pol in (("fused", tc.Fused()), ("two_level", tc.TwoLevel())):
+        for tag in ("plain", "recorded"):
+            sess, hs = build_core()
+            comm.reset_stats()
+            m2.reset_collectives()
+            with (comm.record() if tag == "recorded"
+                  else contextlib.nullcontext([])) as calls:
+                m = sess.run(pol, 20000, mesh=mesh14)
+            out[f"{tag}/{name}"] = dict(
+                metrics=_metrics(m), collectives=m2.COLLECTIVES["count"],
+                comm_stats=(comm.STATS["calls"], comm.STATS["bytes"]),
+                calls=list(calls), results=[sess.result(h) for h in hs])
     return out
 
 

@@ -125,7 +125,7 @@ def cell_calls(mesh) -> list:
                                         shape=shape)
         with comm.record() as calls:
             cell.fn(*args)
-        mine[(arch, sname)] = [tuple(c) for c in calls]
+        mine[(arch, sname)] = [(c.op, c.nbytes, c.ranks) for c in calls]
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     return every
