@@ -115,11 +115,13 @@ Phases (any failure exits non-zero before the last line is printed):
    plain version at the mesh path's shapes, d at [J, B_N, Vb] and
    base/values at [J, B_loc, Vb], at phase 2's bars (`shard_kernels`).
    8a: a (1 x 4) blocks mesh with both views and phase 3's four jobs
-   under TwoLevel(), Fused() and Fused() with the int8 frontier
-   exchange; 8b: a (2 x 2) mesh, the min-plus view alone with four SSSP
-   jobs, under TwoLevel(backend="device", steps_per_sync=8), then half
-   the run, a snapshot (`dist.fault.checkpoint_session`), the rest, and
-   the snapshot restored here onto one device and finished; 8c: a (2,)
+   under Fused() with the int8 frontier exchange (its TwoLevel() and
+   exact-exchange Fused() runs are cut for the time limit: 9a's reruns
+   drive both on the same session); 8b: a (2 x 2) mesh, the min-plus
+   view alone with four SSSP jobs, under TwoLevel(backend="device",
+   steps_per_sync=8), then half the run, a snapshot
+   (`dist.fault.checkpoint_session`), the rest, and the snapshot
+   restored here onto one device and finished; 8c: a (2,)
    job mesh with the same jobs under TwoLevel(), held bit for bit
    (results, supersteps, tile_loads, tile_pair_loads) to a one-device
    run here.  Every run is checked as in phase 3 (SSSP bit-equal to
@@ -312,11 +314,23 @@ Phases (any failure exits non-zero before the last line is printed):
    16c: `analysis.contracts.check_all()` on the card (every chunk under
    `no_implicit_syncs`, the last bundle through B1/B2), and the lint CLI
    over src/repro_torch exits 0.
+17. The paper's block widths, on rmat_graph(2**15, 8).  17a: B1/B2 and
+   B3 against their plain versions on the real block pairs (B1/B2) and
+   ELL rows (B3, at most 400 read through `tile_index`) of each view at
+   Vb 8, 256 and 512, every source live, numpy-seeded state: J=4 (timed
+   beside the all-pairs bound, with the tile reads a job chunk costs), a
+   prime J, and at Vb=512 the width contract; phase 2's bars.  17b:
+   GraphSession(rmat_graph(2**15, 8), 512, capacity=4) on CUDA with phase
+   3's four jobs under TwoLevel() and then Fused() to convergence, B1/B2
+   counts set to 0 just before each and read just after, phase 3's bars;
+   its views' bytes beside the graph dry run's.  17c: the fleet's records
+   (16a's) on the kernel route, B1/B2 with two jobs a thread block.
 
-Then one JSON line of kernel figures, one of the LM figures, one of the
-training figures, one of the multi-rank training figures, one of the
-tensor-parallel serving figures, one of the tensor-parallel training
-figures, one of the dry run's, one of the graph dry run's (16d), the
+Then one JSON line of kernel figures (each B1/B2/B3 entry with its
+phase-17 widths), one of the LM figures, one of the training figures,
+one of the multi-rank training figures, one of the tensor-parallel
+serving figures, one of the tensor-parallel training figures, one of
+the dry run's, one of the graph dry run's (16d), one of phase 17's, the
 card's name and power limit, and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --trace
@@ -334,12 +348,14 @@ give the end-to-end numbers.
     python3 chip_smoke.py --phases 14
     python3 chip_smoke.py --phases 15
     python3 chip_smoke.py --phases 16
+    python3 chip_smoke.py --phases 17
 
 run phase 1 and phase 10 (the LM serving path), phase 11 (training),
 phase 12 (training over ranks), phase 13 (serving over ranks), phase
 14 (training under the "tp" rules), phase 15 (the dry run; 15c needs
-phase 14 and is skipped) or phase 16 (16a and 16c; 16b needs 8a's world)
-alone, for iterating; no kernels line.
+phase 14 and is skipped), phase 16 (16a and 16c; 16b needs 8a's world)
+or phase 17 (17c on the fleet's records made there) alone, for
+iterating; no kernels line.
 """
 
 from __future__ import annotations
@@ -2532,8 +2548,8 @@ def report_serve(out):
 
 def mesh_phase(torch, csr, refs, fk, out_dir):
     """Phase 8: the multi-device engine at full size, ranks sharing the
-    card over gloo.  8a: (1 x 4) blocks mesh, both views, TwoLevel(),
-    Fused() and Fused() with compress_halo; 8b: (2 x 2), the min-plus
+    card over gloo.  8a: (1 x 4) blocks mesh, both views, Fused() with
+    compress_halo; 8b: (2 x 2), the min-plus
     view alone, four SSSP jobs under TwoLevel(device, 8), then half the
     run, a snapshot, the rest, and the snapshot restored here onto one
     device; 8c: job mesh (2,), the same jobs under TwoLevel(), bit-equal
@@ -2547,9 +2563,9 @@ def mesh_phase(torch, csr, refs, fk, out_dir):
     sssp = list(sssp_ref(csr, MESH_SSSP_SOURCES).astype(np.float32))
     totals = {sr: 0 for sr in SEMIRINGS}
     worlds = [
+        # 8a's TwoLevel() and Fused() runs are cut for the script's time
+        # limit: 9a's reruns drive both on the same placed session
         ("8a (1 x 4)", dict(mesh=(1, MESH_RANKS), views=2, runs=[
-            ("TwoLevel()", "TwoLevel()", False),
-            ("Fused()", "Fused()", False),
             ("Fused() compress_halo", "Fused()", True)], stream=True,
             graph=True), refs),
         ("8b (2 x 2)", dict(mesh=(2, 2), views=1, runs=[
@@ -5401,7 +5417,7 @@ def graph_records(torch, bars) -> list:
         bars.check((r["q"], r["num_blocks"], r["vb"]) == (200, 2048, 512),
                    f"16a {r['mesh']}: q {r['q']}, B_N {r['num_blocks']}, "
                    f"Vb {r['vb']} (the reference's 200, 2048, 512)")
-        bars.check(r["kernel_route"].startswith("plain only"),
+        bars.check(r["kernel_route"] == "B1/B2",
                    f"16a {r['mesh']}: kernel route {r['kernel_route']!r}")
         held = r["arg_bytes_per_dev"] + r["temp_bytes_per_dev"]
         log(f"16a {r['mesh']}: held {r['arg_bytes_per_dev']:,} B + temp "
@@ -5513,21 +5529,306 @@ def graph_phase(torch, root, csr=None, ranks=None) -> dict:
     return out
 
 
+# -- phase 17: the paper's block widths ------------------------------------
+
+WIDE_N = 2**15                 # rmat_graph(2**15, 8): B_N 64 at Vb = 512
+WIDE_VBS = (8, 256, 512)       # 17a: B1/B2/B3 at each width
+WIDE_VB = 512                  # 17b: the paper's fleet's width
+WIDE_PRIME_J = 7
+WIDE_Q_B3 = 400                # B3's selected rows (all where B_N <= 400)
+
+
+def wide_session(torch, csr, vb):
+    """A CUDA session at block size `vb` with phase 3's four jobs: both
+    views built (ELL tiles, then the pairs).  Returns (session, handles,
+    {semiring: view group}, set-up s)."""
+    from repro_torch.algorithms import (PageRank, PersonalizedPageRank,
+                                        SSSP)
+    from repro_torch.core import GraphSession
+    t0 = time.perf_counter()
+    sess = GraphSession(csr, vb, capacity=CAPACITY, seed=0)
+    if not sess.use_pallas:
+        raise RuntimeError("a CUDA session must push through the kernels")
+    handles = [sess.submit(a) for a in [
+        PageRank(), PersonalizedPageRank(source=PPR_SOURCE)] + [
+        SSSP(source=s) for s in SSSP_SOURCES]]
+    groups = {g.semiring: g for g in sess.view_groups()}
+    for g in groups.values():
+        sess._pair_data(g)
+    torch.cuda.synchronize()
+    return sess, handles, groups, time.perf_counter() - t0
+
+
+def wide_fused(torch, timer, sess, groups, vb, device) -> dict:
+    """17a, B1/B2: against the plain version on the view's real pairs,
+    every source live, at J = 4 (timed beside the all-pairs bound), a
+    prime J and, at the fleet's width, the width contract (d at B_N,
+    outputs at B_loc = B_N/2).  Phase 2's bars."""
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
+    from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
+
+    figures = {}
+    for semiring, grp in groups.items():
+        bp = sess._pair_data(grp)
+        bn = grp.graph.num_blocks
+        rows_all = bp.dst_touched.cpu().numpy()
+        rng = np.random.default_rng(vb + 31)
+        cases = [(CAPACITY, bn), (WIDE_PRIME_J, bn)]
+        if vb == WIDE_VB:
+            cases.append((CAPACITY, bn // 2))
+        f = dict(errs=[])
+        for j, bn_loc in cases:
+            d, base, vals = random_state(torch, rng, j, bn, bn_loc, vb,
+                                         semiring, device)
+            jb = _pick_job_block(j, vb, semiring)
+
+            def kern():
+                return fk.fused_superstep_call(
+                    bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+                    values=vals, run_start=bp.run_start,
+                    chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
+                    arrivals=bp.arrivals(j // jb), semiring=semiring,
+                    job_block=jb)
+
+            def plain():
+                return fused_superstep_ref(
+                    bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+                    values=vals, semiring=semiring)
+
+            before = fk.launches[semiring]
+            got = kern()
+            torch.cuda.synchronize()
+            if fk.launches[semiring] != before + 1:
+                raise AssertionError(f"17a {semiring} Vb={vb}: the wrapper "
+                                     f"did not launch the kernel")
+            want = plain()
+            err = compare(semiring, got, want, rows_all[:bn_loc])
+            f["errs"].append(err)
+            log(f"  17a {semiring} Vb={vb}: J={j} jb={jb} B_loc={bn_loc} "
+                f"P={bp.num_pairs} matches plain (max |err| {err:.3g})")
+            if (j, bn_loc) != (CAPACITY, bn):
+                continue
+            del got, want
+            k = timer(kern, R_B1B2)
+            p = timer(plain, R_PLAIN)
+            b_ms, b_by = bound(semiring, j, bn, bn_loc, vb, bp.num_pairs,
+                               bp.num_runs)
+            reads = j // jb
+            log(f"  17a {semiring} Vb={vb}: kernel {fmt(k)}; plain "
+                f"{fmt(p)}; bound {b_ms:.4f} ms ({b_by}); "
+                f"{100 * b_ms / k['ms']:.1f}% of the bound; each tile "
+                f"staged by {reads} thread block(s) (jb {jb}, "
+                f"{fk.blocks_per_sm(jb, vb, semiring)} block(s) per SM, "
+                f"{fk.smem_bytes(jb, vb)} B shared memory)")
+            f.update(ms=k["ms"], host_ms_per_call=k["host_ms"],
+                     queued=k["queued"], plain_ms=p["ms"], library_ms=None,
+                     bound_ms=b_ms, bound_by=b_by, pairs=bp.num_pairs,
+                     jb=jb, tile_reads=reads)
+        f["max_abs_err"] = max(f.pop("errs"))
+        figures[semiring] = f
+        del d, base, vals
+    return figures
+
+
+def wide_mj_spmm(torch, timer, groups, vb, device) -> dict:
+    """17a, B3: against the plain version on min(400, B_N) distinct rows
+    of each view's real ELL tiles read at `tile_index` (push_shared's
+    route), J = 4 (timed beside the bound) and a prime J."""
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.mj_spmm import mj_spmm
+    from repro_torch.kernels.mj_spmm.ops import _pick_job_block
+    from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
+
+    figures = {}
+    rng = np.random.default_rng(vb + 37)
+    for semiring, grp in groups.items():
+        tiles = grp.graph.tiles
+        bn, k = tiles.shape[0], tiles.shape[1]
+        q = min(WIDE_Q_B3, bn)
+        idx = torch.as_tensor(rng.choice(bn, q, replace=False).astype(
+            np.int32), device=device)
+        f = dict(errs=[])
+        for j in (CAPACITY, WIDE_PRIME_J):
+            d = b3_state(torch, rng, q, j, vb, semiring, device)
+            before = mk.launches[semiring]
+            got = mj_spmm(d, tiles, semiring, tile_index=idx)
+            torch.cuda.synchronize()
+            if mk.launches[semiring] != before + 1:
+                raise AssertionError(f"17a mj_spmm {semiring} Vb={vb}: the "
+                                     f"wrapper did not launch the kernel")
+            want = mj_spmm_ref(d, tiles, semiring, tile_index=idx)
+            if semiring == "min_plus":
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy())
+            else:
+                np.testing.assert_allclose(got.cpu().numpy(),
+                                           want.cpu().numpy(), rtol=1e-5,
+                                           atol=1e-5)
+            f["errs"].append(max_err(got, want))
+            jb = _pick_job_block(j, vb)
+            log(f"  17a mj_spmm {semiring} Vb={vb}: q={q} K={k} J={j} "
+                f"jb={jb} matches plain (max |err| {f['errs'][-1]:.3g})")
+            del got, want
+            if j != CAPACITY:
+                continue
+            kt = timer(lambda: mj_spmm(d, tiles, semiring, tile_index=idx),
+                       R_B3)
+            p = timer(lambda: mj_spmm_ref(d, tiles, semiring,
+                                          tile_index=idx), R_PLAIN)
+            lib = None
+            if semiring == "plus_times":     # phase 5's yardstick
+                tiles_sel = tiles[idx.long()]
+                lib = timer(lambda: torch.matmul(d[:, None], tiles_sel),
+                            R_B3)
+                del tiles_sel
+            b_ms, b_by = b3_bound(q, k, j, vb)
+            log(f"  17a mj_spmm {semiring} Vb={vb}: kernel {fmt(kt)}; plain"
+                f" {fmt(p)}; library "
+                f"{'none' if lib is None else fmt(lib)}; bound "
+                f"{b_ms:.4f} ms ({b_by}); {100 * b_ms / kt['ms']:.1f}% of "
+                f"the bound; each tile streamed {j // jb} time(s) (jb {jb})")
+            f.update(ms=kt["ms"], host_ms_per_call=kt["host_ms"],
+                     queued=kt["queued"], plain_ms=p["ms"],
+                     library_ms=None if lib is None else lib["ms"],
+                     bound_ms=b_ms, bound_by=b_by, q=q, k=k, jb=jb,
+                     tile_reads=j // jb)
+        f["max_abs_err"] = max(f.pop("errs"))
+        figures[semiring] = f
+        del d
+    return figures
+
+
+def wide_main_path(torch, fk, sess, handles, csr, bars) -> dict:
+    """17b: phase 3's four jobs at the fleet's width under TwoLevel() and
+    then Fused(), to convergence, each with the B1/B2 counts set to 0 just
+    before and read just after; phase 3's bars."""
+    from repro_torch.core import Fused, TwoLevel
+    refs = [pagerank_ref(csr, h.alg.damping, getattr(h.alg, "source", None))
+            for h in handles[:2]] + list(
+        sssp_ref(csr, SSSP_SOURCES).astype(np.float32))
+    out = {}
+    for i, policy in enumerate((TwoLevel(), Fused())):
+        if i:
+            handles = resubmit(torch, sess, handles)
+            sess.scheduler.reset()
+        label = f"17b Vb={WIDE_VB} {policy.name}"
+        m, wall, launches, peak = drive(torch, sess, policy, fk)
+        report_run(torch, label, m, wall, launches, peak)
+        check_results(sess, handles, csr, refs, label)
+        bars.check(m.converged and all(launches[sr] > 0 for sr in SEMIRINGS),
+                   f"{label}: converged in {m.supersteps} supersteps, B1/B2 "
+                   f"launches {launches}")
+        out[policy.name] = dict(
+            wall_s=wall, supersteps=m.supersteps,
+            ms_per_superstep=1e3 * wall / max(1, m.supersteps),
+            tile_loads=m.tile_loads, tile_pair_loads=m.tile_pair_loads,
+            host_syncs=m.host_syncs, peak_gb=peak / 1e9, launches=launches)
+    return out
+
+
+def wide_phase(torch, timer, records=None) -> dict:
+    """Phase 17: 17b's session at the fleet's width (its bytes against the
+    graph dry run's), 17a B1/B2/B3 against their plain versions at every
+    width of WIDE_VBS, 17b the main path at Vb = 512, 17c the fleet's
+    records (16a's when given, else made here) on the kernel route.
+    Raises at its end if any check failed."""
+    from repro_torch.graph import rmat_graph
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.launch import graph_dryrun as G
+    bars = Bars()
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    csr = rmat_graph(WIDE_N, AVG_DEGREE, seed=0)
+    out = {"card": card_line(), "vertices": WIDE_N, "edges": int(csr.nnz),
+           "kernels": {}}
+    for vb in sorted(WIDE_VBS, key=lambda v: v != WIDE_VB):
+        base = torch.cuda.memory_allocated()
+        sess, handles, groups, setup_s = wide_session(torch, csr, vb)
+        held = torch.cuda.memory_allocated() - base
+        bp = {sr: sess._pair_data(g) for sr, g in groups.items()}
+        g0 = next(iter(groups.values())).graph
+        log(f"17 Vb={vb}: B_N={g0.num_blocks} K={g0.max_nbr_blocks} "
+            f"P={bp['plus_times'].num_pairs} runs="
+            f"{bp['plus_times'].num_runs}; both views {held / 1e9:.3f} GB "
+            f"held, built in {setup_s:.2f} s")
+        if vb == WIDE_VB:
+            t0 = time.perf_counter()
+            dry = wide_dry_run(csr, vb)
+            # the plan, no bar: the dry run places the session on a (1, 1)
+            # mesh (a pair shard), the card's session is not placed
+            log(f"17b the graph dry run's resident bytes of the session "
+                f"placed on (1, 1): {dry['resident_bytes']:,} B (q "
+                f"{dry['q']}, {time.perf_counter() - t0:.2f} s on meta); "
+                f"held on the card, not placed: {held:,} B")
+            out["dry_resident_bytes"] = dry["resident_bytes"]
+            out["held_bytes"] = held
+        fig = {"fused": wide_fused(torch, timer, sess, groups, vb,
+                                   sess.device),
+               "mj_spmm": wide_mj_spmm(torch, timer, groups, vb,
+                                       sess.device),
+               "setup_s": setup_s, "held_bytes": held}
+        if vb == WIDE_VB:
+            out["main_path"] = wide_main_path(torch, fk, sess, handles, csr,
+                                              bars)
+        out["kernels"][vb] = fig
+        del sess, handles, groups, bp, g0
+        gc.collect()
+        torch.cuda.empty_cache()
+    if records is None:
+        records = [G.run(multi_pod=mp) for mp in (False, True)]
+    for r in records:
+        want = (r["local_jobs"], 2)
+        bars.check((r["kernel_route"], r["kernel_job_block"]) == (
+            "B1/B2", 2), f"17c {r['mesh']}: the fleet (Vb {r['vb']}, "
+            f"{want[0]} local jobs) on the kernel route: "
+            f"{r['kernel_route']!r}, job chunk {r['kernel_job_block']}")
+    log("17c the fleet's records:\n" + G.graph_table(records))
+    out["fleet_routes"] = {r["mesh"]: [r["kernel_route"],
+                                       r["kernel_job_block"]]
+                           for r in records}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 in {out['phase_s']:.1f} s ({out['card']})")
+    bars.raise_if_failed("phase 17")
+    return out
+
+
+def wide_dry_run(csr, vb) -> dict:
+    """The graph dry run (meta, a fake world of one) of 17b's session:
+    its resident bytes and q."""
+    from repro_torch.algorithms import (PageRank, PersonalizedPageRank,
+                                        SSSP)
+    from repro_torch.core import GraphSession
+    from repro_torch.dist.mesh2d import shard_session_2d
+    from repro_torch.launch.graph_dryrun import dry_run_session
+
+    def build(mesh, dev):
+        sess = GraphSession(csr, vb, capacity=CAPACITY, device=dev)
+        shard_session_2d(mesh, sess)
+        for a in [PageRank(), PersonalizedPageRank(source=PPR_SOURCE)] + [
+                SSSP(source=s) for s in SSSP_SOURCES]:
+            sess.submit(a)
+        return sess
+    return dry_run_session(build, (1, 1))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
                     help="add a traced rerun (per-layer breakdown)")
     ap.add_argument("--phases", choices=("all", "10", "11", "11c", "12",
-                                         "12d", "13", "14", "15", "16"),
+                                         "12d", "13", "14", "15", "16",
+                                         "17"),
                     default="all",
-                    help="'10' / '11' / '12' / '13' / '14' / '15' / '16': "
-                         "phase 1 and the LM serving / training / "
+                    help="'10' / '11' / '12' / '13' / '14' / '15' / '16' / "
+                         "'17': phase 1 and the LM serving / training / "
                          "multi-rank training / tensor-parallel serving / "
                          "tensor-parallel training / dry-run / graph "
-                         "dry-run and analysis phase alone (for iterating; "
-                         "no kernels line; 16 without 16b); '11c' / '12d': "
-                         "that part alone, the child process phase 11 / 12 "
-                         "starts")
+                         "dry-run and analysis / block-width phase alone "
+                         "(for iterating; no kernels line; 16 without "
+                         "16b); '11c' / '12d': that part alone, the child "
+                         "process phase 11 / 12 starts")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if args.phases in ("11c", "12d"):
@@ -5583,7 +5884,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases in ("10", "11", "12", "13", "14", "15", "16"):
+    if args.phases in ("10", "11", "12", "13", "14", "15", "16", "17"):
         if args.phases == "10":
             print(json.dumps({"lm": lm_phase(torch, args.trace)}),
                   flush=True)
@@ -5600,6 +5901,9 @@ def main() -> int:
                   flush=True)
         elif args.phases == "16":
             print(json.dumps({"graph_dryrun": graph_phase(torch, root)}),
+                  flush=True)
+        elif args.phases == "17":
+            print(json.dumps({"widths": wide_phase(torch, Timer(torch))}),
                   flush=True)
         else:
             print(json.dumps({"dist": dist_phase(torch, out_dir, None)}),
@@ -5734,6 +6038,16 @@ def main() -> int:
     # -- phase 16: the graph dry run (16b in 8a's world) and the analysis
     graph = graph_phase(torch, root, csr, graph_ranks)
 
+    # -- phase 17: B1/B2/B3 at the paper's block widths, the main path at
+    # the fleet's Vb = 512
+    wide = wide_phase(torch, timer, graph["16a"])
+    wide_launches = {sr: sum(r["launches"][sr]
+                             for r in wide["main_path"].values())
+                     for sr in SEMIRINGS}
+
+    def widths(name, sr):
+        return {str(vb): f[name][sr] for vb, f in wide["kernels"].items()}
+
     kernels = []
     for sr in SEMIRINGS:
         f = figures[sr]
@@ -5745,7 +6059,8 @@ def main() -> int:
                          + mesh_launches[sr] + mesh_stream_launches[sr]
                          + mesh_serve_launches[sr]
                          + graph["launches"]["16b"][sr]
-                         + graph["launches"]["16c"][sr]),
+                         + graph["launches"]["16c"][sr]
+                         + wide_launches[sr]),
             "launches_by_path": {"host_two_level": launches[sr],
                                  "device_fused": dev_launches[sr],
                                  "stream": stream_launches[sr],
@@ -5755,28 +6070,33 @@ def main() -> int:
                                  "mesh_serve": mesh_serve_launches[sr],
                                  "graph_superstep": graph["launches"][
                                      "16b"][sr],
-                                 "contracts": graph["launches"]["16c"][sr]},
+                                 "contracts": graph["launches"]["16c"][sr],
+                                 "paper_width": wide_launches[sr]},
             "max_abs_err": max([f["max_abs_err"], mesh_errs[sr]] + [
-                x["max_abs_err"] for x in sel_figures[sr]]),
+                x["max_abs_err"] for x in sel_figures[sr]] + [
+                x["max_abs_err"] for x in widths("fused", sr).values()]),
             "mesh_shard_max_abs_err": mesh_errs[sr],
             "ms": f["ms"], "kernel_ms": f["ms"], "device_ms": f["ms"],
             "host_ms_per_call": f["host_ms_per_call"],
             "queued": f["queued"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": None, "timing": TIMING,
-            "main_path_selections": sel_figures[sr]})
+            "main_path_selections": sel_figures[sr],
+            "widths": widths("fused", sr)})
     for sr in SEMIRINGS:
         f = b3[sr]
         kernels.append({
             "name": f"mj_spmm_{sr}", "route": "cuda", "source": B3_SOURCE,
             "replaces": B3_REPLACES[sr], "launches": b3_launches[sr],
-            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "max_abs_err": max([f["max_abs_err"]] + [
+                x["max_abs_err"] for x in widths("mj_spmm", sr).values()]),
+            "ms": f["ms"],
             "kernel_ms": f["ms"], "device_ms": f["ms"],
             "host_ms_per_call": f["host_ms_per_call"],
             "queued": f["queued"], "indexed_ms": f["indexed_ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": f["library_ms"],
-            "timing": TIMING})
+            "timing": TIMING, "widths": widths("mj_spmm", sr)})
     kernels.append({
         "name": "priority_pairs", "route": "cuda", "source": B4_SOURCE,
         "replaces": B4_REPLACES, "kernel_ms": b4["ms"], "timing": TIMING,
@@ -5790,6 +6110,7 @@ def main() -> int:
     print(json.dumps({"tp_train": tp_train}), flush=True)
     print(json.dumps({"dryrun": dry}), flush=True)
     print(json.dumps({"graph_dryrun": graph}), flush=True)
+    print(json.dumps({"widths": wide}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,12 +32,19 @@
 //    which is order-free), flushes and sets the counter back to 0, so no
 //    memset launch is needed.  The result does not depend on which block
 //    is last: two calls on the same inputs are bit-identical.
-// 2. A TMA ring.  A pair's tile is contiguous; thread 0 issues it as one
-//    1-D bulk copy (cp.async.bulk ... mbarrier::complete_tx) into one of
-//    NS stages, with the jb d rows of its source on the same mbarrier.
-//    Every thread keeps its (job, lane) output and waits on the stage's
-//    full barrier; each warp releases the stage on its empty barrier,
-//    and thread 0 refills it NS pairs ahead.
+// 2. A TMA ring.  A pair's tile is contiguous and row-major by source
+//    lane, so a slice of RS = rows(Vb) source rows is one contiguous
+//    block of RS*Vb floats: thread 0 issues it as one 1-D bulk copy
+//    (cp.async.bulk ... mbarrier::complete_tx) into one of NS stages,
+//    with the same RS lanes of the jb d rows of its source on the same
+//    mbarrier.  Up to Vb = 128 a slice is the whole tile (RS = Vb); from
+//    Vb = 256 a tile (256 KB, 1 MB) exceeds a thread block's shared
+//    memory, and a pair takes Vb/RS stages of 32 KB.  Every thread keeps
+//    its (job, lane) output and waits on the stage's full barrier; each
+//    warp releases the stage on its empty barrier, and thread 0 refills
+//    it NS slices ahead.  A thread sums a pair's slices in source-lane
+//    order into one partial before it meets the pair's other partials, so
+//    the order of every sum is the whole-tile design's at any RS.
 // 3. Live pairs only.  `src_live [bn_src]` (null: all live) marks the
 //    selected source blocks.  Each block compacts its chunk's live pairs
 //    into shared memory (ballot + prefix, WINDOW pairs per pass) and
@@ -45,6 +52,11 @@
 //    the semiring identity, so skipping them is exact (min-plus bitwise,
 //    plus-times up to the sign of a zero).  A chunk with no live pair
 //    still writes its identity partial and arrives.
+//    Threads.  One thread owns one (job, lane), so a block holds jb <=
+//    1024/Vb jobs: 2 at Vb = 512, 4 at 256.  The job chunks of one work
+//    item are neighbours in the grid (blockIdx.x = chunk * (J/jb) + job
+//    chunk), so they run at the same time and the second reads each tile
+//    slice from L2, not from device memory.
 // 4. A device gate.  `gate` (null: open) is a device bool read at entry:
 //    when false every block returns before any load and the outputs are
 //    left undefined (the device driver discards them).
@@ -67,9 +79,16 @@ namespace {
 // Live pairs compacted per pass (the shared-memory list's capacity).
 constexpr int WINDOW = 256;
 
-// Ring depth: 3 thread blocks per SM at Vb = 64 (4 x 17 KB stages each).
+// Ring depth: 3 thread blocks per SM at Vb = 64 (4 x 17 KB stages each);
+// from Vb = 256 one block per SM with 6 stages of 32 KB slices.
 __host__ __device__ constexpr int stages(int vb) {
-  return vb >= 128 ? 3 : (vb >= 64 ? 4 : 6);
+  return vb >= 256 ? 6 : (vb >= 128 ? 3 : (vb >= 64 ? 4 : 6));
+}
+
+// Source rows of a tile that one stage holds: the whole tile up to Vb =
+// 128, a 32 KB slice above.
+__host__ __device__ constexpr int rows(int vb) {
+  return vb >= 256 ? 8192 / vb : vb;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -207,34 +226,37 @@ __device__ __forceinline__ void row_reduce_store(float un, float pr, int jj,
   }
 }
 
-// Stage load number g (ring stage g % NS) of pair p, source s: wait until
-// every warp has released the stage's previous load, then one bulk copy
-// of the tile and one of each of the job chunk's d rows on its full
-// barrier.  Thread 0 only.
+// Stage load number g (ring stage g % NS): slice `sl` (source rows sl*RS
+// to sl*RS + RS) of pair p, source s.  Wait until every warp has
+// released the stage's previous load, then one bulk copy of the tile
+// slice and one of each of the job chunk's d rows (the same RS lanes) on
+// its full barrier.  Every copy is a multiple of 16 bytes at a 16-byte
+// aligned address (RS >= 8).  Thread 0 only.
 template <int VB>
 __device__ __forceinline__ void issue_load(
     const float* __restrict__ tiles, const float* __restrict__ d, int jb,
     int bn_src, float* tile_s, float* d_s, uint64_t* full, uint64_t* empty,
-    int g, int p, int s, int j0) {
-  constexpr int NS = stages(VB);
-  constexpr uint32_t tile_bytes = VB * VB * 4, row_bytes = VB * 4;
+    int g, int p, int s, int sl, int j0) {
+  constexpr int NS = stages(VB), RS = rows(VB);
+  constexpr uint32_t slice_bytes = RS * VB * 4, row_bytes = RS * 4;
   const int st = g % NS;
   if (g >= NS) mbar_wait(&empty[st], ((g / NS) + 1) & 1);
-  mbar_expect_tx(&full[st], tile_bytes + jb * row_bytes);
-  bulk_load(tile_s + st * VB * VB, tiles + static_cast<size_t>(p) * VB * VB,
-            tile_bytes, &full[st]);
+  mbar_expect_tx(&full[st], slice_bytes + jb * row_bytes);
+  bulk_load(tile_s + st * RS * VB,
+            tiles + (static_cast<size_t>(p) * VB + sl * RS) * VB,
+            slice_bytes, &full[st]);
   for (int k = 0; k < jb; ++k)
-    bulk_load(d_s + (st * jb + k) * VB,
-              d + (static_cast<size_t>(j0 + k) * bn_src + s) * VB, row_bytes,
-              &full[st]);
+    bulk_load(d_s + (st * jb + k) * RS,
+              d + (static_cast<size_t>(j0 + k) * bn_src + s) * VB + sl * RS,
+              row_bytes, &full[st]);
 }
 
 // Shared memory of one thread block, in bytes (mirrored by kernel.py):
-// NS stages of a [VB, VB] tile and jb d rows, the live-pair list (pair
-// and source), per-warp counts, the flush's per-warp sums, four ints,
-// then 2*NS mbarriers.
+// NS stages of an [RS, VB] tile slice and jb d-row slices of RS, the
+// live-pair list (pair and source), per-warp counts, the flush's
+// per-warp sums, four ints, then 2*NS mbarriers.
 __host__ __device__ constexpr int smem_floats(int jb, int vb) {
-  return stages(vb) * (vb * vb + jb * vb) + 2 * WINDOW + 32 +
+  return stages(vb) * (rows(vb) * vb + jb * rows(vb)) + 2 * WINDOW + 32 +
          2 * jb * (vb >= 32 ? vb / 32 : 1) + 4;
 }
 
@@ -242,16 +264,19 @@ inline int smem_bytes(int jb, int vb) {
   return 4 * smem_floats(jb, vb) + 16 * stages(vb);
 }
 
+// At most 1024 threads, and one block an SM is enough: ptxas may then use
+// up to 64 registers a thread.  Without the second bound it holds the
+// plus-times kernel to 32 and spills (3% slower at Vb = 64 on the H100).
 template <int VB, bool MIN>
-__global__ void __launch_bounds__(1024) superstep_kernel(const Args a) {
+__global__ void __launch_bounds__(1024, 1) superstep_kernel(const Args a) {
   if (a.gate != nullptr && *a.gate == 0) return;   // gated: no load at all
-  constexpr int NS = stages(VB);
+  constexpr int NS = stages(VB), RS = rows(VB), NSL = VB / RS;
   constexpr int NW = VB >= 32 ? VB / 32 : 1;
   extern __shared__ __align__(16) float smem[];
   const int jb = a.jb;
-  float* tile_s = smem;                             // [NS][VB*VB]
-  float* d_s = tile_s + NS * VB * VB;               // [NS][jb*VB]
-  int* list_p = reinterpret_cast<int*>(d_s + NS * jb * VB);  // [WINDOW]
+  float* tile_s = smem;                             // [NS][RS*VB]
+  float* d_s = tile_s + NS * RS * VB;               // [NS][jb*RS]
+  int* list_p = reinterpret_cast<int*>(d_s + NS * jb * RS);  // [WINDOW]
   int* list_s = list_p + WINDOW;                    // [WINDOW]
   int* wcnt = list_s + WINDOW;                      // [32]
   float* red = reinterpret_cast<float*>(wcnt + 32); // [jb][NW][2]
@@ -259,7 +284,8 @@ __global__ void __launch_bounds__(1024) superstep_kernel(const Args a) {
   uint64_t* full = reinterpret_cast<uint64_t*>(misc + 4);    // [NS]
   uint64_t* empty = full + NS;                      // [NS]
 
-  const int c = blockIdx.x;
+  const int njc = a.j / jb;                         // job chunks
+  const int c = blockIdx.x / njc, jc = blockIdx.x % njc;
   const int r = a.chunk_run[c];
   const int r0 = a.run_start[r], r1 = a.run_start[r + 1];
   const int b = a.dst[r0];
@@ -270,7 +296,7 @@ __global__ void __launch_bounds__(1024) superstep_kernel(const Args a) {
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int jj = tid / VB, w = tid % VB;
   const bool live = jj < jb;
-  const int j0 = blockIdx.y * jb;
+  const int j0 = jc * jb;
   const size_t o = (static_cast<size_t>(j0 + jj) * a.bn_loc + b) * VB + w;
   // a run of one chunk starts from `base` and flushes directly
   float acc = MIN ? INFINITY : ((live && single) ? a.base[o] : 0.f);
@@ -293,6 +319,8 @@ __global__ void __launch_bounds__(1024) superstep_kernel(const Args a) {
   __syncthreads();
 
   int g = 0;                     // stage loads so far
+  float carry = 0.f;             // a pair's sum over its slices so far
+                                 // (dead code when a stage holds a tile)
   for (int w0 = p0; w0 < p1; w0 += WINDOW) {
     const int w1 = min(p1, w0 + WINDOW);
     // compact the window's live pairs into (list_p, list_s), in order
@@ -323,20 +351,21 @@ __global__ void __launch_bounds__(1024) superstep_kernel(const Args a) {
       n += tot;
       __syncthreads();
     }
+    const int nl = n * NSL;      // the window's stage loads
     if (tid == 0)                // fill the ring
-      for (int i = 0; i < n && i < NS; ++i)
+      for (int l = 0; l < nl && l < NS; ++l)
         issue_load<VB>(a.tiles, a.d, jb, a.bn_src, tile_s, d_s, full, empty,
-                       g + i, list_p[i], list_s[i], j0);
-    for (int i = 0; i < n; ++i, ++g) {
-      const int st = g % NS;
+                       g + l, list_p[l / NSL], list_s[l / NSL], l % NSL, j0);
+    for (int l = 0; l < nl; ++l, ++g) {
+      const int st = g % NS, sl = l % NSL;
       mbar_wait(&full[st], (g / NS) & 1);
       if (live) {
-        const float* t = tile_s + st * VB * VB + w;
+        const float* t = tile_s + st * RS * VB + w;
         const float4* dr =
-            reinterpret_cast<const float4*>(d_s + (st * jb + jj) * VB);
-        float part = MIN ? INFINITY : 0.f;
+            reinterpret_cast<const float4*>(d_s + (st * jb + jj) * RS);
+        float part = (NSL == 1 || sl == 0) ? (MIN ? INFINITY : 0.f) : carry;
 #pragma unroll
-        for (int v4 = 0; v4 < VB / 4; ++v4) {
+        for (int v4 = 0; v4 < RS / 4; ++v4) {
           const float4 dv = dr[v4];
           const float* tv = t + 4 * v4 * VB;
           if constexpr (MIN) {
@@ -351,14 +380,20 @@ __global__ void __launch_bounds__(1024) superstep_kernel(const Args a) {
             part = fmaf(dv.w, tv[3 * VB], part);
           }
         }
-        if constexpr (MIN) acc = fminf(acc, part);
-        else acc += part;
+        if (sl == NSL - 1) {
+          if constexpr (MIN) acc = fminf(acc, part);
+          else acc += part;
+        } else {
+          carry = part;
+        }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
-      if (tid == 0 && i + NS < n)
+      if (tid == 0 && l + NS < nl) {
+        const int i = (l + NS) / NSL;
         issue_load<VB>(a.tiles, a.d, jb, a.bn_src, tile_s, d_s, full, empty,
-                       g + NS, list_p[i + NS], list_s[i + NS], j0);
+                       g + NS, list_p[i], list_s[i], (l + NS) % NSL, j0);
+      }
     }
   }
 
@@ -368,7 +403,7 @@ __global__ void __launch_bounds__(1024) superstep_kernel(const Args a) {
     __threadfence();
     __syncthreads();
     if (tid == 0) {
-      int* cnt = a.arrivals + static_cast<size_t>(r) * gridDim.y + blockIdx.y;
+      int* cnt = a.arrivals + static_cast<size_t>(r) * njc + jc;
       const int last = atomicAdd(cnt, 1) == misc[2] - misc[1] - 1;
       if (last) *cnt = 0;                  // ready for the next call
       misc[0] = last;
@@ -423,7 +458,8 @@ int launch(const Args& a, cudaStream_t stream) {
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  dim3 grid(a.n_chunks, a.j / a.jb);
+  // the job chunks of a work item are neighbours (see the note above)
+  const unsigned grid = static_cast<unsigned>(a.n_chunks) * (a.j / a.jb);
   superstep_kernel<VB, MIN><<<grid, threads_for(a.jb, VB), smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -442,13 +478,16 @@ int occupancy(int jb) {
   return n;
 }
 
+// Every Vb the kernels are instantiated for (kernel.py SUPPORTED_VB).
+#define FS_FOR_EACH_VB(X) X(8) X(16) X(32) X(64) X(128) X(256) X(512)
+
 template <bool MIN>
 int dispatch(const Args& a, int vb, cudaStream_t s) {
   switch (vb) {
-    case 16: return launch<16, MIN>(a, s);
-    case 32: return launch<32, MIN>(a, s);
-    case 64: return launch<64, MIN>(a, s);
-    case 128: return launch<128, MIN>(a, s);
+#define FS_CASE(V) \
+  case V: return launch<V, MIN>(a, s);
+    FS_FOR_EACH_VB(FS_CASE)
+#undef FS_CASE
     default: return -1;
   }
 }
@@ -486,15 +525,11 @@ extern "C" int fs_smem_bytes(int jb, int vb) { return smem_bytes(jb, vb); }
 
 // Thread blocks of one kernel that fit one SM at (jb, vb); -1 on error.
 extern "C" int fs_blocks_per_sm(int jb, int vb, int min_plus) {
-  switch (vb * 2 + (min_plus ? 1 : 0)) {
-    case 32: return occupancy<16, false>(jb);
-    case 33: return occupancy<16, true>(jb);
-    case 64: return occupancy<32, false>(jb);
-    case 65: return occupancy<32, true>(jb);
-    case 128: return occupancy<64, false>(jb);
-    case 129: return occupancy<64, true>(jb);
-    case 256: return occupancy<128, false>(jb);
-    case 257: return occupancy<128, true>(jb);
+  switch (vb) {
+#define FS_CASE(V) \
+  case V: return min_plus ? occupancy<V, true>(jb) : occupancy<V, false>(jb);
+    FS_FOR_EACH_VB(FS_CASE)
+#undef FS_CASE
     default: return -1;
   }
 }

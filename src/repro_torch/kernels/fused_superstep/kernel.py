@@ -4,9 +4,10 @@ Replaces the TPU kernel `repro/kernels/fused_superstep/kernel.py`
 (`fused_superstep_call` -> `_make_plus_kernel` / `_make_min_kernel`).
 One thread block per (chunk of at most `PAIR_CHUNK` pairs of one
 destination run, job chunk) streams its chunk's live pairs through a
-TMA ring; each thread owns one (job, lane) output, and the last block of
-a run combines the run's partials in chunk order and reduces
-<Node_un, P_sum>.  The calls are bound by the bytes of the live pairs'
+TMA ring, a whole tile a stage up to Vb = 128 and 32 KB slices of source
+rows above (`rows`); each thread owns one (job, lane) output, and the
+last block of a run combines the run's partials in chunk order and
+reduces <Node_un, P_sum>.  The calls are bound by the bytes of the live pairs'
 tiles; see the note at the top of the .cu file.
 
 Dispatch (kernels.common): CPU tensors run `ref.fused_superstep_ref`; CUDA
@@ -25,8 +26,9 @@ from repro_torch.graph.structure import PAIR_CHUNK, chunk_table
 from repro_torch.kernels import common
 from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
 
-#: Vb values the kernels are instantiated for
-SUPPORTED_VB = (16, 32, 64, 128)
+#: Vb values the kernels are instantiated for: every power of two from 8
+#: to 512 (the reference's Pallas kernels take any Vb; ROADMAP C)
+SUPPORTED_VB = (8, 16, 32, 64, 128, 256, 512)
 
 #: live pairs compacted per pass in one thread block (mirrors WINDOW in
 #: the .cu file)
@@ -47,17 +49,24 @@ def reset_launches() -> None:
 
 def stages(vb: int) -> int:
     """Depth of the TMA ring (mirrors `stages` in the .cu file)."""
-    return 3 if vb >= 128 else 4 if vb >= 64 else 6
+    return 6 if vb >= 256 else 3 if vb >= 128 else 4 if vb >= 64 else 6
+
+
+def rows(vb: int) -> int:
+    """Source rows of a tile one ring stage holds: the whole tile up to
+    Vb = 128, a 32 KB slice above (mirrors `rows` in the .cu file)."""
+    return 8192 // vb if vb >= 256 else vb
 
 
 def smem_bytes(jb: int, vb: int) -> int:
-    """Dynamic shared memory of one thread block: the ring's stages of a
-    [Vb, Vb] tile and [jb, Vb] d rows, the live-pair list, per-warp
-    counts, the flush's per-warp sums, four ints and the ring's 2*NS
-    mbarriers (mirrors `smem_bytes` in the .cu file)."""
-    ns = stages(vb)
+    """Dynamic shared memory of one thread block: the ring's stages of an
+    [rows(Vb), Vb] tile slice and [jb, rows(Vb)] d-row slices, the
+    live-pair list, per-warp counts, the flush's per-warp sums, four ints
+    and the ring's 2*NS mbarriers (mirrors `smem_bytes` in the .cu
+    file)."""
+    ns, rs = stages(vb), rows(vb)
     nw = vb // 32 if vb >= 32 else 1
-    floats = ns * (vb * vb + jb * vb) + 2 * WINDOW + 32 + 2 * jb * nw + 4
+    floats = ns * (rs * vb + jb * rs) + 2 * WINDOW + 32 + 2 * jb * nw + 4
     return 4 * floats + 16 * ns
 
 

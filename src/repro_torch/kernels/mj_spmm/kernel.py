@@ -4,8 +4,9 @@ semirings.
 Replaces the TPU kernel `repro/kernels/mj_spmm/kernel.py`
 (`mj_spmm_call` -> `_plus_kernel` / `_min_kernel`).  One thread block per
 (selected row i, ELL slot k) stages the [Vb, Vb] tile in shared memory
-once and serves every job from it; each thread owns one (job, lane)
-output.  With `tile_index` the kernel reads `tiles[tile_index[i], k]`
+once and serves every job from it (from Vb = 256 each job chunk streams
+it in 64 KB slices of source rows, `rows`); each thread owns one (job,
+lane) output.  With `tile_index` the kernel reads `tiles[tile_index[i], k]`
 straight from the [B_N, K, Vb, Vb] block-ELL array, so no gathered
 [q, K, Vb, Vb] copy is written.  Bound by device-memory bytes; see the
 note at the top of the .cu file.
@@ -26,8 +27,9 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
 
-#: Vb values the kernel is instantiated for
-SUPPORTED_VB = (8, 16, 32, 64, 128)
+#: Vb values the kernel is instantiated for: every power of two from 8 to
+#: 512 (the reference's Pallas kernel takes any Vb; ROADMAP C)
+SUPPORTED_VB = (8, 16, 32, 64, 128, 256, 512)
 
 #: kernel launches per semiring since the last reset (plain runs excluded)
 launches = {"plus_times": 0, "min_plus": 0}
@@ -40,10 +42,17 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def rows(vb: int) -> int:
+    """Source rows of a tile staged at once: the whole tile up to Vb =
+    128, a 64 KB slice above (mirrors `rows` in the .cu file)."""
+    return 16384 // vb if vb >= 256 else vb
+
+
 def smem_bytes(jb: int, vb: int) -> int:
-    """Dynamic shared memory of one thread block: the [Vb, Vb] tile and a
-    job chunk's [jb, Vb] d rows (mirrors `smem_bytes` in the .cu file)."""
-    return 4 * (vb * vb + jb * vb)
+    """Dynamic shared memory of one thread block: an [rows(Vb), Vb] tile
+    slice (the whole tile up to Vb = 128) and a job chunk's [jb,
+    rows(Vb)] d-row slices (mirrors `smem_bytes` in the .cu file)."""
+    return 4 * (rows(vb) * vb + jb * rows(vb))
 
 
 @functools.cache

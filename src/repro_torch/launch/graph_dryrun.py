@@ -69,8 +69,13 @@ the GiB figures):
                         byte bound at that many live pairs
                         (`cost.fused_live_bytes`) and the wire bytes;
   kernel_route          whether B1/B2 take the cell on the card: Vb must
-                        be in `SUPPORTED_VB` and a job chunk must fit
-                        `SMEM_BUDGET`; else "plain only" and why;
+                        be in `SUPPORTED_VB` (every power of two from 8
+                        to 512, the fleet's 512 included) and a job
+                        chunk must fit `SMEM_BUDGET`; else "plain only"
+                        and why;
+  kernel_job_block      the job chunk B1/B2 launch with on that route
+                        (jobs a thread block holds: 2 at Vb = 512), or
+                        None;
   trace_s               host seconds of the step (the reference's
                         compile_s).
 
@@ -362,6 +367,7 @@ def run(n_vertices: int = 1 << 20, n_jobs: int = 64, vb: int = 512,
     arg_ana = reference_arg_bytes(n_vertices, n_jobs, vb, avg_nbr_blocks,
                                   multi_pod)
     temp = rec["peak_bytes"] - rec["tracked_bytes"]
+    route = kernel_route(vb, j_loc)
     return {
         "cell": f"graph-pagerank-V{n_vertices}-J{n_jobs}",
         "mesh": "2x16x16" if multi_pod else "16x16",
@@ -388,7 +394,9 @@ def run(n_vertices: int = 1 << 20, n_jobs: int = 64, vb: int = 512,
         "roofline": cost.roofline_terms(flops_dev, hbm,
                                         csum["nvlink_wire_bytes"],
                                         csum["network_wire_bytes"]),
-        "kernel_route": kernel_route(vb, j_loc),
+        "kernel_route": route,
+        "kernel_job_block": (_pick_job_block(j_loc, vb, "plus_times")
+                             if route == "B1/B2" else None),
     }
 
 
@@ -404,7 +412,9 @@ def graph_table(records) -> str:
             f"{r['arg_gib_analytic']:.4f} / {r['arg_gib_per_dev']:.4f} | "
             f"{r['temp_gib_per_dev']:.4f} | {r['wire_gib_per_dev']:.6f} | "
             f"{r['flops_per_dev']:.5g} / {r['flops_plain_per_dev']:.5g} | "
-            f"{r['roofline']['dominant']} | {r['kernel_route']} |")
+            f"{r['roofline']['dominant']} | {r['kernel_route']}"
+            + (f" (jb {r['kernel_job_block']})"
+               if r.get("kernel_job_block") else "") + " |")
     return "\n".join(out)
 
 

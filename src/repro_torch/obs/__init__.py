@@ -18,9 +18,12 @@
   loadgen    - deterministic open-loop arrivals, and ``OpenLoopHarness``,
                which serves them through a GraphSession and a
                ConcurrentServeScheduler.
+  regress    - ``python -m repro_torch.obs.regress`` gates fresh
+               benchmark records against a committed ``BENCH_*.json``
+               trajectory (exit 0 clean, 1 regression, 2 usage or load
+               error); imported by module, as the reference's is.
 
-The reference's public names, apart from its benchmark-record gate
-(`repro.obs.regress`).
+The reference's public names.
 """
 
 from repro_torch.obs.telemetry import (TelemetryConfig, TelemetrySeries,

@@ -75,7 +75,7 @@ def _compare(semiring, got, want, rows):
 
 
 @pytest.mark.parametrize("j", [1, 4, 13])
-@pytest.mark.parametrize("vb", [16, 32, 64, 128])
+@pytest.mark.parametrize("vb", [8, 16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
 def test_kernel_matches_plain(cuda, semiring, vb, j):
     g, bp = _pairs(semiring, vb, cuda)
@@ -94,13 +94,14 @@ def test_kernel_matches_plain(cuda, semiring, vb, j):
     _compare(semiring, got, want, bp.dst_touched.cpu().numpy())
 
 
+@pytest.mark.parametrize("vb", [32, 8, 256, 512])
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
-def test_kernel_width_contract_and_job_chunks(cuda, semiring):
+def test_kernel_width_contract_and_job_chunks(cuda, semiring, vb):
     """d at the global source width B_N, base/values/outputs at a local
     width B_loc < B_N: runs with a destination >= B_loc are dropped, the
-    rest match; explicit job chunks (jb < J) give the same result."""
-    vb = 32
-    g, bp = _pairs(semiring, vb, cuda, n=1500)
+    rest match; explicit job chunks (jb < J, as many as 1024 threads
+    hold) give the same result."""
+    g, bp = _pairs(semiring, vb, cuda, n=max(1500, 10 * vb))
     bn = g.num_blocks
     bn_loc = bn // 2
     rng = np.random.default_rng(5)
@@ -109,6 +110,10 @@ def test_kernel_width_contract_and_job_chunks(cuda, semiring):
                                bp.tiles, values=vals, semiring=semiring)
     rows = bp.dst_touched.cpu().numpy()[:bn_loc]
     for jb in (None, 1, 2, 3):
+        if jb is None and 6 * vb > 1024:     # the wrapper's default jb = J
+            jb = _pick_job_block(6, vb, semiring)
+        elif jb is not None and jb * vb > 1024:
+            continue
         got = fk.fused_superstep_call(
             bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
             values=vals, semiring=semiring, job_block=jb)
@@ -127,31 +132,37 @@ def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
     fk.fused_superstep_call(bp.src, bp.dst, bp.first, bp.last, d, base,
                             bp.tiles)
     torch.cuda.synchronize()
-    # the Python mirror of the launcher's shared-memory size agrees
-    for jb, vb in [(1, 16), (13, 16), (4, 64), (8, 128)]:
+    # the Python mirror of the launcher's shared-memory size agrees, and
+    # every width's largest job chunk fits an SM
+    for jb, vb in [(1, 16), (13, 16), (4, 64), (8, 128), (4, 8), (64, 8),
+                   (4, 256), (1, 256), (2, 512), (1, 512)]:
         assert fk._lib().fs_smem_bytes(jb, vb) == fk.smem_bytes(jb, vb)
+        for sr in ("plus_times", "min_plus"):
+            assert fk.blocks_per_sm(jb, vb, sr) >= 1, (jb, vb, sr)
     with pytest.raises(ValueError):      # Vb the kernels do not take
         fk.fused_superstep_call(bp.src, bp.dst, bp.first, bp.last,
-                                d[..., :8].contiguous(),
-                                base[..., :8].contiguous(),
-                                bp.tiles[:, :8, :8].contiguous())
+                                d[..., :12].contiguous(),
+                                base[..., :12].contiguous(),
+                                bp.tiles[:, :12, :12].contiguous())
     with pytest.raises(ValueError):      # more than 1024 threads
         big = torch.zeros((128, g.num_blocks, 16), device=cuda)
         fk.fused_superstep_call(bp.src, bp.dst, bp.first, bp.last, big,
                                 big, bp.tiles, job_block=128)
 
 
-def test_session_on_cuda_goes_through_kernels(cuda):
+@pytest.mark.parametrize("vb,n", [(16, 300), (512, 3000)])
+def test_session_on_cuda_goes_through_kernels(cuda, vb, n):
     """A default CUDA session pushes through both kernels and matches a
-    CPU session: min-plus bit-equal, plus-times within rtol 1e-4."""
+    CPU session: min-plus bit-equal, plus-times within rtol 1e-4; at Vb
+    = 16 and at the paper's Vb = 512 (B_N = 6)."""
     from repro_torch.algorithms import SSSP, PageRank
     from repro_torch.core import GraphSession, TwoLevel
 
-    csr = rmat_graph(300, 4, seed=13)
+    csr = rmat_graph(n, 4, seed=13)
     res = {}
     for dev in ("cpu", None):
         fk.reset_launches()
-        sess = GraphSession(csr, 16, capacity=2, seed=5, device=dev)
+        sess = GraphSession(csr, vb, capacity=2, seed=5, device=dev)
         assert sess.use_pallas == (dev is None)
         h_pr = sess.submit(PageRank())
         h_ss = sess.submit(SSSP(source=3))
@@ -257,6 +268,43 @@ def test_kernel_repeated_calls_are_bit_identical(cuda, semiring, chunk):
     _compare(semiring, first, want, rows.cpu().numpy())
 
 
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("vb", [8, 256, 512])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_wide_kernel_split_runs_match_plain(cuda, semiring, vb, chunk):
+    """At the widths whose tiles stream in slices (256, 512: two job
+    chunks of the grid's neighbours at J = 4) and at Vb = 8: every run cut
+    into chunks of `chunk` pairs, half the sources live, against the plain
+    version; a repeat call bit-identical and the arrival counters back at
+    0."""
+    from repro_torch.graph import chunk_table
+    g, bp = _pairs(semiring, vb, cuda, n=12 * max(vb, 64))
+    bn = g.num_blocks
+    cs, cr = (torch.as_tensor(a, device=cuda) for a in
+              chunk_table(bp.run_start.cpu().numpy(), chunk))
+    j = 4
+    jb = _pick_job_block(j, vb, semiring)
+    rng = np.random.default_rng(vb + chunk)
+    d, base, vals, live = _masked_state(rng, j, bn, bn, vb, semiring, cuda,
+                                        0.5)
+
+    def call():
+        return fk.fused_superstep_call(
+            bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+            values=vals, run_start=bp.run_start, chunk_start=cs,
+            chunk_run=cr, arrivals=bp.arrivals(j // jb), src_live=live,
+            semiring=semiring, job_block=jb)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    rows = bp.dst_touched
+    for a, b in zip(first, second):
+        assert torch.equal(a[:, rows], b[:, rows])
+    assert int(bp.arrivals(j // jb).abs().sum()) == 0
+    want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
+                               bp.tiles, values=vals, semiring=semiring)
+    _compare(semiring, first, want, rows.cpu().numpy())
+
+
 def test_closed_gate_keeps_the_device_chunk_carry(cuda, monkeypatch):
     """A device chunk whose last slots are gated (the budget ends inside
     it) and whose converged group still launches: the carry equals, bit
@@ -342,9 +390,10 @@ def _mj_compare(semiring, got, want):
 
 
 @pytest.mark.parametrize("j", [1, 4, 7])
-@pytest.mark.parametrize("vb", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("vb", [8, 16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
 def test_mj_spmm_kernel_matches_plain(cuda, semiring, vb, j):
+    from repro_torch.kernels.mj_spmm import _pick_job_block as mk_pick
     from repro_torch.kernels.mj_spmm import kernel as mk
     from repro_torch.kernels.mj_spmm import mj_spmm
     from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
@@ -362,8 +411,9 @@ def test_mj_spmm_kernel_matches_plain(cuda, semiring, vb, j):
                           device=cuda)
     got = mj_spmm(d, tiles, semiring, tile_index=idx)
     _mj_compare(semiring, got, mj_spmm_ref(d, tiles[idx.long()], semiring))
-    # explicit job chunks give the same result
-    for jb in {1, j}:
+    # explicit job chunks give the same result (jb = J where 1024 threads
+    # hold it, else the largest chunk that fits)
+    for jb in {1, j if j * vb <= 1024 else mk_pick(j, vb)}:
         got = mk.mj_spmm_call(d, t, semiring=semiring, job_block=jb)
         _mj_compare(semiring, got, mj_spmm_ref(d, t, semiring))
 

@@ -123,6 +123,30 @@ def test_plain_matches_reference(semiring, j, target):
            N(tbp.dst_touched))
 
 
+@pytest.mark.parametrize("j", [1, 4])
+@pytest.mark.parametrize("vb,n", [(8, 60), (256, 700), (512, 1400)])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_plain_matches_reference_at_paper_widths(semiring, vb, n, j):
+    """The block widths outside the first slices' (Vb 8, 256 and the
+    paper's 512), a few pairs each, against the interpreted Pallas kernel
+    at the kernel oracle's bars."""
+    rg_g, rbp, _, tbp = _graphs(semiring, n=n, vb=vb)
+    bn = rg_g.num_blocks
+    assert rg_g.block_size == vb and 0 < len(np.asarray(rbp.src)) <= 64
+    d, base, vals = _rand_state(np.random.default_rng(vb + j), j, bn, bn, vb,
+                                semiring)
+    jv = None if vals is None else jnp.asarray(vals)
+    want = r_call(rbp.src, rbp.dst, rbp.first, rbp.last, jnp.asarray(d),
+                  jnp.asarray(base), rbp.tiles, values=jv,
+                  semiring=semiring, interpret=True)
+    got = fused_superstep_ref(tbp.src, tbp.dst, tbp.first, tbp.last, T(d),
+                              T(base), tbp.tiles,
+                              values=None if vals is None else T(vals),
+                              semiring=semiring)
+    _check(semiring, got, [np.asarray(x) for x in want],
+           N(tbp.dst_touched))
+
+
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
 def test_plain_width_contract_matches_reference(semiring):
     """d at the global source width B_N, base/values/outputs at a local
@@ -330,7 +354,9 @@ def test_prime_job_count_degrades_chunk(monkeypatch, semiring):
 
 @pytest.mark.parametrize("j,vb,jb", [(4, 64, 4), (6, 16, 6), (13, 128, 1),
                                      (16, 128, 8), (64, 16, 64),
-                                     (100, 16, 50)])
+                                     (100, 16, 50), (4, 8, 4), (64, 8, 64),
+                                     (4, 256, 4), (8, 256, 4), (4, 512, 2),
+                                     (2, 512, 2), (7, 512, 1)])
 def test_pick_job_block_fits_threads_and_smem(j, vb, jb):
     got = _pick_job_block(j, vb, "plus_times")
     assert got == jb == _pick_job_block(j, vb, "min_plus")
@@ -338,9 +364,15 @@ def test_pick_job_block_fits_threads_and_smem(j, vb, jb):
 
 
 def test_kernel_shape_checks_raise():
-    for j, vb, jb in [(4, 48, 4), (4, 8, 4), (4, 64, 3), (32, 64, 32)]:
+    """A Vb that is not a power of two from 8 to 512 (ROADMAP C), a chunk
+    that does not divide J, more than 1024 threads."""
+    for j, vb, jb in [(4, 48, 4), (4, 24, 4), (4, 1024, 1), (4, 64, 3),
+                      (32, 64, 32), (4, 512, 4)]:
         with pytest.raises(ValueError):
             fk.check_shape(j, vb, jb)
+    with pytest.raises(ValueError, match=r"takes Vb in \(8, 16, 32, 64, "
+                       r"128, 256, 512\), not 48"):
+        fk.check_shape(4, 48, 4)
 
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])

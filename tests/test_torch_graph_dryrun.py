@@ -131,7 +131,8 @@ def test_published_record_matches_reference(ref, port, mesh, job_shards):
     assert r["flops_one_device"] == want["flops_per_dev"] * job_shards
     assert r["flops_per_dev"] * 16 == want["flops_per_dev"]
     assert r["wire_gib_per_dev"] < want["wire_gib_per_dev"] / 1000
-    assert r["kernel_route"].startswith("plain only")
+    # B1/B2 take Vb = 512: two jobs a thread block (1024 threads)
+    assert (r["kernel_route"], r["kernel_job_block"]) == ("B1/B2", 2)
 
 
 @pytest.mark.parametrize("mesh,local_jobs", [("16x16", 4),
@@ -193,7 +194,9 @@ def test_meta_view_shard_has_the_cpu_shapes():
 
 def test_kernel_route():
     assert G.kernel_route(64, 4) == "B1/B2"
-    assert G.kernel_route(512, 4).startswith("plain only")
+    assert G.kernel_route(512, 4) == "B1/B2"
+    assert G.kernel_route(512, 2) == "B1/B2"
+    assert G.kernel_route(48, 4).startswith("plain only")
 
 
 def test_cli_writes_both_records(tmp_path, capsys):

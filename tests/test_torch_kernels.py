@@ -270,7 +270,8 @@ def test_fold_min_single_pass_bit_equal_to_reference_scan(seed):
 
 @pytest.mark.parametrize("j,vb,want", [
     (4, 64, 4), (7, 64, 7), (7, 128, 7), (13, 128, 1), (17, 64, 1),
-    (16, 64, 16), (32, 64, 16), (24, 128, 8), (1, 8, 1)])
+    (16, 64, 16), (32, 64, 16), (24, 128, 8), (1, 8, 1), (4, 256, 4),
+    (8, 256, 4), (4, 512, 2), (7, 512, 1)])
 def test_pick_job_block(j, vb, want):
     """One thread per (job, lane) under 1024 threads, falling back
     through divisors of J: a prime J above the limit degrades to 1."""
@@ -280,8 +281,35 @@ def test_pick_job_block(j, vb, want):
     mk.check_shape(j, vb, jb)
 
 
+@pytest.mark.parametrize("q,k,j,vb", [(2, 2, 4, 256), (1, 2, 3, 512),
+                                       (3, 1, 2, 8)])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_mj_spmm_matches_reference_at_paper_widths(semiring, q, k, j, vb):
+    """Vb 256 and 512 (tiles the CUDA kernel streams in slices) and 8,
+    against the reference's interpreted Pallas kernel and its oracle.
+    Plus-times takes non-negative operands here, as the main path's
+    PageRank deltas and normalized tiles are: signed sums of 512 products
+    cancel to near zero, and the fixed atol would then measure the two
+    libraries' float32 summation orders, not the port."""
+    d, t = _mj_inputs(q, k, j, vb, semiring, False)
+    d, t = np.abs(d), np.abs(t)
+    ref_k = np.asarray(r_mj_spmm(jnp.asarray(d), jnp.asarray(t), semiring,
+                                 interpret=True))
+    ref_o = np.asarray(r_mj_ref(jnp.asarray(d), jnp.asarray(t), semiring))
+    got = mj_spmm(torch.as_tensor(d), torch.as_tensor(t), semiring).numpy()
+    assert got.shape == (q, k, j, vb)
+    for ref in (ref_k, ref_o):
+        if semiring == "min_plus":
+            np.testing.assert_array_equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_kernel_shape_checks():
-    with pytest.raises(ValueError):
+    for vb in mk.SUPPORTED_VB:              # every power of two 8..512
+        mk.check_shape(1, vb, 1)
+    assert mk.SUPPORTED_VB == (8, 16, 32, 64, 128, 256, 512)
+    with pytest.raises(ValueError, match="not 48"):
         mk.check_shape(4, 48, 4)            # Vb the kernel does not take
     with pytest.raises(ValueError):
         mk.check_shape(4, 64, 3)            # chunk must divide J

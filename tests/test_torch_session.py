@@ -108,6 +108,30 @@ def test_heterogeneous_end_to_end(use_pallas):
     _check_results(specs, out)
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_paper_block_width_end_to_end(use_pallas):
+    """The paper's block width, Vb = 512, on a graph of B_N = 6 blocks:
+    PageRank, PPR and two SSSP jobs over two views on the port's kernel
+    route (on the CPU its plain version, B1/B2's function) and its ELL
+    route, against the reference's session: SSSP bit-equal, PageRank/PPR
+    at rtol 1e-4, atol 1e-6."""
+    specs = [("PageRank", {}), ("PersonalizedPageRank", dict(source=3)),
+             ("SSSP", dict(source=0)), ("SSSP", dict(source=2900))]
+    out = {}
+    for pkg in PKGS:
+        c, _, g, dev = PKGS[pkg]
+        csr = g.rmat_graph(3000, 4, seed=13)
+        sess = c.GraphSession(csr, 512, capacity=4, seed=5,
+                              use_pallas=use_pallas and pkg == "port", **dev)
+        hs = [sess.submit(a) for a in _algs(pkg, specs)]
+        assert sess.scheduler.num_blocks == 6
+        m = sess.run(c.TwoLevel(), 20000)
+        assert m.converged
+        out[pkg] = (m, [sess.result(h) for h in hs], sess)
+    assert len(out["port"][2].view_groups()) == 2
+    _check_results(specs, out)
+
+
 def test_min_plus_counters_equal_reference():
     """On a min-plus-only session the schedule counters also agree with the
     reference.  block_pairs' p_mean is not bit-equal in general (see
