@@ -54,7 +54,9 @@ Phases (any failure exits non-zero before the last line is printed):
 5. B3 and B4 at their entry points on the full-size views: mj_spmm
    (both semirings, J=4 and a prime J=7, q=400 distinct rows of the
    view's ELL tiles) against its plain version, timed beside
-   torch.matmul for plus-times; push_shared on both views (the jobs'
+   torch.matmul for plus-times, with its design's figures in the log
+   (each tile read ceil(J/JR) times, JR = 8, not measured; stage,
+   blocks an SM); push_shared on both views (the jobs'
    fresh state, the host TwoLevel's first global queue with padded
    slots) against the port's ELL push; priority_pairs on each view's
    vertex priorities at submit and after 20 host supersteps ([4, 1024,
@@ -318,8 +320,10 @@ Phases (any failure exits non-zero before the last line is printed):
    B3 against their plain versions on the real block pairs (B1/B2) and
    ELL rows (B3, at most 400 read through `tile_index`) of each view at
    Vb 8, 256 and 512, every source live, numpy-seeded state: J=4 (timed
-   beside the all-pairs bound, with the tile reads a job chunk costs), a
-   prime J, and at Vb=512 the width contract; phase 2's bars.  17b:
+   beside the all-pairs bound, with each tile's reads by design in the
+   log: B1/B2 once a job chunk, B3 ceil(J/JR) times), a prime J (B3's
+   timed beside its bound too), and at Vb=512 the width contract; phase
+   2's bars.  17b:
    GraphSession(rmat_graph(2**15, 8), 512, capacity=4) on CUDA with phase
    3's four jobs under TwoLevel() and then Fused() to convergence, B1/B2
    counts set to 0 just before each and read just after, phase 3's bars;
@@ -1207,6 +1211,25 @@ def b3_bound(q, k, j, vb):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def b3_design(mk, j, vb, semiring) -> str:
+    """What the mj_spmm kernel's design does at (J, Vb): its passes (each
+    tile read once a pass, the design's count, not a measured one), its
+    stage and its blocks an SM (the occupancy calculator's)."""
+    jb = mk.pass_jobs(j)
+    if mk.kernel_geometry(jb, vb) != mk.geometry(jb, vb):
+        raise AssertionError(f"mj_spmm's geometry at jb={jb} Vb={vb}: the "
+                             f".cu file gives {mk.kernel_geometry(jb, vb)}, "
+                             f"kernel.py {mk.geometry(jb, vb)}")
+    stage = (f"{mk.tiles_per_stage(vb)} tile(s)" if mk.rows(vb) == vb else
+             f"{mk.rows(vb)} of {vb} source rows")
+    return (f"design: each tile read {mk.tile_reads(j, jb)} time(s) "
+            f"(ceil(J/JR), JR {mk.JR}, passes of {jb} jobs; not measured); "
+            f"stages of {stage} ({4 * mk.STAGE_FLOATS} B, a ring of "
+            f"{mk.STAGES}); {mk.blocks_per_sm(jb, vb, semiring)} block(s) an "
+            f"SM of {mk.consumers(vb)} + 32 threads, {mk.smem_bytes(jb, vb)} "
+            f"B")
+
+
 def b3_state(torch, rng, q, j, vb, semiring, device):
     d = rng.random((q, j, vb)).astype(np.float32)
     if semiring == "min_plus":
@@ -1219,6 +1242,7 @@ def check_mj_spmm(torch, timer, groups, device):
     """Phase 5a: mj_spmm kernel against its plain version on q=400
     distinct rows of each view's real ELL tiles; timed beside the plain
     version and (plus-times) one torch.matmul."""
+    from repro_torch.kernels.mj_spmm import kernel as mk
     from repro_torch.kernels.mj_spmm import mj_spmm
     from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
 
@@ -1266,7 +1290,8 @@ def check_mj_spmm(torch, timer, groups, device):
             log(f"  mj_spmm {semiring}: kernel {fmt(kt)}; with tile_index "
                 f"{fmt(ki)}; plain {fmt(p)}; library "
                 f"{'none' if lib is None else fmt(lib)}; bound "
-                f"{b_ms:.4f} ms ({b_by}); {kt['ms'] / b_ms:.2f}x the bound")
+                f"{b_ms:.4f} ms ({b_by}); {kt['ms'] / b_ms:.2f}x the bound; "
+                f"{b3_design(mk, j, vb, semiring)}")
             figures[semiring] = dict(
                 ms=kt["ms"], host_ms_per_call=kt["host_ms"],
                 queued=kt["queued"], indexed_ms=ki["ms"], plain_ms=p["ms"],
@@ -5617,14 +5642,14 @@ def wide_fused(torch, timer, sess, groups, vb, device) -> dict:
             reads = j // jb
             log(f"  17a {semiring} Vb={vb}: kernel {fmt(k)}; plain "
                 f"{fmt(p)}; bound {b_ms:.4f} ms ({b_by}); "
-                f"{100 * b_ms / k['ms']:.1f}% of the bound; each tile "
-                f"staged by {reads} thread block(s) (jb {jb}, "
+                f"{100 * b_ms / k['ms']:.1f}% of the bound; design: each "
+                f"tile staged by {reads} thread block(s) (jb {jb}, "
                 f"{fk.blocks_per_sm(jb, vb, semiring)} block(s) per SM, "
                 f"{fk.smem_bytes(jb, vb)} B shared memory)")
             f.update(ms=k["ms"], host_ms_per_call=k["host_ms"],
                      queued=k["queued"], plain_ms=p["ms"], library_ms=None,
                      bound_ms=b_ms, bound_by=b_by, pairs=bp.num_pairs,
-                     jb=jb, tile_reads=reads)
+                     jb=jb)
         f["max_abs_err"] = max(f.pop("errs"))
         figures[semiring] = f
         del d, base, vals
@@ -5634,10 +5659,10 @@ def wide_fused(torch, timer, sess, groups, vb, device) -> dict:
 def wide_mj_spmm(torch, timer, groups, vb, device) -> dict:
     """17a, B3: against the plain version on min(400, B_N) distinct rows
     of each view's real ELL tiles read at `tile_index` (push_shared's
-    route), J = 4 (timed beside the bound) and a prime J."""
+    route), J = 4 (timed beside the plain version, torch.matmul and the
+    bound) and a prime J (timed beside its bound)."""
     from repro_torch.kernels.mj_spmm import kernel as mk
     from repro_torch.kernels.mj_spmm import mj_spmm
-    from repro_torch.kernels.mj_spmm.ops import _pick_job_block
     from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
 
     figures = {}
@@ -5666,14 +5691,22 @@ def wide_mj_spmm(torch, timer, groups, vb, device) -> dict:
                                            want.cpu().numpy(), rtol=1e-5,
                                            atol=1e-5)
             f["errs"].append(max_err(got, want))
-            jb = _pick_job_block(j, vb)
+            jb = mk.pass_jobs(j)
             log(f"  17a mj_spmm {semiring} Vb={vb}: q={q} K={k} J={j} "
                 f"jb={jb} matches plain (max |err| {f['errs'][-1]:.3g})")
             del got, want
-            if j != CAPACITY:
-                continue
             kt = timer(lambda: mj_spmm(d, tiles, semiring, tile_index=idx),
                        R_B3)
+            b_ms, b_by = b3_bound(q, k, j, vb)
+            if j != CAPACITY:               # the prime J beside J = 4
+                log(f"  17a mj_spmm {semiring} Vb={vb}: J={j} kernel "
+                    f"{fmt(kt)}; bound {b_ms:.4f} ms ({b_by}); "
+                    f"{100 * b_ms / kt['ms']:.1f}% of the bound; "
+                    f"{b3_design(mk, j, vb, semiring)}")
+                f["prime_j"] = dict(
+                    j=j, ms=kt["ms"], host_ms_per_call=kt["host_ms"],
+                    queued=kt["queued"], bound_ms=b_ms, bound_by=b_by)
+                continue
             p = timer(lambda: mj_spmm_ref(d, tiles, semiring,
                                           tile_index=idx), R_PLAIN)
             lib = None
@@ -5682,17 +5715,15 @@ def wide_mj_spmm(torch, timer, groups, vb, device) -> dict:
                 lib = timer(lambda: torch.matmul(d[:, None], tiles_sel),
                             R_B3)
                 del tiles_sel
-            b_ms, b_by = b3_bound(q, k, j, vb)
             log(f"  17a mj_spmm {semiring} Vb={vb}: kernel {fmt(kt)}; plain"
                 f" {fmt(p)}; library "
                 f"{'none' if lib is None else fmt(lib)}; bound "
                 f"{b_ms:.4f} ms ({b_by}); {100 * b_ms / kt['ms']:.1f}% of "
-                f"the bound; each tile streamed {j // jb} time(s) (jb {jb})")
+                f"the bound; {b3_design(mk, j, vb, semiring)}")
             f.update(ms=kt["ms"], host_ms_per_call=kt["host_ms"],
                      queued=kt["queued"], plain_ms=p["ms"],
                      library_ms=None if lib is None else lib["ms"],
-                     bound_ms=b_ms, bound_by=b_by, q=q, k=k, jb=jb,
-                     tile_reads=j // jb)
+                     bound_ms=b_ms, bound_by=b_by, q=q, k=k, jb=jb)
         f["max_abs_err"] = max(f.pop("errs"))
         figures[semiring] = f
         del d

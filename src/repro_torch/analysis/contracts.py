@@ -17,10 +17,12 @@ calls) on a live session and watches what it does:
                 float64 sums (ROADMAP C) are outside it.
   smem-budget   the counterpart of the reference's vmem-budget: the
                 shared memory of one thread block of B1/B2
-                (`fused_superstep`) and B3 (`mj_spmm`), at the job chunk
-                they launch with (`_pick_job_block`) for every view's job
-                count, fits `kernels.common.SMEM_BUDGET` (and the thread
-                limit) for every Vb in their `SUPPORTED_VB`.
+                (`fused_superstep`, at the job chunk it launches with,
+                `_pick_job_block`, under the thread limit too) and B3
+                (`mj_spmm`, at its own pass of min(J, JR) jobs,
+                `pass_jobs`, through its `check_shape`) for
+                every view's job count fits `kernels.common.SMEM_BUDGET`
+                for every Vb in their `SUPPORTED_VB`.
   tile-bytes    a run's `RunMetrics.tile_pair_loads` x Vb^2 x 4 bytes
                 never exceeds what its chunks could move: every pair tile
                 of every view once a superstep.
@@ -191,19 +193,23 @@ def check_smem_budget(sess) -> List[ContractResult]:
     from repro_torch.kernels.fused_superstep.ops import \
         _pick_job_block as fs_pick
     from repro_torch.kernels.mj_spmm import kernel as mk
-    from repro_torch.kernels.mj_spmm.ops import _pick_job_block as mj_pick
-    kernels = (("fused_superstep", fk, lambda j, vb: fs_pick(
-        j, vb, "plus_times")), ("mj_spmm", mk, mj_pick))
+
+    kernels = (
+        ("fused_superstep", fk, lambda j, vb: fs_pick(j, vb, "plus_times"),
+         lambda j, vb, jb: common.check_job_chunk(
+             "fused_superstep", j, vb, jb, fk.SUPPORTED_VB, fk.smem_bytes)),
+        # B3 checks its own pass (None), which need not divide J
+        ("mj_spmm", mk, lambda j, vb: mk.pass_jobs(j),
+         lambda j, vb, jb: mk.check_shape(j, vb)))
     out = []
     for g in sess.view_groups():
         j = g.capacity
         sizes, fails = [], []
-        for name, mod, pick in kernels:
+        for name, mod, pick, check in kernels:
             for vb in mod.SUPPORTED_VB:
                 jb = pick(j, vb)
                 try:
-                    common.check_job_chunk(name, j, vb, jb,
-                                           mod.SUPPORTED_VB, mod.smem_bytes)
+                    check(j, vb, jb)
                 except ValueError as e:
                     fails.append(str(e))
                 sizes.append(f"{name}[Vb={vb}, jb={jb}] "

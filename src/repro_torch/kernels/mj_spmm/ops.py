@@ -14,19 +14,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import common
 from repro_torch.kernels.fused_superstep.ops import block_mask
 from repro_torch.kernels.fused_superstep.ref import (_sink_index,
                                                      scatter_add_drop)
-from repro_torch.kernels.mj_spmm.kernel import mj_spmm_call, smem_bytes
+from repro_torch.kernels.mj_spmm.kernel import mj_spmm_call
 
 INF = float("inf")
-
-
-def _pick_job_block(j: int, vb: int) -> int:
-    """Largest job chunk one thread block can hold (`kernel.smem_bytes`:
-    its tile and the chunk's d rows)."""
-    return common.pick_job_block(j, vb, smem_bytes)
 
 
 def mj_spmm(d_sel: torch.Tensor, tiles_sel: torch.Tensor,
@@ -35,14 +28,13 @@ def mj_spmm(d_sel: torch.Tensor, tiles_sel: torch.Tensor,
     """d_sel [q, J, Vb], tiles_sel [q, K, Vb, Vb] -> contribs [q, K, J, Vb].
 
     With `tile_index` [q], `tiles_sel` is the whole [B_N, K, Vb, Vb] ELL
-    array and row i reads tiles_sel[tile_index[i]]."""
-    _, j, vb = d_sel.shape
+    array and row i reads tiles_sel[tile_index[i]].  The kernel takes its
+    own passes of min(J, JR) jobs (`kernel.pass_jobs`)."""
     if tile_index is not None:
         tile_index = tile_index.to(torch.int32).contiguous()
     return mj_spmm_call(d_sel.to(torch.float32).contiguous(),
                         tiles_sel.to(torch.float32).contiguous(),
-                        tile_index=tile_index, semiring=semiring,
-                        job_block=_pick_job_block(j, vb))
+                        tile_index=tile_index, semiring=semiring)
 
 
 def fold_min(values: torch.Tensor, deltas: torch.Tensor,

@@ -389,11 +389,11 @@ def _mj_compare(semiring, got, want):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("j", [1, 4, 7])
+@pytest.mark.parametrize("j", [1, 4, 7, 11])
 @pytest.mark.parametrize("vb", [8, 16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
 def test_mj_spmm_kernel_matches_plain(cuda, semiring, vb, j):
-    from repro_torch.kernels.mj_spmm import _pick_job_block as mk_pick
+    """J = 11 is above the JR = 8 jobs a pass carries: two passes."""
     from repro_torch.kernels.mj_spmm import kernel as mk
     from repro_torch.kernels.mj_spmm import mj_spmm
     from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
@@ -411,11 +411,53 @@ def test_mj_spmm_kernel_matches_plain(cuda, semiring, vb, j):
                           device=cuda)
     got = mj_spmm(d, tiles, semiring, tile_index=idx)
     _mj_compare(semiring, got, mj_spmm_ref(d, tiles[idx.long()], semiring))
-    # explicit job chunks give the same result (jb = J where 1024 threads
-    # hold it, else the largest chunk that fits)
-    for jb in {1, j if j * vb <= 1024 else mk_pick(j, vb)}:
+    # explicit job blocks that divide J give the same result (one above
+    # JR runs as passes of JR)
+    for jb in {1, j}:
         got = mk.mj_spmm_call(d, t, semiring=semiring, job_block=jb)
         _mj_compare(semiring, got, mj_spmm_ref(d, t, semiring))
+
+
+@pytest.mark.parametrize("vb,q,k,j", [
+    (8, 3, 300, 13),      # K not a multiple of a stage (128) or a run
+    (8, 1, 129, 4),       # q = 1, one tile past a stage
+    (16, 2, 70, 9),
+    (32, 1, 17, 16),      # two full passes
+    (64, 1, 7, 4),        # q = 1, an odd K against 2 tiles a stage
+    (128, 2, 3, 12),      # 8 + 4 jobs
+    (256, 1, 2, 7),
+    (512, 2, 3, 11),      # J above JR at the fleet's width
+])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_mj_spmm_kernel_edge_shapes(cuda, semiring, vb, q, k, j):
+    """Ragged K, q = 1, J above JR, and a tile_index with entries out of
+    range (clamped, as the reference's gather clamps): a tile_index read
+    is bit-equal to the gathered read, and both match the plain version;
+    an explicit pass that divides J gives the same result."""
+    from repro_torch.kernels.mj_spmm import kernel as mk
+    from repro_torch.kernels.mj_spmm import mj_spmm
+    from repro_torch.kernels.mj_spmm.ref import mj_spmm_ref
+    rng = np.random.default_rng(vb + q + k + j)
+    bn = q + 3
+    d, tiles = _mj_state(rng, q, k, j, vb, semiring, cuda, num_tiles=bn)
+    raw = rng.integers(0, bn, q).astype(np.int32)
+    raw[0] = -3                                  # clamped to 0
+    if q > 1:
+        raw[-1] = bn + 5                         # clamped to bn - 1
+    idx = torch.as_tensor(raw, device=cuda)
+    gathered = tiles[torch.as_tensor(np.clip(raw, 0, bn - 1),
+                                     device=cuda).long()].contiguous()
+    before = mk.launches[semiring]
+    got_i = mj_spmm(d, tiles, semiring, tile_index=idx)
+    got = mj_spmm(d, gathered, semiring)
+    torch.cuda.synchronize()
+    assert mk.launches[semiring] == before + 2
+    assert torch.equal(got_i, got)
+    want = mj_spmm_ref(d, tiles, semiring, tile_index=idx)
+    _mj_compare(semiring, got, want)
+    jb = max(x for x in range(1, j) if j % x == 0)   # a proper divisor
+    _mj_compare(semiring, mk.mj_spmm_call(d, gathered, semiring=semiring,
+                                          job_block=jb), want)
 
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
@@ -559,6 +601,7 @@ def test_priority_pairs_repeat_call_and_output_rows(cuda, vb):
 
 
 def test_b3_b4_cuda_tensors_never_reach_plain_versions(cuda, monkeypatch):
+    from repro_torch.kernels import common
     from repro_torch.kernels.mj_spmm import kernel as mk
     from repro_torch.kernels.priority_pairs import kernel as pk
 
@@ -575,14 +618,25 @@ def test_b3_b4_cuda_tensors_never_reach_plain_versions(cuda, monkeypatch):
               misaligned):                               # scalar
         pk.priority_pairs_call(p)
     torch.cuda.synchronize()
-    for jb, vb in [(1, 8), (4, 64), (7, 128)]:
-        assert mk._lib().ms_smem_bytes(jb, vb) == mk.smem_bytes(jb, vb)
+    for vb in mk.SUPPORTED_VB:           # the .cu file's geometry
+        for jb in (1, 4, 5, 8):
+            assert mk.kernel_geometry(jb, vb) == mk.geometry(jb, vb)
+            two = 2 * (mk.smem_bytes(jb, vb) + 1024) <= 228 * 1024
+            assert mk.blocks_per_sm(jb, vb, "min_plus") >= (2 if two else 1)
+    with pytest.raises(ValueError, match="more than JR"):
+        mk.kernel_geometry(mk.JR + 1, 64)
     with pytest.raises(ValueError):      # Vb the kernel does not take
         mk.mj_spmm_call(d[..., :12].contiguous(),
                         t[..., :12, :12].contiguous())
-    with pytest.raises(ValueError):      # more than 1024 threads
-        big = torch.zeros((3, 32, 64), device=cuda)
-        mk.mj_spmm_call(big, torch.zeros((3, 2, 64, 64), device=cuda))
+    big = torch.zeros((3, 32, 64), device=cuda)
+    with pytest.raises(ValueError):      # a job block that does not divide J
+        mk.mj_spmm_call(big, torch.zeros((3, 2, 64, 64), device=cuda),
+                        job_block=12)
+    with pytest.raises(RuntimeError, match="more than JR"):
+        common.launch(mk._lib().ms_mj_spmm, big.device,   # the C guard
+                      mk._lib().ms_error_string, big.data_ptr(),
+                      big.data_ptr(), None, big.data_ptr(), 1, 1, 32, 16,
+                      1, 64, 0)
 
 
 # --- the device scheduling backend on the card ------------------------------

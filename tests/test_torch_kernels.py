@@ -26,8 +26,8 @@ from repro.kernels.priority_pairs.ops import (  # noqa: E402
 from repro.kernels.priority_pairs.ref import (  # noqa: E402
     priority_pairs_ref as r_pairs_ref)
 from repro_torch.core.push import shared_push_fn  # noqa: E402
-from repro_torch.kernels.mj_spmm import (_pick_job_block, fold_min,  # noqa: E402
-                                         mj_spmm, push_shared)
+from repro_torch.kernels.mj_spmm import (fold_min, mj_spmm,  # noqa: E402
+                                         push_shared)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.mj_spmm import kernel as mk  # noqa: E402
 from repro_torch.kernels.priority_pairs import priority_pairs  # noqa: E402
@@ -269,16 +269,64 @@ def test_fold_min_single_pass_bit_equal_to_reference_scan(seed):
 
 
 @pytest.mark.parametrize("j,vb,want", [
-    (4, 64, 4), (7, 64, 7), (7, 128, 7), (13, 128, 1), (17, 64, 1),
-    (16, 64, 16), (32, 64, 16), (24, 128, 8), (1, 8, 1), (4, 256, 4),
-    (8, 256, 4), (4, 512, 2), (7, 512, 1)])
+    (4, 64, 4), (7, 64, 7), (7, 128, 7), (13, 128, 8), (17, 64, 8),
+    (16, 64, 8), (32, 64, 8), (24, 128, 8), (1, 8, 1), (4, 256, 4),
+    (8, 256, 8), (4, 512, 4), (7, 512, 7)])
 def test_pick_job_block(j, vb, want):
-    """One thread per (job, lane) under 1024 threads, falling back
-    through divisors of J: a prime J above the limit degrades to 1."""
-    jb = _pick_job_block(j, vb)
-    assert jb == want and j % jb == 0
-    assert common.threads(jb, vb) <= 1024
-    mk.check_shape(j, vb, jb)
+    """The wrapper's own pass carries min(J, JR) jobs in registers,
+    whatever J's divisors and Vb: a prime J no longer degrades to
+    chunks of 1, and each tile is read ceil(J / JR) times."""
+    jb = mk.pass_jobs(j)
+    assert jb == want
+    assert mk.tile_reads(j, jb) == -(-j // mk.JR)
+    assert mk.smem_bytes(jb, vb) <= common.SMEM_BUDGET
+    mk.check_shape(j, vb)
+
+
+@pytest.mark.parametrize("j", [1, 4, 7, 16, 64])
+@pytest.mark.parametrize("vb", [8, 16, 32, 64, 128, 256, 512])
+def test_work_split_covers_each_tile_and_job_once(vb, j):
+    """The plain-Python mirror of the kernel's work split: every (i, k)
+    tile and every job is covered by exactly one work item a pass, each
+    tile is read ceil(J / JR) times, each stage's (tile, lane) units fall
+    to exactly one consumer thread and walk the tile's source rows in
+    order, and a block's shared memory fits the budget.  K is not a
+    multiple of a run's tiles (nor of a stage's)."""
+    import collections
+    assert mk.JR >= 8
+    q, k = 3, 2 * mk.run_tiles(vb) + 3
+    jb = mk.pass_jobs(j)
+    cover = collections.Counter()
+    reads = collections.Counter()
+    for it in mk.work_items(q, k, j, vb):
+        assert 1 <= it.nk <= mk.run_tiles(vb) and 1 <= it.jn <= mk.JR
+        for kk in range(it.k0, it.k0 + it.nk):
+            reads[it.i, kk] += 1
+            for jj in range(it.j0, it.j0 + it.jn):
+                cover[it.i, kk, jj] += 1
+    assert set(cover) == {(i, kk, jj) for i in range(q) for kk in range(k)
+                          for jj in range(j)}
+    assert set(cover.values()) == {1}
+    assert set(reads.values()) == {-(-j // mk.JR)} == {mk.tile_reads(j, jb)}
+    # the units of one run, full and partial
+    assert mk.consumers(vb) * mk.units_per_thread(vb) == \
+        mk.tiles_per_stage(vb) * vb
+    assert mk.consumers(vb) % 32 == 0
+    assert mk.tiles_per_stage(vb) * mk.rows(vb) * vb <= mk.STAGE_FLOATS
+    for nk in {mk.run_tiles(vb), k % mk.run_tiles(vb)} - {0}:
+        spans = collections.defaultdict(list)
+        owners = collections.defaultdict(set)
+        for s, tid, _, slot, span, w in mk.stage_units(vb, nk):
+            assert 0 <= tid < mk.consumers(vb)
+            spans[slot, w].append(span)
+            owners[s, slot, w].add(tid)
+        assert set(spans) == {(kk, w) for kk in range(nk)
+                              for w in range(vb)}
+        for sp in spans.values():        # rows 0..Vb in order, once each
+            assert [v for a, b in sp for v in range(a, b)] == list(range(vb))
+        assert {len(t) for t in owners.values()} == {1}
+    assert mk.smem_bytes(jb, vb) <= common.SMEM_BUDGET
+    mk.check_shape(j, vb)
 
 
 @pytest.mark.parametrize("q,k,j,vb", [(2, 2, 4, 256), (1, 2, 3, 512),
@@ -313,8 +361,13 @@ def test_kernel_shape_checks():
         mk.check_shape(4, 48, 4)            # Vb the kernel does not take
     with pytest.raises(ValueError):
         mk.check_shape(4, 64, 3)            # chunk must divide J
-    with pytest.raises(ValueError):
-        mk.check_shape(32, 64, 32)          # 2048 threads
+    with pytest.raises(ValueError, match="must divide"):
+        mk.check_shape(32, 64, 12)          # nor above JR
+    mk.check_shape(32, 64, 32)              # run as 4 passes of JR jobs
+    assert mk.pass_jobs(32, 32) == mk.pass_jobs(32, 16) == mk.JR
+    assert mk.pass_jobs(32, 4) == 4
+    mk.check_shape(32, 64)                  # its own passes: 4 of 8 jobs
+    mk.check_shape(13, 512)                 # a prime J: passes of 8 and 5
 
 
 def test_kernel_route_never_falls_back_to_plain(monkeypatch, tmp_path):
