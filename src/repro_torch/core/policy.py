@@ -52,15 +52,29 @@ ends with `dist.mesh2d.finish_device_2d`.
 and their host time (0 on one device).
 
 Telemetry (`repro_torch.obs.telemetry`): a session built with
-`telemetry=...` gets a per-superstep `TelemetrySeries` on
-`RunMetrics.telemetry` from either driver, with no extra host read: the
-host driver's residual rides the pairs read, the device driver's series
-rides the chunk carry and the run's final counter read.
+`telemetry=...` (capacity above 0) gets a per-superstep
+`TelemetrySeries` on `RunMetrics.telemetry` from either driver, with no
+extra host read: the host driver's residual rides the pairs read, the
+device driver's series rides the chunk carry and the run's final counter
+read.
+
+Spans (`repro_torch.obs.trace`, on `sess.trace` when the session traces;
+a disabled span costs one attribute test): under the session's `run`,
+
+  device driver   `device_chunk` a chunk, holding `chunk.enqueue` (the
+                  host issuing the chunk's operations, a wait on a full
+                  launch queue included) and `chunk.read` (its one
+                  read); `run.finish` (the run's one totals read)
+  host driver     `superstep` a scheduling round-trip (host_syncs of
+                  them), holding `step.pairs` (issuing every live
+                  group's pairs or counts), `step.read` (one a group
+                  read), `step.select` (`policy.select`) and `step.push`
+                  (the sel/msk copies, the pair counts and the push
+                  launches); `run.finish` (the wait for the last push)
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import time
@@ -114,6 +128,11 @@ class RunMetrics:
     # their host time; not in to_dict (the reference has no such keys)
     collectives: int = 0
     collective_s: float = 0.0
+    # when the session traces: each executed superstep's end on the
+    # trace's clock (us), where the driver learnt of it: the end of its
+    # `superstep` span (host) or of the `chunk.read` that returned it
+    # (device); the counter tracks' stamps.  Not in to_dict
+    step_end_us: Optional[List[float]] = None
 
     def to_dict(self, include_telemetry: bool = False) -> dict:
         """Scalar record of this run (the reference's keys), with the
@@ -200,24 +219,19 @@ class SchedulePolicy:
             m = _run_device(self, sess, max_supersteps)
         else:
             m = _run_host(self, sess, max_supersteps)
-        if sess.device.type == "cuda":
-            torch.cuda.synchronize(sess.device)
         m.wall_time_s = time.perf_counter() - t0
         return m
+
+
+def _sync(dev: torch.device) -> None:
+    """Wait for the device's queue (a run ends with nothing in flight)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 # ---------------------------------------------------------------------------
 # host driver: counts fall out of the pairs read; select on host
 # ---------------------------------------------------------------------------
-
-
-def _profiler_span(sess, name: str):
-    """A `torch.profiler.record_function` span around one driver phase,
-    opt-in via TelemetryConfig(jax_profiler=True); a no-op otherwise."""
-    cfg = sess.telemetry
-    if cfg is not None and cfg.jax_profiler:
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def _selection_occupancy(selection: Selection) -> int:
@@ -266,7 +280,8 @@ def _run_host(policy: SchedulePolicy, sess,
     superstep.  The convergence counts are derived from the pairs
     (counts == node_un.sum(-1)), so policies that need pairs cost ONE
     device read per group per superstep; AllBlocks reads per-job counts
-    only (needs_pairs=False).
+    only (needs_pairs=False).  Every live group's pairs (or counts) are
+    issued before the first of them is read.
 
     Telemetry: with the session built telemetry=..., each superstep
     appends one row to a HostSeriesBuilder.  The max-residual column
@@ -295,7 +310,7 @@ def _run_host(policy: SchedulePolicy, sess,
     nnz_host = [p.src_nnz.cpu().numpy() for p in grp_pairs]  # noqa: RPT002 - once a run
     m = RunMetrics(
         iterations_per_job=np.zeros(int(offs[-1]), dtype=np.int64))
-    telemetry = sess.telemetry is not None
+    telemetry = sess.series_capacity > 0
     series = (HostSeriesBuilder([g.key for g in groups]) if telemetry
               else None)
     resids = [0.0] * len(groups)
@@ -303,7 +318,9 @@ def _run_host(policy: SchedulePolicy, sess,
     # run (no job can arrive mid-run), so its read is skipped outright
     done = [None] * len(groups)
     bn = sess.scheduler.num_blocks
-    trace = sess.trace if sess.trace.enabled else None
+    trace = sess.trace
+    if trace.enabled:
+        m.step_end_us = []
     # dirty-block priority injection (repro_torch.stream): update-affected
     # blocks enter every job's DO queue boosted on the FIRST superstep
     # after apply_updates, only where the job has pending work there
@@ -315,13 +332,25 @@ def _run_host(policy: SchedulePolicy, sess,
                     np.zeros((g.capacity, bn), np.float32)
                     if policy.needs_pairs else None)
 
+    def _issue(g):
+        """The group's pairs (with its residual under telemetry), or its
+        counts and residual, as device tensors."""
+        if policy.needs_pairs:
+            return (_pairs_and_resid(g.alg, g.values, g.deltas) if telemetry
+                    else compute_pairs(g.alg, g.values, g.deltas))
+        return (sess._counts(g),
+                g.alg.vertex_priority(g.values, g.deltas).max()
+                if telemetry else None)
+
     for _ in range(max_supersteps):
-        t_step = trace.now_us() if trace else 0.0
-        dirty_n = int((boost > 0).sum()) if boost is not None else 0
-        actives = []
-        node_un = []
-        p_mean = [] if policy.needs_pairs else None
-        with _profiler_span(sess, "superstep.schedule"):
+        with trace.span("superstep", cat="superstep", tid=2) as step_sp:
+            dirty_n = int((boost > 0).sum()) if boost is not None else 0
+            with trace.span("step.pairs", cat="superstep", tid=2):
+                issued = [None if done[gi] is not None else _issue(g)
+                          for gi, g in enumerate(groups)]
+            actives = []
+            node_un = []
+            p_mean = [] if policy.needs_pairs else None
             for gi, g in enumerate(groups):
                 if done[gi] is not None:
                     actives.append(done[gi][0])
@@ -332,112 +361,108 @@ def _run_host(policy: SchedulePolicy, sess,
                         node_un.append(np.zeros(g.capacity, dtype=np.int32))
                     resids[gi] = 0.0
                     continue
-                if policy.needs_pairs:
-                    if spec is not None:   # gathered over the mesh
-                        if telemetry:
-                            nu, pm, resids[gi] = m2.host_pairs(
-                                spec, g, *_pairs_and_resid(
-                                    g.alg, g.values, g.deltas))
+                with trace.span("step.read", cat="superstep", tid=2):
+                    if policy.needs_pairs:
+                        if spec is not None:   # gathered over the mesh
+                            got = m2.host_pairs(spec, g, *issued[gi])
                         else:
-                            nu, pm = m2.host_pairs(spec, g, *compute_pairs(
-                                g.alg, g.values, g.deltas))
-                    elif telemetry:
-                        nu, pm, resids[gi] = _read_pairs(
-                            *_pairs_and_resid(g.alg, g.values, g.deltas))
+                            got = _read_pairs(*issued[gi])
+                        nu, pm = got[:2]
+                        if telemetry:
+                            resids[gi] = got[2]
+                    elif spec is not None:
+                        counts, rs = m2.gather_counts(spec, g, *issued[gi])
+                        counts = counts.astype(np.int64)
+                        if telemetry:
+                            resids[gi] = rs
+                    elif telemetry:   # the one read, residual riding along
+                        counts, resids[gi] = _read_counts(*issued[gi])
                     else:
-                        nu, pm = _read_pairs(*compute_pairs(
-                            g.alg, g.values, g.deltas))
+                        counts = issued[gi][0].cpu().numpy()  # noqa: RPT002 - host driver's read
+                if policy.needs_pairs:
                     if boost is not None:
                         pm = pm + boost[None, :] * (nu > 0)
                     node_un.append(nu)
                     p_mean.append(pm)
                     actives.append(prio.counts_from_pairs(nu) > 0)
                 else:
-                    if spec is not None:
-                        counts, rs = m2.gather_counts(
-                            spec, g, sess._counts(g),
-                            g.alg.vertex_priority(g.values, g.deltas).max()
-                            if telemetry else None)
-                        counts = counts.astype(np.int64)
-                        if telemetry:
-                            resids[gi] = rs
-                    elif telemetry:   # the one read, residual riding along
-                        counts, resids[gi] = _read_counts(
-                            sess._counts(g), g.alg.vertex_priority(
-                                g.values, g.deltas).max())
-                    else:
-                        counts = sess._counts(g).cpu().numpy()  # noqa: RPT002 - host driver's read
                     node_un.append(counts)
                     actives.append(counts > 0)
                 if not actives[gi].any():
                     _mark_done(gi)
-        for gi in range(len(groups)):
-            m.iterations_per_job[offs[gi]:offs[gi + 1]][actives[gi]] += 1
-        m.host_syncs += 1
-        if not any(a.any() for a in actives):
-            m.converged = True
-            break
-        boost = None
-        selection = policy.select(sess, node_un if policy.needs_pairs
-                                  else None, p_mean, actives)
-        if selection is None:
-            m.converged = True
-            break
-        # a fully-converged group is never pushed
-        pair_step = 0
-        with _profiler_span(sess, "superstep.push"):
-            if selection.shared:
-                sel = torch.as_tensor(selection.sel, dtype=torch.int32,
-                                      device=dev)
-                msk = torch.as_tensor(selection.msk, dtype=torch.float32,
-                                      device=dev)
-                sel_np = np.asarray(selection.sel)
-                on_np = np.asarray(selection.msk) > 0
-                for gi, g in enumerate(groups):
-                    if not actives[gi].any():
-                        continue
-                    pair_step += int(nnz_host[gi][sel_np][on_np].sum())
-                    g.values, g.deltas = shared_fns[gi](
-                        g.values, g.deltas, g.graph.tiles, g.graph.nbr_ids,
-                        sel, msk, g.push_scale, g.overlay, grp_pairs[gi])
-            else:
-                for gi, g in enumerate(groups):
-                    if not actives[gi].any():
-                        continue
-                    sel_np = np.asarray(selection.sel[gi])
-                    on_np = np.asarray(selection.msk[gi]) > 0
-                    pair_step += int((nnz_host[gi][sel_np] * on_np).sum())
-                    g.values, g.deltas = indep_fns[gi](
-                        g.values, g.deltas, g.graph.tiles, g.graph.nbr_ids,
-                        torch.as_tensor(sel_np, dtype=torch.int32,
-                                        device=dev),
-                        torch.as_tensor(selection.msk[gi],
-                                        dtype=torch.float32, device=dev),
-                        g.push_scale, g.overlay)
-        m.tile_pair_loads += pair_step
-        halo_step = 0.0
-        if spec is not None:
-            halo_step = m2.host_halo_bytes(spec, groups, selection, actives)
-            m.halo_bytes += halo_step
-        if series is not None:
-            # everything but pair_step is a pre-push read; the row is
-            # appended post-push only so that pair_step can join it
-            series.append(
-                active_jobs=sum(int(a.sum()) for a in actives),
-                tile_loads=int(selection.tile_loads),
-                job_block_pushes=int(selection.job_block_pushes),
-                gq_occupancy=_selection_occupancy(selection),
-                dirty_blocks=dirty_n,
-                unconverged=[int(np.sum(nu)) for nu in node_un],
-                max_residual=resids, tile_pair_loads=pair_step,
-                halo_bytes=halo_step)
-        m.supersteps += 1
-        m.tile_loads += int(selection.tile_loads)
-        m.job_block_pushes += int(selection.job_block_pushes)
-        if trace:
-            trace.complete("superstep", t_step, trace.now_us() - t_step,
-                           cat="superstep", tid=2, step=m.supersteps - 1,
-                           tile_loads=int(selection.tile_loads))
+            for gi in range(len(groups)):
+                m.iterations_per_job[offs[gi]:offs[gi + 1]][actives[gi]] += 1
+            m.host_syncs += 1
+            if not any(a.any() for a in actives):
+                m.converged = True
+                break
+            boost = None
+            with trace.span("step.select", cat="superstep", tid=2):
+                selection = policy.select(sess, node_un if policy.needs_pairs
+                                          else None, p_mean, actives)
+            if selection is None:
+                m.converged = True
+                break
+            # a fully-converged group is never pushed
+            pair_step = 0
+            with trace.span("step.push", cat="superstep", tid=2):
+                if selection.shared:
+                    sel = torch.as_tensor(selection.sel, dtype=torch.int32,
+                                          device=dev)
+                    msk = torch.as_tensor(selection.msk, dtype=torch.float32,
+                                          device=dev)
+                    sel_np = np.asarray(selection.sel)
+                    on_np = np.asarray(selection.msk) > 0
+                    for gi, g in enumerate(groups):
+                        if not actives[gi].any():
+                            continue
+                        pair_step += int(nnz_host[gi][sel_np][on_np].sum())
+                        g.values, g.deltas = shared_fns[gi](
+                            g.values, g.deltas, g.graph.tiles,
+                            g.graph.nbr_ids, sel, msk, g.push_scale,
+                            g.overlay, grp_pairs[gi])
+                else:
+                    for gi, g in enumerate(groups):
+                        if not actives[gi].any():
+                            continue
+                        sel_np = np.asarray(selection.sel[gi])
+                        on_np = np.asarray(selection.msk[gi]) > 0
+                        pair_step += int((nnz_host[gi][sel_np] * on_np).sum())
+                        g.values, g.deltas = indep_fns[gi](
+                            g.values, g.deltas, g.graph.tiles,
+                            g.graph.nbr_ids,
+                            torch.as_tensor(sel_np, dtype=torch.int32,
+                                            device=dev),
+                            torch.as_tensor(selection.msk[gi],
+                                            dtype=torch.float32, device=dev),
+                            g.push_scale, g.overlay)
+            m.tile_pair_loads += pair_step
+            halo_step = 0.0
+            if spec is not None:
+                halo_step = m2.host_halo_bytes(spec, groups, selection,
+                                               actives)
+                m.halo_bytes += halo_step
+            if series is not None:
+                # everything but pair_step is a pre-push read; the row is
+                # appended post-push only so that pair_step can join it
+                series.append(
+                    active_jobs=sum(int(a.sum()) for a in actives),
+                    tile_loads=int(selection.tile_loads),
+                    job_block_pushes=int(selection.job_block_pushes),
+                    gq_occupancy=_selection_occupancy(selection),
+                    dirty_blocks=dirty_n,
+                    unconverged=[int(np.sum(nu)) for nu in node_un],
+                    max_residual=resids, tile_pair_loads=pair_step,
+                    halo_bytes=halo_step)
+            m.supersteps += 1
+            m.tile_loads += int(selection.tile_loads)
+            m.job_block_pushes += int(selection.job_block_pushes)
+            step_sp.note(step=m.supersteps - 1,
+                         tile_loads=int(selection.tile_loads))
+        if m.step_end_us is not None:
+            m.step_end_us.append(step_sp.end_us)
+    with trace.span("run.finish", cat="superstep", tid=2):
+        _sync(dev)
     if series is not None:
         m.telemetry = series.build()
     if spec is not None:
@@ -499,8 +524,7 @@ def build_device_step(policy: SchedulePolicy, sess):
     chunk = (INF_CHUNK if policy.steps_per_sync == math.inf
              else int(policy.steps_per_sync))
     needs_pairs = policy.needs_pairs
-    tel_cap = (int(sess.telemetry.capacity) if sess.telemetry is not None
-               else 0)
+    tel_cap = sess.series_capacity
 
     shared_push = [shared_push_fn(g.semiring, g.push_one, sess.use_pallas)
                    for g in groups]
@@ -622,9 +646,9 @@ def device_inputs(sess):
              torch.zeros(sess.scheduler.num_blocks, dtype=torch.float32,
                          device=dev) if boost is None
              else torch.as_tensor(boost, dtype=torch.float32, device=dev))
-    if sess.telemetry is not None:
-        state = state + (device_buffers(sess.telemetry.capacity,
-                                        len(groups), dev),)
+    if sess.series_capacity:
+        state = state + (device_buffers(sess.series_capacity, len(groups),
+                                        dev),)
     return (state,
             tuple(g.push_scale for g in groups),
             tuple(g.graph.tiles for g in groups),
@@ -659,20 +683,25 @@ def _run_device(policy: SchedulePolicy, sess,
         finish = _finish_device
     budget = int(min(max_supersteps, np.iinfo(np.int32).max))
     seed, pos = sess.seed, sess.scheduler._step
-    trace = sess.trace if sess.trace.enabled else None
+    trace = sess.trace
     m = RunMetrics()
+    if trace.enabled:
+        m.step_end_us = []
+    it_prev = 0
     while True:
-        t_chunk = trace.now_us() if trace else 0.0
-        with _profiler_span(sess, "device_chunk"):
-            state, un = step_fn(state, *args, budget, seed, pos)
-            # the ONE host read of the chunk: (it, unconverged_total)
-            it_h, un_h = torch.stack([state[0],  # noqa: RPT002 - the driver's one read a chunk
-                                      un.to(torch.int64)]).tolist()
+        with trace.span("device_chunk", cat="superstep", tid=2,
+                        sync=m.host_syncs) as chunk_sp:
+            with trace.span("chunk.enqueue", cat="superstep", tid=2):
+                state, un = step_fn(state, *args, budget, seed, pos)
+            with trace.span("chunk.read", cat="superstep", tid=2) as read_sp:
+                # the ONE host read of the chunk: (it, unconverged_total)
+                it_h, un_h = torch.stack([state[0],  # noqa: RPT002 - the driver's one read a chunk
+                                          un.to(torch.int64)]).tolist()
+            chunk_sp.note(supersteps_done=it_h)
         m.host_syncs += 1
-        if trace:
-            trace.complete("device_chunk", t_chunk,
-                           trace.now_us() - t_chunk, cat="superstep", tid=2,
-                           sync=m.host_syncs - 1, supersteps_done=it_h)
+        if m.step_end_us is not None:
+            m.step_end_us += [read_sp.end_us] * (it_h - it_prev)
+        it_prev = it_h
         if un_h == 0 or it_h >= budget:
             break
     sess.scheduler._step += it_h
@@ -680,7 +709,9 @@ def _run_device(policy: SchedulePolicy, sess,
         g.values, g.deltas = state[1][gi], state[2][gi]
     m.supersteps = it_h
     m.converged = un_h == 0
-    finish(sess, state, it_h, m)
+    with trace.span("run.finish", cat="superstep", tid=2):
+        finish(sess, state, it_h, m)
+        _sync(sess.device)
     return m
 
 
@@ -690,19 +721,19 @@ def _finish_device(sess, state, it_h: int, m: RunMetrics) -> None:
     groups = sess.view_groups()
     parts = [torch.stack([state[3], state[4], state[5]]).to(torch.float64)]  # noqa: RPT006 - exact
     parts += [x.to(torch.float64) for x in state[6]]  # noqa: RPT006 - exact iteration counts
-    if sess.telemetry is not None:
+    tel_cap = sess.series_capacity
+    if tel_cap:
         parts.append(device_rows(state[8], it_h).reshape(-1))
     flat = torch.cat(parts).cpu().numpy()
     m.tile_loads, m.job_block_pushes, m.tile_pair_loads = (
         int(x) for x in flat[:3])
     n_iters = sum(g.capacity for g in groups)
     m.iterations_per_job = flat[3:3 + n_iters].astype(np.int64)
-    if sess.telemetry is not None:
+    if tel_cap:
         m.telemetry = series_from_rows(
             flat[3 + n_iters:].reshape(
-                min(it_h, sess.telemetry.capacity),
-                len(SERIES_FIELDS) + 2 * len(groups)),
-            it_h, sess.telemetry.capacity, [g.key for g in groups])
+                min(it_h, tel_cap), len(SERIES_FIELDS) + 2 * len(groups)),
+            it_h, tel_cap, [g.key for g in groups])
 
 
 # ---------------------------------------------------------------------------

@@ -146,9 +146,10 @@ class GraphSession:
         self.device = resolve_device(device)
         self._csr = csr
         # observability: telemetry=True / TelemetryConfig(...) turns on
-        # the per-superstep series and, with cfg.trace, the trace events
-        # (submit/detach, supersteps, apply_updates, compactions);
-        # None/False (the default) leaves both drivers as they are
+        # the per-superstep series (capacity > 0) and, with cfg.trace,
+        # the trace's events and spans (run and its driver phases,
+        # submit/detach, apply_updates, compactions); None/False (the
+        # default) leaves both drivers as they are
         self.telemetry: Optional[TelemetryConfig] = \
             TelemetryConfig.coerce(telemetry)
         self.trace = TraceRecorder(
@@ -179,6 +180,12 @@ class GraphSession:
         self._stream_pending = _no_stream_counts()
         # placement on a mesh (dist.mesh2d.Mesh2DSpec), None on one device
         self._mesh2d = None
+
+    @property
+    def series_capacity(self) -> int:
+        """Rows of the per-superstep telemetry series a device run keeps;
+        0 when the session records no series."""
+        return self.telemetry.capacity if self.telemetry is not None else 0
 
     # alpha/samples/seed live canonically on the scheduler once it exists
 
@@ -305,16 +312,18 @@ class GraphSession:
             raise ValueError("GraphSession needs a CSRGraph to build from")
         cap = self._capacity0
         spec = self._mesh2d
-        if spec is not None:
-            # a placed session builds only this rank's slices of the view
-            from repro_torch.dist.mesh2d import build_group_slices
-            g, shards = build_group_slices(self, spec, key, cap)
-        else:
-            g_csr = (self._csr.symmetrized() if alg.graph_symmetrize
-                     else self._csr)
-            g = build_blocked(g_csr, self.block_size, fill=alg.graph_fill,
-                              normalize=alg.graph_normalize,
-                              device=self.device)
+        with self.trace.span("view.build", view=str(key)):
+            if spec is not None:
+                # a placed session builds only this rank's slices
+                from repro_torch.dist.mesh2d import build_group_slices
+                g, shards = build_group_slices(self, spec, key, cap)
+            else:
+                g_csr = (self._csr.symmetrized() if alg.graph_symmetrize
+                         else self._csr)
+                g = build_blocked(g_csr, self.block_size,
+                                  fill=alg.graph_fill,
+                                  normalize=alg.graph_normalize,
+                                  device=self.device)
         self._install_scheduler(g)
         values, deltas = _inert_state(alg.semiring, g, cap)
         grp = ViewGroup(
@@ -363,18 +372,19 @@ class GraphSession:
     def submit(self, alg: Algorithm) -> JobHandle:
         """Admit a job at any superstep; recycles a free slot or grows its
         view group.  A NEW graph view is built lazily from the shared CSR."""
-        grp = self._group_for(alg)
-        free = np.nonzero(~grp.active)[0]
-        if len(free) == 0:
-            self._grow(grp)
+        with self.trace.span("submit", cat="job",
+                             alg=type(alg).__name__) as sp:
+            grp = self._group_for(alg)
             free = np.nonzero(~grp.active)[0]
-        slot = int(free[0])
-        v, d = alg.init(grp.graph)
-        self._write_slot(grp, slot, v, d, alg.get_push_scale())
-        grp.algs[slot] = alg
-        grp.active[slot] = True
-        self.trace.instant("submit", cat="job", alg=type(alg).__name__,
-                           view=str(grp.key), slot=slot)
+            if len(free) == 0:
+                self._grow(grp)
+                free = np.nonzero(~grp.active)[0]
+            slot = int(free[0])
+            v, d = alg.init(grp.graph)
+            self._write_slot(grp, slot, v, d, alg.get_push_scale())
+            grp.algs[slot] = alg
+            grp.active[slot] = True
+            sp.note(job=(str(grp.key), slot, grp.gens[slot]))
         return JobHandle(slot=slot, gen=grp.gens[slot], alg=alg, view=grp.key)
 
     def _write_slot(self, grp: ViewGroup, slot: int, v: torch.Tensor,
@@ -432,7 +442,8 @@ class GraphSession:
     def unconverged_counts(self) -> np.ndarray:
         """[total_capacity] unconverged-vertex count per slot, view groups
         concatenated in creation order (0 for free slots)."""
-        parts = [self._host_counts(g) for g in self.groups.values()]
+        with self.trace.span("counts"):
+            parts = [self._host_counts(g) for g in self.groups.values()]
         return (np.concatenate(parts) if parts
                 else np.zeros(0, dtype=np.int64))
 
@@ -465,17 +476,19 @@ class GraphSession:
 
     def detach(self, handle: JobHandle) -> np.ndarray:
         """Extract the job's result and free its slot for reuse."""
-        res = self.result(handle)
-        grp = self._handle_group(handle)
-        slot = handle.slot
-        iv, idl = _inert_state(grp.semiring, grp.graph, 1)
-        self._write_slot(grp, slot, iv[0], idl[0], 1.0)
-        grp.algs[slot] = None
-        grp.active[slot] = False
-        grp.gens[slot] += 1
-        self.trace.instant("detach", cat="job",
-                           alg=type(handle.alg).__name__,
-                           view=str(grp.key), slot=slot)
+        view = handle.view if handle.view is not None \
+            else _view_key(handle.alg)
+        with self.trace.span("detach", cat="job",
+                             alg=type(handle.alg).__name__,
+                             job=(str(view), handle.slot, handle.gen)):
+            res = self.result(handle)
+            grp = self._handle_group(handle)
+            slot = handle.slot
+            iv, idl = _inert_state(grp.semiring, grp.graph, 1)
+            self._write_slot(grp, slot, iv[0], idl[0], 1.0)
+            grp.algs[slot] = None
+            grp.active[slot] = False
+            grp.gens[slot] += 1
         return res
 
     # -- evolving graphs (repro_torch.stream) --------------------------------
@@ -545,14 +558,13 @@ class GraphSession:
         reuses the mesh entry: one entry per (policy, placement)."""
         from repro_torch.core.policy import build_device_step
         groups = self.view_groups()
-        tel_cap = self.telemetry.capacity if self.telemetry else 0
         key = ("superstep", type(policy).device_select, policy.needs_pairs,
                policy.steps_per_sync,
                tuple(g.key for g in groups),
                tuple(g.capacity for g in groups),
                tuple(g.overlay.capacity for g in groups),
                self.q, float(self.alpha), int(self.samples),
-               self.use_pallas, tel_cap)
+               self.use_pallas, self.series_capacity)
         if self._mesh2d is not None:
             from repro_torch.dist.mesh2d import build_device_step_2d
             key = key + (self._mesh2d.signature(),
@@ -573,7 +585,8 @@ class GraphSession:
             if self._mesh2d is not None:
                 raise RuntimeError("a placed session holds its pair "
                                    "shards only (_pair_shards)")
-            grp.pairs = build_block_pairs(grp.graph)
+            with self.trace.span("pairs.build", view=str(grp.key)):
+                grp.pairs = build_block_pairs(grp.graph)
         return grp.pairs
 
     def _pair_shards(self, grp: ViewGroup):
@@ -609,32 +622,32 @@ class GraphSession:
         if not self.groups:
             raise ValueError("no jobs submitted yet")
         policy = TwoLevel() if policy is None else policy
-        self._place(mesh)
-        t_run = self.trace.now_us() if self.trace.enabled else 0.0
-        m = policy.run(self, max_supersteps)
-        self._drain_stream_stats(m)
+        with self.trace.span("run", cat="run") as sp:
+            self._place(mesh)
+            m = policy.run(self, max_supersteps)
+            self._drain_stream_stats(m)
+            sp.note(policy=policy.name, **m.to_dict())
         if self.trace.enabled:
-            self._trace_run(policy, m, t_run)
+            self._trace_run(m)
         return m
 
-    def _trace_run(self, policy, m: RunMetrics, t_run: float) -> None:
-        """One run() span + counter tracks from the telemetry series."""
-        dur = self.trace.now_us() - t_run
-        self.trace.complete("run", t_run, dur, cat="run",
-                            policy=policy.name, **m.to_dict())
+    def _trace_run(self, m: RunMetrics) -> None:
+        """The run's converged instant and counter tracks from the
+        telemetry series, each row stamped where the driver learnt it
+        (`RunMetrics.step_end_us`)."""
         if m.converged:
             self.trace.instant("converged", cat="run",
                                supersteps=int(m.supersteps))
         tel = m.telemetry
         if tel is None or len(tel) == 0:
             return
-        # counter samples interpolated across the run span (the device
-        # backend has no per-superstep wall clock); the stride caps the
-        # event volume of very long runs
+        ends = m.step_end_us
+        # the stride caps the event volume of very long runs; a
+        # truncated series' last row is the last executed superstep's
         k = len(tel)
         stride = max(1, k // 2000)
         for i in range(0, k, stride):
-            ts = t_run + dur * (i + 1) / k
+            ts = ends[-1] if i == k - 1 else ends[i]
             vals = {"active_jobs": int(tel.active_jobs[i]),
                     "tile_loads": int(tel.tile_loads[i]),
                     "job_block_pushes": int(tel.job_block_pushes[i]),

@@ -872,8 +872,7 @@ def build_device_step_2d(policy, sess, spec: Mesh2DSpec):
     chunk = (INF_CHUNK if policy.steps_per_sync == math.inf
              else int(policy.steps_per_sync))
     needs_pairs = policy.needs_pairs
-    tel_cap = (int(sess.telemetry.capacity) if sess.telemetry is not None
-               else 0)
+    tel_cap = sess.series_capacity
     use_kernel = bool(sess.use_pallas)
     caps = [g.capacity for g in groups]
     offs = np.cumsum([0] + caps).tolist()
@@ -1096,8 +1095,7 @@ def device_inputs_2d(policy, sess):
     dev = sess.device
     boost = sess._consume_dirty_boost()
     bn = sess.scheduler.num_blocks
-    tel_cap = (int(sess.telemetry.capacity) if sess.telemetry is not None
-               else 0)
+    tel_cap = sess.series_capacity
     compress = _compress_flags(spec, groups, lays, _policy_mode(policy))
     errs = tuple(torch.zeros_like(g.deltas) if comp
                  else torch.zeros((1, 1, 1), dtype=torch.float32, device=dev)
@@ -1128,8 +1126,7 @@ def finish_device_2d(sess, state, it_h: int, m) -> None:
     groups = sess.view_groups()
     lays = [spec.layout(g) for g in groups]
     dev = sess.device
-    tel_cap = (int(sess.telemetry.capacity) if sess.telemetry is not None
-               else 0)
+    tel_cap = sess.series_capacity
     # the partial totals, every job's iterations and the telemetry rows'
     # summed columns in ONE world sum (float64 holds the counts exactly
     # up to 2^53); the rows' max_residual columns in one max

@@ -5,10 +5,12 @@
                (returned on ``RunMetrics.telemetry``) on both scheduling
                backends, with no extra host read.
   trace      - every session owns a ``TraceRecorder`` (``session.trace``),
-               enabled by telemetry, collecting submit/detach, superstep
-               spans, apply_updates batches, compactions and serve
-               admissions; ``session.trace.export(path)`` writes
-               Chrome/Perfetto trace-event JSON.
+               enabled by ``TelemetryConfig.trace``, collecting spans on
+               the profiler's clock (run and the drivers' phases,
+               submit/detach, views built) with per-name ``totals()``,
+               apply_updates batches, compactions and serve admissions;
+               ``session.trace.export(path)`` writes Chrome/Perfetto
+               trace-event JSON.
   serve      - ``ConcurrentServeScheduler.metrics`` records per-stream
                wait/service time and per-family queue depth with p50/p99
                summaries.

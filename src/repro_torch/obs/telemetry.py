@@ -18,7 +18,9 @@ A ``TelemetrySeries`` records, per superstep:
   max_residual      [K, G] max vertex priority per view group, read from
                            the state before the superstep's push
 
-Collection is opt-in via ``GraphSession(telemetry=...)``.  Off, the host
+Collection is opt-in via ``GraphSession(telemetry=...)``, with a
+capacity above 0 (``TelemetryConfig(capacity=0, trace=True)`` gives the
+trace's spans with no series).  Off, the host
 driver skips the bookkeeping and the device driver's chunk issues
 exactly the operations it issues without this module (the session's
 step-function cache key carries the capacity, 0 when off).
@@ -61,20 +63,20 @@ DEFAULT_CAPACITY = 4096
 class TelemetryConfig:
     """What ``GraphSession(telemetry=...)`` turns on.
 
-    capacity      device-path buffer length (~30 bytes per superstep)
-    trace         record structured trace events on ``session.trace``
-                  (submit/detach, superstep spans, apply_updates batches,
-                  compactions) for Chrome/Perfetto export
-    jax_profiler  additionally wrap the drivers' scheduling and push
-                  phases in ``torch.profiler.record_function`` spans
-                  (visible under an active torch.profiler session).  The
-                  name is the reference's, so one config drives both
-                  packages.
+    capacity  device-path buffer length (~30 bytes per superstep); 0
+              records no series on either driver (the device chunk is
+              then the telemetry-off chunk) and ``RunMetrics.telemetry``
+              stays None
+    trace     record structured trace events and spans on
+              ``session.trace`` (run, superstep and chunk phases,
+              submit/detach, apply_updates batches, compactions) for
+              Chrome/Perfetto export; each span is also a
+              ``torch.profiler`` range ``rt.<name>`` while a profiler
+              runs
     """
 
     capacity: int = DEFAULT_CAPACITY
     trace: bool = True
-    jax_profiler: bool = False
 
     @staticmethod
     def coerce(value: Union[None, bool, "TelemetryConfig"]

@@ -13,7 +13,10 @@ rmat_graph(300, 5, seed=7), Vb = 32, PageRank + SSSP(0) in two views.
     read;
   * the host and device series are equal within the port;
   * capacity truncation, the dirty_blocks spike, trace counter tracks,
-    to_dict and coerce.
+    to_dict and coerce;
+  * the spans of both drivers and of the session (names, parents, counts,
+    job ids, totals), spans off recording nothing, spans without the
+    series (capacity 0), and the recorder's clock against Kineto's.
 
 Known difference: under steps_per_sync=inf the port's device driver runs
 chunks of INF_CHUNK = 16 supersteps, so a full series comes at
@@ -88,8 +91,9 @@ def _same_series(a, b):
 
 
 def _fields(cfg):
-    return None if cfg is None else (cfg.capacity, cfg.trace,
-                                     cfg.jax_profiler)
+    """The fields both packages keep (the reference's `jax_profiler` has
+    no port counterpart: every port span is a profiler range)."""
+    return None if cfg is None else (cfg.capacity, cfg.trace)
 
 
 @pytest.mark.parametrize("value", [None, False, True, "cfg", 42])
@@ -366,6 +370,10 @@ def test_trace_counter_tracks_match_the_series(tmp_path):
               if e["ph"] == "C" and e["name"] == "telemetry"]
     assert set(to.SERIES_FIELDS) <= set(tracks[0]["args"])
     first = tracks[:m.supersteps]
+    # each row is stamped at the end of its superstep span
+    steps = [e for e in sess.trace.events if e["name"] == "superstep"
+             and "step" in e["args"]][:m.supersteps]
+    assert [e["ts"] for e in first] == [e["ts"] + e["dur"] for e in steps]
     assert sum(e["args"]["tile_pair_loads"] for e in first) \
         == m.tile_pair_loads
     assert sum(e["args"]["tile_loads"] for e in first) == m.tile_loads
@@ -381,8 +389,13 @@ def test_device_chunks_traced_per_sync():
     m = sess.run(tc.TwoLevel(backend="device", steps_per_sync=8), 500)
     chunks = [e for e in sess.trace.events if e["name"] == "device_chunk"]
     assert len(chunks) == m.host_syncs
+    reads = [e for e in sess.trace.events if e["name"] == "chunk.read"]
     tracks = [e for e in sess.trace.events if e["name"] == "telemetry"]
     assert len(tracks) == m.supersteps
+    # each row is stamped at the end of the chunk.read that returned it
+    ends = [e["ts"] + e["dur"] for e in reads]
+    for i, ev in enumerate(tracks):
+        assert ev["ts"] == ends[i // 8]
 
 
 def test_run_metrics_to_dict_matches_reference():
@@ -398,11 +411,162 @@ def test_run_metrics_to_dict_matches_reference():
     json.dumps(m["port"].to_dict(include_telemetry=True))
 
 
-def test_profiler_spans_when_asked_for():
-    sess = _session(telemetry=to.TelemetryConfig(jax_profiler=True))
+def test_profiler_ranges_name_every_span():
+    """Under a torch.profiler, every span is also a range `rt.<name>`."""
+    sess = _session(telemetry=to.TelemetryConfig(capacity=0, trace=True))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         sess.run(tc.TwoLevel(), 3)
         sess.run(tc.TwoLevel(backend="device", steps_per_sync=2), 4)
+        sess.unconverged_counts()
     keys = {e.key for e in prof.key_averages()}
-    assert {"superstep.schedule", "superstep.push", "device_chunk"} <= keys
+    want = {"run", "superstep", "step.pairs", "step.read", "step.select",
+            "step.push", "run.finish", "device_chunk", "chunk.enqueue",
+            "chunk.read", "counts"}
+    assert {to.trace.SPAN_PREFIX + n for n in want} <= keys
+
+
+# --- spans inside the drivers and the session --------------------------------
+
+
+def _spans(sess):
+    return [e for e in sess.trace.events if e["ph"] == "X"]
+
+
+def _parent(by_id, e):
+    return by_id.get(e["args"]["parent_id"], {"name": None})["name"]
+
+
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_span_tree_of_both_drivers(backend):
+    """Names and parents of every span; one chunk.read a chunk (host
+    syncs), one step.read a group a live superstep, the job id on
+    submit/detach, and totals() equal to the recorded spans' sums."""
+    sess = tc.GraphSession(tg.rmat_graph(300, 5, seed=7), 32, capacity=2,
+                           seed=3, device="cpu",
+                           telemetry=to.TelemetryConfig(capacity=0))
+    h0 = sess.submit(ta.PageRank())
+    h1 = sess.submit(ta.SSSP(source=0))
+    pol = (tc.TwoLevel() if backend == "host"
+           else tc.TwoLevel(backend="device", steps_per_sync=4))
+    m = sess.run(pol, 500)
+    assert m.converged
+    assert not sess.unconverged_counts().any()
+    sess.detach(h1)
+    spans = _spans(sess)
+    by_id = {e["args"]["span_id"]: e for e in spans}
+    assert len(by_id) == len(spans)
+    parents = {}
+    for e in spans:
+        parents.setdefault(e["name"], set()).add(_parent(by_id, e))
+    assert parents["submit"] == parents["run"] == parents["counts"] \
+        == parents["detach"] == {None}
+    assert parents["view.build"] == {"submit"}
+    assert parents["pairs.build"] == {"run"}
+    assert parents["run.finish"] == {"run"}
+    if backend == "host":
+        assert parents["superstep"] == {"run"}
+        for n in ("step.pairs", "step.read", "step.select", "step.push"):
+            assert parents[n] == {"superstep"}, n
+        steps = [e for e in spans if e["name"] == "superstep"]
+        assert len(steps) == m.host_syncs == m.supersteps + 1
+        # one read a group a superstep, up to the read that finds the
+        # group converged (each view holds one job: slots 0 and 2)
+        reads = sum(min(int(m.iterations_per_job[off]) + 1, m.host_syncs)
+                    for off in (0, 2))
+        assert sum(e["name"] == "step.read" for e in spans) == reads
+    else:
+        assert parents["device_chunk"] == {"run"}
+        assert parents["chunk.enqueue"] == parents["chunk.read"] \
+            == {"device_chunk"}
+        n = {k: sum(e["name"] == k for e in spans)
+             for k in ("device_chunk", "chunk.read", "chunk.enqueue")}
+        assert n == dict.fromkeys(n, m.host_syncs)
+        assert not any(e["name"].startswith("step.") for e in spans)
+    # children lie inside their parents
+    for e in spans:
+        p = by_id.get(e["args"]["parent_id"])
+        if p is not None:
+            assert p["ts"] <= e["ts"]
+            assert e["ts"] + e["dur"] <= p["ts"] + p["dur"] + 1e-3
+    # the job id on submit and detach: (view, slot, generation)
+    subs = [e for e in spans if e["name"] == "submit"]
+    assert [e["args"]["job"] for e in subs] == [
+        (str(h.view), h.slot, h.gen) for h in (h0, h1)]
+    det = [e for e in spans if e["name"] == "detach"]
+    assert [e["args"]["job"] for e in det] == [(str(h1.view), h1.slot, 0)]
+    # totals are the recorded spans' sums
+    tot = sess.trace.totals()
+    assert set(tot) == {e["name"] for e in spans}
+    for name, (secs, count) in tot.items():
+        mine = [e["dur"] for e in spans if e["name"] == name]
+        assert count == len(mine)
+        assert secs == pytest.approx(sum(mine) / 1e6, rel=1e-9, abs=1e-9)
+    assert m.telemetry is None
+    to.validate_trace_events(sess.trace.to_json())
+
+
+def test_spans_off_record_nothing(monkeypatch):
+    """A session that does not trace records no event and never enters
+    record_function, even under a profiler; a disabled span is one
+    shared object and reads no clock."""
+    def boom(*a, **kw):
+        raise AssertionError("record_function entered")
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", boom)
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    for cfg in (None, to.TelemetryConfig(trace=False)):
+        sess = _session(telemetry=cfg)
+        assert not sess.trace.enabled
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            for pol in (tc.TwoLevel(), tc.Fused()):
+                sess.run(pol, 500)
+            sess.unconverged_counts()
+        assert sess.trace.events == [] and sess.trace.totals() == {}
+    rec = to.TraceRecorder(enabled=False)
+    a, b = rec.span("x"), rec.span("y", job=(1, 2, 3))
+    assert a is b
+    ticks = []
+    monkeypatch.setattr(to.trace.time, "perf_counter_ns",
+                        lambda: ticks.append(1) or 0)
+    with a as sp:
+        sp.note(k=1)
+    assert ticks == [] and rec.events == []
+
+
+@pytest.mark.parametrize("policy", ["Fused", "TwoLevel"])
+def test_spans_without_the_series(policy):
+    """capacity=0: spans, no series, and the device chunk is the
+    telemetry-off one (the same cache key and carry)."""
+    pol = tc.Fused() if policy == "Fused" else tc.TwoLevel()
+    on = _session(telemetry=to.TelemetryConfig(capacity=0, trace=True))
+    off = _session(telemetry=None)
+    assert on.trace.enabled and on.series_capacity == 0
+    m_on, m_off = on.run(pol, 500), off.run(pol, 500)
+    assert m_on.converged and m_on.telemetry is None
+    assert m_on.supersteps == m_off.supersteps
+    assert not any(e["ph"] == "C" for e in on.trace.events)
+    assert on.trace.totals()["run"][1] == 1
+    if policy == "Fused":
+        assert list(on._jit_cache) == list(off._jit_cache)
+        assert len(device_inputs(on)[0]) == len(device_inputs(off)[0]) == 8
+    for g_on, g_off in zip(on.view_groups(), off.view_groups()):
+        assert torch.equal(g_on.values, g_off.values)
+
+
+def test_spans_share_the_profiler_clock():
+    """The recorder's stamps and the Kineto starts of the same spans'
+    rt.* ranges agree: median gap under 1 ms over 20 spans."""
+    rec = to.TraceRecorder(enabled=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for i in range(20):
+            with rec.span(f"clock{i}"):
+                torch.ones(64).sum()
+    prefix = to.trace.SPAN_PREFIX
+    kineto = {e.name(): e.start_ns() / 1e3
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith(prefix + "clock")}
+    gaps = [abs(kineto[prefix + e["name"]] - e["ts"]) for e in rec.events]
+    assert len(gaps) == 20
+    assert float(np.median(gaps)) < 1e3

@@ -609,7 +609,12 @@ def _record(mod):
 
 
 def _strip(events):
-    return [{k: v for k, v in e.items() if k not in ("ts", "dur")}
+    """The events without their times and without the span ids the
+    port's spans carry in their args (the reference's carry none)."""
+    return [{k: ({a: x for a, x in v.items()
+                  if a not in ("span_id", "parent_id")} if k == "args"
+                 else v)
+             for k, v in e.items() if k not in ("ts", "dur")}
             for e in events]
 
 
