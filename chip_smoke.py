@@ -328,7 +328,17 @@ Phases (any failure exits non-zero before the last line is printed):
    3's four jobs under TwoLevel() and then Fused() to convergence, B1/B2
    counts set to 0 just before each and read just after, phase 3's bars;
    its views' bytes beside the graph dry run's.  17c: the fleet's records
-   (16a's) on the kernel route, B1/B2 with two jobs a thread block.
+   (16a's) on the kernel route, B1/B2 at the pass of its job layout.
+18. (alone: `--phases 18`) The B1/B2 rows of the kernel table.  18a:
+   J = 4, every source live, numpy-seeded state, on phase 2's graph at
+   Vb = 64 and phase 17's at Vb = 8, 256 and 512, timed beside the
+   all-pairs bound.  18b: the benchmark cells' (Vb, J), 48 slots at Vb =
+   64 and 38 at Vb = 512 on rmat_graph(2**15, 16), with the cells' slot
+   layouts (the lowest 38, 16 and 10 slots live, every third slot, none)
+   and a random selection of the cells' q sources; each against the
+   plain version at phase 2's bars, a repeat call bit-identical, the
+   call's `b1b2_counts` against `expected_counts`, timed beside the
+   live-pair bound of every slot (graphbench's) and of the live jobs.
 
 Then one JSON line of kernel figures (each B1/B2/B3 entry with its
 phase-17 widths), one of the LM figures, one of the training figures,
@@ -353,13 +363,14 @@ give the end-to-end numbers.
     python3 chip_smoke.py --phases 15
     python3 chip_smoke.py --phases 16
     python3 chip_smoke.py --phases 17
+    python3 chip_smoke.py --phases 18
 
 run phase 1 and phase 10 (the LM serving path), phase 11 (training),
 phase 12 (training over ranks), phase 13 (serving over ranks), phase
 14 (training under the "tp" rules), phase 15 (the dry run; 15c needs
-phase 14 and is skipped), phase 16 (16a and 16c; 16b needs 8a's world)
-or phase 17 (17c on the fleet's records made there) alone, for
-iterating; no kernels line.
+phase 14 and is skipped), phase 16 (16a and 16c; 16b needs 8a's world),
+phase 17 (17c on the fleet's records made there) or phase 18 (the B1/B2
+kernel table) alone, for iterating; no kernels line.
 """
 
 from __future__ import annotations
@@ -624,14 +635,12 @@ def check_selections(torch, timer, sess, groups, device, masks):
     version and the live-pair bound.  Returns {semiring: [selection
     figures]}."""
     from repro_torch.kernels.fused_superstep import kernel as fk
-    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
     from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
 
     figures = {}
     for semiring, grp in groups.items():
         bp = sess._pair_data(grp)
         bn, vb = grp.graph.num_blocks, grp.graph.block_size
-        jb = _pick_job_block(CAPACITY, vb, semiring)
         rows = bp.dst_touched.cpu().numpy()
         src_np = bp.src.cpu().numpy()
         rec = masks[semiring]
@@ -652,8 +661,8 @@ def check_selections(torch, timer, sess, groups, device, masks):
                     bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
                     values=vals, run_start=bp.run_start,
                     chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
-                    arrivals=bp.arrivals(CAPACITY // jb), src_live=live,
-                    semiring=semiring, job_block=jb)
+                    arrivals=bp.arrivals(), src_live=live,
+                    semiring=semiring)
 
             def plain():
                 return fused_superstep_ref(
@@ -709,14 +718,16 @@ def ptxas_report(common, fk):
         for fn, lines in info.items():
             if tag in fn:
                 log(f"  ptxas {sr} Vb=64: {' | '.join(lines)}")
-        log(f"  {sr} Vb=64 jb=4: {fk.smem_bytes(4, 64)} B shared memory, "
-            f"{fk.blocks_per_sm(4, 64, sr)} thread blocks per SM")
+        for j in (CAPACITY, 48):
+            lay = fk.layout(j, 64)
+            log(f"  {sr} Vb=64 J={j} {lay}: "
+                f"{fk.smem_bytes(64, j, lay)} B shared memory, "
+                f"{fk.blocks_per_sm(64, j, sr)} thread blocks per SM")
 
 
 def check_kernels(torch, timer, sess, groups, device):
     """Phase 2: kernels vs plain versions on the real pairs."""
     from repro_torch.kernels.fused_superstep import kernel as fk
-    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
     from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
 
     figures = {}
@@ -725,21 +736,19 @@ def check_kernels(torch, timer, sess, groups, device):
         bn, vb = grp.graph.num_blocks, grp.graph.block_size
         rows_all = bp.dst_touched.cpu().numpy()
         rng = np.random.default_rng(11)
-        cases = [(CAPACITY, bn, None), (7, bn, None), (7, bn, 1),
-                 (CAPACITY, bn // 2, None)]
+        cases = [(CAPACITY, bn), (7, bn), (48, bn), (CAPACITY, bn // 2)]
         errs = []
-        for j, bn_loc, jb in cases:
+        for j, bn_loc in cases:
             d, base, vals = random_state(torch, rng, j, bn, bn_loc, vb,
                                          semiring, device)
-            jb = jb or _pick_job_block(j, vb, semiring)
+            lay = fk.layout(j, vb)
 
             def kern():
                 return fk.fused_superstep_call(
                     bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
                     values=vals, run_start=bp.run_start,
                     chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
-                    arrivals=bp.arrivals(j // jb), semiring=semiring,
-                    job_block=jb)
+                    arrivals=bp.arrivals(), semiring=semiring)
 
             def plain():
                 return fused_superstep_ref(
@@ -751,10 +760,9 @@ def check_kernels(torch, timer, sess, groups, device):
             want = plain()
             err = compare(semiring, got, want, rows_all[:bn_loc])
             errs.append(err)
-            log(f"  {semiring}: J={j} jb={jb} B_loc={bn_loc} P={bp.num_pairs}"
-                f" matches plain (max |err| {err:.3g})")
-            if (j, bn_loc, jb) == (CAPACITY, bn,
-                                   _pick_job_block(j, vb, semiring)):
+            log(f"  {semiring}: J={j} {lay} B_loc={bn_loc} "
+                f"P={bp.num_pairs} matches plain (max |err| {err:.3g})")
+            if (j, bn_loc) == (CAPACITY, bn):
                 k = timer(kern, R_B1B2)
                 p = timer(plain, R_PLAIN)
                 b_ms, b_by = bound(semiring, j, bn, bn_loc, vb,
@@ -2013,7 +2021,6 @@ def shard_kernels(torch, sess, rank: int) -> dict:
     mismatch; returns max |err| per semiring.  Runs before the timed
     runs, whose launch counts start at 0."""
     from repro_torch.kernels.fused_superstep import kernel as fk
-    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
     from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
     rng = np.random.default_rng(23 + rank)
     errs = {}
@@ -2023,18 +2030,17 @@ def shard_kernels(torch, sess, rank: int) -> dict:
         j, b_loc, vb = g.values.shape
         d, base, vals = random_state(torch, rng, j, ps.num_blocks, b_loc, vb,
                                      sr, sess.device)
-        jb = _pick_job_block(j, vb, sr)
         got = fk.fused_superstep_call(
             lp.src, lp.dst, lp.first, lp.last, d, base, lp.tiles,
             values=vals, run_start=lp.run_start,
             chunk_start=lp.chunk_start, chunk_run=lp.chunk_run,
-            arrivals=lp.arrivals(j // jb), semiring=sr, job_block=jb)
+            arrivals=lp.arrivals(), semiring=sr)
         torch.cuda.synchronize()
         want = fused_superstep_ref(lp.src, lp.dst, lp.first, lp.last, d,
                                    base, lp.tiles, values=vals, semiring=sr)
         errs[sr] = compare(sr, got, want, lp.dst_touched.cpu().numpy())
         log(f"  rank {rank}: {sr} B1/B2 on shard {ps.shard} of "
-            f"{ps.num_shards} (J={j} jb={jb} B_loc={b_loc} d at "
+            f"{ps.num_shards} (J={j} {fk.layout(j, vb)} B_loc={b_loc} d at "
             f"B_N={ps.num_blocks}, P={lp.num_pairs}) matches plain (max "
             f"|err| {errs[sr]:.3g})")
     return errs
@@ -5590,7 +5596,6 @@ def wide_fused(torch, timer, sess, groups, vb, device) -> dict:
     prime J and, at the fleet's width, the width contract (d at B_N,
     outputs at B_loc = B_N/2).  Phase 2's bars."""
     from repro_torch.kernels.fused_superstep import kernel as fk
-    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
     from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
 
     figures = {}
@@ -5606,15 +5611,14 @@ def wide_fused(torch, timer, sess, groups, vb, device) -> dict:
         for j, bn_loc in cases:
             d, base, vals = random_state(torch, rng, j, bn, bn_loc, vb,
                                          semiring, device)
-            jb = _pick_job_block(j, vb, semiring)
+            lay = fk.layout(j, vb)
 
             def kern():
                 return fk.fused_superstep_call(
                     bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
                     values=vals, run_start=bp.run_start,
                     chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
-                    arrivals=bp.arrivals(j // jb), semiring=semiring,
-                    job_block=jb)
+                    arrivals=bp.arrivals(), semiring=semiring)
 
             def plain():
                 return fused_superstep_ref(
@@ -5630,7 +5634,7 @@ def wide_fused(torch, timer, sess, groups, vb, device) -> dict:
             want = plain()
             err = compare(semiring, got, want, rows_all[:bn_loc])
             f["errs"].append(err)
-            log(f"  17a {semiring} Vb={vb}: J={j} jb={jb} B_loc={bn_loc} "
+            log(f"  17a {semiring} Vb={vb}: J={j} {lay} B_loc={bn_loc} "
                 f"P={bp.num_pairs} matches plain (max |err| {err:.3g})")
             if (j, bn_loc) != (CAPACITY, bn):
                 continue
@@ -5639,17 +5643,16 @@ def wide_fused(torch, timer, sess, groups, vb, device) -> dict:
             p = timer(plain, R_PLAIN)
             b_ms, b_by = bound(semiring, j, bn, bn_loc, vb, bp.num_pairs,
                                bp.num_runs)
-            reads = j // jb
             log(f"  17a {semiring} Vb={vb}: kernel {fmt(k)}; plain "
                 f"{fmt(p)}; bound {b_ms:.4f} ms ({b_by}); "
                 f"{100 * b_ms / k['ms']:.1f}% of the bound; design: each "
-                f"tile staged by {reads} thread block(s) (jb {jb}, "
-                f"{fk.blocks_per_sm(jb, vb, semiring)} block(s) per SM, "
-                f"{fk.smem_bytes(jb, vb)} B shared memory)")
+                f"tile staged {lay.passes(j)} time(s) ({lay}, "
+                f"{fk.blocks_per_sm(vb, j, semiring)} block(s) per SM, "
+                f"{fk.smem_bytes(vb, j, lay)} B shared memory)")
             f.update(ms=k["ms"], host_ms_per_call=k["host_ms"],
                      queued=k["queued"], plain_ms=p["ms"], library_ms=None,
                      bound_ms=b_ms, bound_by=b_by, pairs=bp.num_pairs,
-                     jb=jb)
+                     pass_jobs=lay.pass_jobs)
         f["max_abs_err"] = max(f.pop("errs"))
         figures[semiring] = f
         del d, base, vals
@@ -5810,18 +5813,187 @@ def wide_phase(torch, timer, records=None) -> dict:
     if records is None:
         records = [G.run(multi_pod=mp) for mp in (False, True)]
     for r in records:
-        want = (r["local_jobs"], 2)
-        bars.check((r["kernel_route"], r["kernel_job_block"]) == (
-            "B1/B2", 2), f"17c {r['mesh']}: the fleet (Vb {r['vb']}, "
-            f"{want[0]} local jobs) on the kernel route: "
-            f"{r['kernel_route']!r}, job chunk {r['kernel_job_block']}")
+        want = fk.layout(r["local_jobs"], r["vb"]).pass_jobs
+        bars.check((r["kernel_route"], r["kernel_pass_jobs"]) == (
+            "B1/B2", want), f"17c {r['mesh']}: the fleet (Vb {r['vb']}, "
+            f"{r['local_jobs']} local jobs) on the kernel route: "
+            f"{r['kernel_route']!r}, {r['kernel_pass_jobs']} jobs a pass")
     log("17c the fleet's records:\n" + G.graph_table(records))
     out["fleet_routes"] = {r["mesh"]: [r["kernel_route"],
-                                       r["kernel_job_block"]]
+                                       r["kernel_pass_jobs"]]
                            for r in records}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 17 in {out['phase_s']:.1f} s ({out['card']})")
     bars.raise_if_failed("phase 17")
+    return out
+
+
+# -- phase 18: the B1/B2 kernel table ---------------------------------------
+
+#: 18b: (Vb, slots a view, selected sources q) of the benchmark's cells
+CELL_SHAPES = ((64, 48, 282), (512, 38, 35))
+CELL_N, CELL_DEGREE = 2**15, 16
+#: 18b: the live slots of the cells' views (the lowest free slot is
+#: taken, so a view's jobs sit in its lowest slots), then two others
+CELL_LIVE = {"plus_times": ("lowest 38", "every third", "none"),
+             "min_plus": ("lowest 16", "lowest 10", "every third")}
+
+
+def cell_live(label, j):
+    """[J] bool of a CELL_LIVE label."""
+    idx = np.arange(j)
+    if label.startswith("lowest"):
+        return idx < int(label.split()[1])
+    if label == "every third":
+        return idx % 3 == 0
+    return np.zeros(j, bool)
+
+
+def table_rows_j4(torch, timer, fk, fused_superstep_ref, views, vb,
+                  device, tag) -> dict:
+    """18a: J = 4, every source live, against the plain version, timed
+    beside the all-pairs bound.  `views`: {semiring: BlockPairs}."""
+    figures = {}
+    for semiring, bp in views.items():
+        bn = bp.num_blocks
+        rng = np.random.default_rng(vb + 4)
+        d, base, vals = random_state(torch, rng, CAPACITY, bn, bn, vb,
+                                     semiring, device)
+
+        def kern():
+            return fk.fused_superstep_call(
+                bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+                values=vals, run_start=bp.run_start,
+                chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
+                arrivals=bp.arrivals(), semiring=semiring)
+        got = kern()
+        want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d,
+                                   base, bp.tiles, values=vals,
+                                   semiring=semiring)
+        err = compare(semiring, got, want, bp.dst_touched.cpu().numpy())
+        del got, want
+        k = timer(kern, R_B1B2)
+        b_ms, b_by = bound(semiring, CAPACITY, bn, bn, vb, bp.num_pairs,
+                           bp.num_runs)
+        log(f"  18a {tag} {semiring} Vb={vb} J={CAPACITY}: kernel {fmt(k)};"
+            f" bound {b_ms:.4f} ms ({b_by}); {100 * b_ms / k['ms']:.1f}% "
+            f"of the bound; max |err| {err:.3g}")
+        figures[semiring] = dict(ms=k["ms"], host_ms_per_call=k["host_ms"],
+                                 queued=k["queued"], bound_ms=b_ms,
+                                 bound_by=b_by, pairs=bp.num_pairs,
+                                 max_abs_err=err)
+    return figures
+
+
+def table_rows_cells(torch, timer, fk, fused_superstep_ref, views, vb, j,
+                     q, device) -> list:
+    """18b: the cells' (Vb, J) and slot layouts on a random selection of q
+    sources.  `views`: {semiring: BlockPairs}."""
+    rows = []
+    for semiring, bp in views.items():
+        bn = bp.num_blocks
+        rng = np.random.default_rng(vb + j)
+        src_live = np.zeros(bn, bool)
+        src_live[rng.choice(bn, size=min(q, bn), replace=False)] = True
+        live = torch.as_tensor(src_live, device=device)
+        src_np = bp.src.cpu().numpy()
+        ident = 0.0 if semiring == "plus_times" else float("inf")
+        for label in CELL_LIVE[semiring]:
+            alive_np = cell_live(label, j)
+            alive = torch.as_tensor(alive_np, device=device)
+            d, base, vals = masked_state(torch, rng, j, bn, vb, semiring,
+                                         live, device)
+            d = torch.where(alive[:, None, None], d, ident)
+
+            def kern():
+                return fk.fused_superstep_call(
+                    bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+                    values=vals, run_start=bp.run_start,
+                    chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
+                    arrivals=bp.arrivals(), src_live=live, job_live=alive,
+                    semiring=semiring)
+            counts = fk.b1b2_counts(device)
+            before = counts.clone()
+            got = kern()
+            added = (counts - before).tolist()
+            want_counts = fk.expected_counts(
+                bp.src, bp.dst, live, alive, j, vb, bn, bn).tolist()
+            if added != want_counts:
+                raise AssertionError(f"18b {semiring} Vb={vb} {label}: "
+                                     f"counts {added} != {want_counts}")
+            got2 = kern()
+            torch.cuda.synchronize()
+            for a, b in zip(got, got2):
+                if not torch.equal(a[:, bp.dst_touched],
+                                   b[:, bp.dst_touched]):
+                    raise AssertionError(f"18b {semiring} Vb={vb} {label}: "
+                                         f"two calls differ")
+            want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last,
+                                       d, base, bp.tiles, values=vals,
+                                       src_live=live, semiring=semiring)
+            err = compare(semiring, got, want, bp.dst_touched.cpu().numpy())
+            del got, got2, want
+            k = timer(kern, R_B1B2)
+            n_alive = int(alive_np.sum())
+            slots_ms, slots_by, n_pairs = live_bound(
+                semiring, j, bn, vb, src_np, src_live, bp.num_runs,
+                bp.chunk_run.numel())
+            jobs_ms, jobs_by, _ = live_bound(
+                semiring, max(n_alive, 1), bn, vb, src_np, src_live,
+                bp.num_runs, bp.chunk_run.numel())
+            lay = fk.layout(j, vb)
+            log(f"  18b {semiring} Vb={vb} J={j} {label} ({n_alive} live "
+                f"jobs, {lay.passes(n_alive)} pass(es) of {lay.pass_jobs}; "
+                f"{n_pairs} of {bp.num_pairs} pairs live): kernel "
+                f"{fmt(k)}; bound of every slot {slots_ms:.4f} ms "
+                f"({slots_by}) {100 * slots_ms / k['ms']:.1f}%, of the live "
+                f"jobs {jobs_ms:.4f} ms ({jobs_by}) "
+                f"{100 * jobs_ms / k['ms']:.1f}%; counts {added}; max |err| "
+                f"{err:.3g}; repeat call bit-identical")
+            rows.append(dict(semiring=semiring, vb=vb, j=j, live=label,
+                             live_jobs=n_alive, live_pairs=n_pairs,
+                             pairs=bp.num_pairs, ms=k["ms"],
+                             host_ms_per_call=k["host_ms"],
+                             queued=k["queued"], slots_bound_ms=slots_ms,
+                             jobs_bound_ms=jobs_ms, counts=added,
+                             max_abs_err=err))
+            del d, base, vals
+    return rows
+
+
+def b1b2_table_phase(torch, timer) -> dict:
+    """Phase 18: the B1/B2 rows of the kernel table (18a: J = 4; 18b: the
+    benchmark cells' shapes).  Raises on a failed check."""
+    from repro_torch.graph import rmat_graph
+    from repro_torch.kernels.fused_superstep import kernel as fk
+    from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
+    t_phase = time.perf_counter()
+    out = {"card": card_line(), "j4": {}, "cells": []}
+    graphs = [(N_VERTICES, AVG_DEGREE, (BLOCK,))] + [
+        (WIDE_N, AVG_DEGREE, WIDE_VBS)]
+    for n, deg, vbs in graphs:
+        csr = rmat_graph(n, deg, seed=0)
+        for vb in vbs:
+            sess, _, groups, _ = wide_session(torch, csr, vb)
+            views = {sr: sess._pair_data(g) for sr, g in groups.items()}
+            out["j4"][f"{n}/{vb}"] = table_rows_j4(
+                torch, timer, fk, fused_superstep_ref, views, vb,
+                sess.device, f"rmat({n}, {deg})")
+            del sess, groups, views
+            gc.collect()
+            torch.cuda.empty_cache()
+    csr = rmat_graph(CELL_N, CELL_DEGREE, seed=0)
+    for vb, j, q in CELL_SHAPES:
+        sess, _, groups, _ = wide_session(torch, csr, vb)
+        views = {sr: sess._pair_data(g) for sr, g in groups.items()}
+        out["cells"] += table_rows_cells(torch, timer, fk,
+                                         fused_superstep_ref, views, vb, j,
+                                         q, sess.device)
+        del sess, groups, views
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 in {out['phase_s']:.1f} s ({out['card']})")
     return out
 
 
@@ -5850,7 +6022,7 @@ def main() -> int:
                     help="add a traced rerun (per-layer breakdown)")
     ap.add_argument("--phases", choices=("all", "10", "11", "11c", "12",
                                          "12d", "13", "14", "15", "16",
-                                         "17"),
+                                         "17", "18"),
                     default="all",
                     help="'10' / '11' / '12' / '13' / '14' / '15' / '16' / "
                          "'17': phase 1 and the LM serving / training / "
@@ -5915,7 +6087,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas ({name}): {line.strip()}")
     ptxas_report(common, fk)
-    if args.phases in ("10", "11", "12", "13", "14", "15", "16", "17"):
+    if args.phases in ("10", "11", "12", "13", "14", "15", "16", "17",
+                       "18"):
         if args.phases == "10":
             print(json.dumps({"lm": lm_phase(torch, args.trace)}),
                   flush=True)
@@ -5936,6 +6109,9 @@ def main() -> int:
         elif args.phases == "17":
             print(json.dumps({"widths": wide_phase(torch, Timer(torch))}),
                   flush=True)
+        elif args.phases == "18":
+            print(json.dumps({"b1b2_table": b1b2_table_phase(
+                torch, Timer(torch))}), flush=True)
         else:
             print(json.dumps({"dist": dist_phase(torch, out_dir, None)}),
                   flush=True)

@@ -17,8 +17,8 @@ calls) on a live session and watches what it does:
                 float64 sums (ROADMAP C) are outside it.
   smem-budget   the counterpart of the reference's vmem-budget: the
                 shared memory of one thread block of B1/B2
-                (`fused_superstep`, at the job chunk it launches with,
-                `_pick_job_block`, under the thread limit too) and B3
+                (`fused_superstep`, at the job layout it launches with,
+                `layout`, under the thread limit too) and B3
                 (`mj_spmm`, at its own pass of min(J, JR) jobs,
                 `pass_jobs`, through its `check_shape`) for
                 every view's job count fits `kernels.common.SMEM_BUDGET`
@@ -190,30 +190,28 @@ def check_smem_budget(sess) -> List[ContractResult]:
     """B1/B2 and B3 at their launch sizing, every Vb they take, each
     view's job count."""
     from repro_torch.kernels.fused_superstep import kernel as fk
-    from repro_torch.kernels.fused_superstep.ops import \
-        _pick_job_block as fs_pick
     from repro_torch.kernels.mj_spmm import kernel as mk
 
     kernels = (
-        ("fused_superstep", fk, lambda j, vb: fs_pick(j, vb, "plus_times"),
-         lambda j, vb, jb: common.check_job_chunk(
-             "fused_superstep", j, vb, jb, fk.SUPPORTED_VB, fk.smem_bytes)),
-        # B3 checks its own pass (None), which need not divide J
-        ("mj_spmm", mk, lambda j, vb: mk.pass_jobs(j),
-         lambda j, vb, jb: mk.check_shape(j, vb)))
+        # B1/B2 at its (J, Vb) layout: the jobs one pass holds
+        ("fused_superstep", fk, lambda j, vb: fk.layout(j, vb).pass_jobs,
+         fk.check_shape,
+         lambda j, vb: fk.smem_bytes(vb, j, fk.layout(j, vb))),
+        # B3 checks its own pass, which need not divide J
+        ("mj_spmm", mk, lambda j, vb: mk.pass_jobs(j), mk.check_shape,
+         lambda j, vb: mk.smem_bytes(mk.pass_jobs(j), vb)))
     out = []
     for g in sess.view_groups():
         j = g.capacity
         sizes, fails = [], []
-        for name, mod, pick, check in kernels:
+        for name, mod, pick, check, smem in kernels:
             for vb in mod.SUPPORTED_VB:
-                jb = pick(j, vb)
                 try:
-                    check(j, vb, jb)
+                    check(j, vb)
                 except ValueError as e:
                     fails.append(str(e))
-                sizes.append(f"{name}[Vb={vb}, jb={jb}] "
-                             f"{mod.smem_bytes(jb, vb)} B")
+                sizes.append(f"{name}[Vb={vb}, jb={pick(j, vb)}] "
+                             f"{smem(j, vb)} B")
         out.append(ContractResult(
             "smem-budget", not fails,
             f"view {g.key!r} J={j}: " + ("; ".join(fails) if fails else

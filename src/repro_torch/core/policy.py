@@ -87,6 +87,7 @@ from repro_torch.core import priority as prio
 from repro_torch.core.do_select import group_queues_device, step_key
 from repro_torch.core.global_q import accumulate_priority, synthesize_topq
 from repro_torch.core.push import compute_pairs, indep_push_fn, shared_push_fn
+from repro_torch.kernels.fused_superstep import kernel as fk
 from repro_torch.obs.telemetry import (SERIES_FIELDS, HostSeriesBuilder,
                                        TelemetrySeries, device_buffers,
                                        device_rows, device_write,
@@ -128,6 +129,11 @@ class RunMetrics:
     # their host time; not in to_dict (the reference has no such keys)
     collectives: int = 0
     collective_s: float = 0.0
+    # B1/B2's work over the run (`fused_superstep.kernel.b1b2_counts`,
+    # this process's calls): live pairs x the passes that staged them, and
+    # (job slot, call) pairs whose arithmetic was skipped.  Not in to_dict
+    b1b2_stagings: int = 0
+    b1b2_jobs_skipped: int = 0
     # when the session traces: each executed superstep's end on the
     # trace's clock (us), where the driver learnt of it: the end of its
     # `superstep` span (host) or of the `chunk.read` that returned it
@@ -310,6 +316,7 @@ def _run_host(policy: SchedulePolicy, sess,
     nnz_host = [p.src_nnz.cpu().numpy() for p in grp_pairs]  # noqa: RPT002 - once a run
     m = RunMetrics(
         iterations_per_job=np.zeros(int(offs[-1]), dtype=np.int64))
+    b1b2 = fk.b1b2_counts(dev).zero_()
     telemetry = sess.series_capacity > 0
     series = (HostSeriesBuilder([g.key for g in groups]) if telemetry
               else None)
@@ -462,7 +469,8 @@ def _run_host(policy: SchedulePolicy, sess,
         if m.step_end_us is not None:
             m.step_end_us.append(step_sp.end_us)
     with trace.span("run.finish", cat="superstep", tid=2):
-        _sync(dev)
+        # the run's last read: B1/B2's counts, once the last push is done
+        m.b1b2_stagings, m.b1b2_jobs_skipped = b1b2.tolist()  # noqa: RPT002 - the run's last read
     if series is not None:
         m.telemetry = series.build()
     if spec is not None:
@@ -681,6 +689,7 @@ def _run_device(policy: SchedulePolicy, sess,
     else:
         state, *args = device_inputs(sess)
         finish = _finish_device
+    fk.b1b2_counts(sess.device).zero_()
     budget = int(min(max_supersteps, np.iinfo(np.int32).max))
     seed, pos = sess.seed, sess.scheduler._step
     trace = sess.trace
@@ -719,7 +728,8 @@ def _finish_device(sess, state, it_h: int, m: RunMetrics) -> None:
     """The one-device run's totals, iteration counts and series into `m`
     in one read (float64 holds the counts exactly up to 2^53)."""
     groups = sess.view_groups()
-    parts = [torch.stack([state[3], state[4], state[5]]).to(torch.float64)]  # noqa: RPT006 - exact
+    parts = [torch.stack([state[3], state[4], state[5]]).to(torch.float64),  # noqa: RPT006 - exact
+             fk.b1b2_counts(sess.device).to(torch.float64)]  # noqa: RPT006 - exact
     parts += [x.to(torch.float64) for x in state[6]]  # noqa: RPT006 - exact iteration counts
     tel_cap = sess.series_capacity
     if tel_cap:
@@ -727,11 +737,12 @@ def _finish_device(sess, state, it_h: int, m: RunMetrics) -> None:
     flat = torch.cat(parts).cpu().numpy()
     m.tile_loads, m.job_block_pushes, m.tile_pair_loads = (
         int(x) for x in flat[:3])
+    m.b1b2_stagings, m.b1b2_jobs_skipped = (int(x) for x in flat[3:5])
     n_iters = sum(g.capacity for g in groups)
-    m.iterations_per_job = flat[3:3 + n_iters].astype(np.int64)
+    m.iterations_per_job = flat[5:5 + n_iters].astype(np.int64)
     if tel_cap:
         m.telemetry = series_from_rows(
-            flat[3 + n_iters:].reshape(
+            flat[5 + n_iters:].reshape(
                 min(it_h, tel_cap), len(SERIES_FIELDS) + 2 * len(groups)),
             it_h, tel_cap, [g.key for g in groups])
 

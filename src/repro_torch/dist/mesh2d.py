@@ -85,9 +85,9 @@ from repro_torch.graph.structure import (BlockedGraph, BlockPairs,
                                          build_view_shard, chunk_table,
                                          run_starts)
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.fused_superstep import kernel as fk
 from repro_torch.kernels.fused_superstep.kernel import fused_superstep_call
-from repro_torch.kernels.fused_superstep.ops import (_pick_job_block,
-                                                     block_mask)
+from repro_torch.kernels.fused_superstep.ops import block_mask, job_live
 from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
 from repro_torch.obs.telemetry import (SERIES_FIELDS, device_buffers,
                                        device_rows, device_write,
@@ -780,24 +780,24 @@ def _apply_pairs_local(semiring: str, values, base, raw, d_wide, d_sel,
 
     use_kernel: `fused_superstep_call` sweeps the slice (the CUDA kernels
     on CUDA tensors at the width contract: d at B_N, base/values and the
-    outputs at B_loc; its plain version on CPU tensors), reading `gate`
-    and staging only the pairs of `src_live` sources.  Otherwise the
-    plain version, `fused_superstep_ref`."""
+    outputs at B_loc; its plain version on CPU tensors), reading `gate`,
+    staging only the pairs of `src_live` sources and pushing only the
+    rank's jobs with a live row (`job_live`).  Otherwise the plain
+    version, `fused_superstep_ref`."""
     lp = ps.local
-    j, _, vb = values.shape
     touched = lp.dst_touched[None, :, None]
+    d_push = (d_wide * scales[:, None, None] if semiring == PLUS_TIMES
+              else d_wide)
     if use_kernel:
-        jb = _pick_job_block(j, vb, semiring)
         call = fused_superstep_call
         meta = dict(run_start=lp.run_start, chunk_start=lp.chunk_start,
-                    chunk_run=lp.chunk_run, arrivals=lp.arrivals(j // jb),
-                    src_live=src_live, gate=gate, semiring=semiring,
-                    job_block=jb)
+                    chunk_run=lp.chunk_run, arrivals=lp.arrivals(),
+                    src_live=src_live, job_live=job_live(d_push, semiring),
+                    gate=gate, semiring=semiring)
     else:
         call = fused_superstep_ref
         meta = dict(src_live=src_live, semiring=semiring)
     if semiring == PLUS_TIMES:
-        d_push = d_wide * scales[:, None, None]
         out = call(lp.src, lp.dst, lp.first, lp.last, d_push, base,
                    lp.tiles, **meta)[0]
         out = torch.where(touched, out, base)
@@ -806,7 +806,7 @@ def _apply_pairs_local(semiring: str, values, base, raw, d_wide, d_sel,
         out = _overlay_plus_local(out, d_ov, overlay, sel, boff, b_loc,
                                   shared)
         return values + raw, out
-    vo, do = call(lp.src, lp.dst, lp.first, lp.last, d_wide, base,
+    vo, do = call(lp.src, lp.dst, lp.first, lp.last, d_push, base,
                   lp.tiles, values=values, **meta)[:2]
     v1 = torch.where(touched, vo, values)
     d1 = torch.where(touched, do, base)
@@ -1143,7 +1143,11 @@ def finish_device_2d(sess, state, it_h: int, m) -> None:
     rows = device_rows(state[8], it_h) if tel_cap else None
     if tel_cap:
         parts.append(rows[:, :n_sum].reshape(-1))
-    flat = spec.all_reduce(torch.cat(parts), SUM).cpu().numpy()
+    # this rank's B1/B2 counts ride the same read, after the world sum
+    flat = torch.cat([spec.all_reduce(torch.cat(parts), SUM),
+                      fk.b1b2_counts(dev).to(torch.float64)]).cpu().numpy()  # noqa: RPT006 - exact
+    m.b1b2_stagings, m.b1b2_jobs_skipped = (int(x) for x in flat[-2:])
+    flat = flat[:-2]
     m.tile_loads, m.job_block_pushes, m.tile_pair_loads = (
         int(x) for x in flat[:3])
     m.halo_bytes = float(flat[3])

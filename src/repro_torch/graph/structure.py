@@ -163,25 +163,22 @@ class BlockPairs:
     chunk_start: torch.Tensor
     chunk_run: torch.Tensor
     dense_op: Optional[torch.Tensor] = None
-    _arrivals: dict = dataclasses.field(default_factory=dict, repr=False,
-                                        compare=False)
+    _arrivals: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def num_runs(self) -> int:
         return int(self.run_start.shape[0]) - 1
 
-    def arrivals(self, job_chunks: int) -> torch.Tensor:
-        """The CUDA kernels' per-(run, job chunk) arrival counters,
-        [R * job_chunks] int32, zeroed once on first use.  Each kernel
-        call leaves them at zero again (the last thread block of a run
-        resets its counter), so the view keeps one array per job-chunk
-        count for all its calls."""
-        t = self._arrivals.get(job_chunks)
-        if t is None:
-            t = torch.zeros(self.num_runs * job_chunks, dtype=torch.int32,
-                            device=self.run_start.device)
-            self._arrivals[job_chunks] = t
-        return t
+    def arrivals(self) -> torch.Tensor:
+        """The CUDA kernels' per-run arrival counters, [R] int32, zeroed
+        once on first use.  Each kernel call leaves them at zero again
+        (the last work item of a run resets its counter), so the view
+        keeps one array for all its calls."""
+        if self._arrivals is None:
+            self._arrivals = torch.zeros(self.num_runs, dtype=torch.int32,
+                                         device=self.run_start.device)
+        return self._arrivals
 
 
 #: build_block_pairs materializes `dense_op` only when the block graph is

@@ -17,7 +17,7 @@ Three decisions live here, once:
               with ctypes (`load_library`, `build_all`).
 
 `SMEM_BUDGET` is the shared memory one thread block may use on Hopper
-(227 KB); the job-chunk pickers size against it.
+(227 KB); the kernels' layout tables size against it.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Dict, Sequence
 
 import torch
 
@@ -73,44 +73,10 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"kernel inputs on mixed devices: {sorted(kinds)}")
 
 
-def threads(jb: int, vb: int) -> int:
-    """Threads of one thread block that owns one (job, lane) each, for a
-    job chunk of `jb` jobs: warp-rounded."""
-    return -(-jb * vb // 32) * 32
-
-
-def check_job_chunk(kernel: str, j: int, vb: int, jb: int,
-                    supported_vb: Sequence[int],
-                    smem_bytes: Callable[[int, int], int]) -> None:
-    """Raise for a (J, Vb, job chunk) that `kernel` does not take: a Vb
-    it is not instantiated for, a chunk that does not divide J, more
-    than `MAX_THREADS` threads or more than `SMEM_BUDGET` bytes of
-    shared memory (`smem_bytes(jb, vb)`) per thread block."""
-    if vb not in supported_vb:
-        raise ValueError(f"the {kernel} kernel takes Vb in "
-                         f"{tuple(supported_vb)}, not {vb}")
-    if jb < 1 or j % jb:
-        raise ValueError(f"job_block={jb} must divide J={j}")
-    if threads(jb, vb) > MAX_THREADS:
-        raise ValueError(f"job_block={jb} x Vb={vb} exceeds {MAX_THREADS} "
-                         f"threads per block")
-    if smem_bytes(jb, vb) > SMEM_BUDGET:
-        raise ValueError(f"job_block={jb} x Vb={vb} needs "
-                         f"{smem_bytes(jb, vb)} B of shared memory > "
-                         f"{SMEM_BUDGET}")
-
-
-def pick_job_block(j: int, vb: int,
-                   smem_bytes: Callable[[int, int], int]) -> int:
-    """Largest job chunk one thread block can hold: one thread per (job,
-    lane) under `MAX_THREADS`, `smem_bytes(jb, vb)` under `SMEM_BUDGET`,
-    falling back through divisors of J (a prime J degrades to 1)."""
-    jb = max(1, min(j, MAX_THREADS // vb))
-    while jb > 1 and smem_bytes(jb, vb) > SMEM_BUDGET:
-        jb -= 1
-    while j % jb:
-        jb -= 1
-    return jb
+def threads(rows: int, vb: int) -> int:
+    """Threads of one thread block of `rows` rows of Vb threads:
+    warp-rounded."""
+    return -(-rows * vb // 32) * 32
 
 
 def checked(name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -53,22 +53,30 @@ def _flush_pairs(pr: torch.Tensor):
 def fused_superstep_ref(src, dst, first, last, d, base, tiles, *,
                         values=None, run_start=None, chunk_start=None,
                         chunk_run=None, arrivals=None, src_live=None,
-                        gate=None, semiring: str = "plus_times",
+                        job_live=None, gate=None,
+                        semiring: str = "plus_times",
                         tolerance: float = 1e-6):
     """The kernels' function.  The work-item arguments (run_start, the
     chunk table, arrivals) and `gate` do not change it and are ignored;
     `src_live` masks the rows of `d` of other sources to the semiring
-    identity (a no-op under the kernels' precondition)."""
+    identity, and a job outside `job_live` keeps its base (min-plus: its
+    values and base), as the kernels write it through; both are no-ops
+    under the kernels' preconditions, up to the sign of a zero in
+    plus-times."""
     del first, last, run_start, chunk_start, chunk_run, arrivals, gate
     j, _, vb = d.shape
     bn = base.shape[1]
+    ident = 0.0 if semiring == "plus_times" else float("inf")
     if src_live is not None:
-        ident = 0.0 if semiring == "plus_times" else float("inf")
         d = torch.where(src_live.bool()[None, :, None], d, ident)
+    if job_live is not None:
+        d = torch.where(job_live.bool()[:, None, None], d, ident)
     src = src.long()
     if semiring == "plus_times":
         contrib = pair_products(d[:, src, :], tiles)
         out = scatter_add_drop(base, dst, contrib)
+        if job_live is not None:
+            out = torch.where(job_live.bool()[:, None, None], out, base)
         a = out.abs()
         pr = torch.where(a >= tolerance, a, 0.0)
         nu, ps = _flush_pairs(pr)

@@ -70,12 +70,12 @@ the GiB figures):
                         (`cost.fused_live_bytes`) and the wire bytes;
   kernel_route          whether B1/B2 take the cell on the card: Vb must
                         be in `SUPPORTED_VB` (every power of two from 8
-                        to 512, the fleet's 512 included) and a job
-                        chunk must fit `SMEM_BUDGET`; else "plain only"
+                        to 512, the fleet's 512 included) and the job
+                        layout must fit `SMEM_BUDGET`; else "plain only"
                         and why;
-  kernel_job_block      the job chunk B1/B2 launch with on that route
-                        (jobs a thread block holds: 2 at Vb = 512), or
-                        None;
+  kernel_pass_jobs      the live jobs one pass of B1/B2 holds on that
+                        route (`fused_superstep.kernel.layout`: at Vb =
+                        512, 12 for 4 local jobs, 2 for 2), or None;
   trace_s               host seconds of the step (the reference's
                         compile_s).
 
@@ -114,7 +114,6 @@ from repro_torch.graph.structure import (PAIR_CHUNK, CSRGraph,
                                          block_adjacency)
 from repro_torch.kernels import common
 from repro_torch.kernels.fused_superstep import kernel as fk
-from repro_torch.kernels.fused_superstep.ops import _pick_job_block
 from repro_torch.launch import cost
 from repro_torch.launch.dryrun import (META, fake_world, local_bytes,
                                        tensor_bytes)
@@ -284,10 +283,8 @@ def call_rows(calls) -> list:
 def kernel_route(vb: int, local_jobs: int) -> str:
     """"B1/B2" where the fused kernels take a view of block size `vb` with
     `local_jobs` job rows on the card, else "plain only" and why."""
-    jb = _pick_job_block(local_jobs, vb, "plus_times")
     try:
-        common.check_job_chunk("fused_superstep", local_jobs, vb, jb,
-                               fk.SUPPORTED_VB, fk.smem_bytes)
+        fk.check_shape(local_jobs, vb)
     except ValueError as e:
         return f"plain only: {e}"
     return "B1/B2"
@@ -395,7 +392,7 @@ def run(n_vertices: int = 1 << 20, n_jobs: int = 64, vb: int = 512,
                                         csum["nvlink_wire_bytes"],
                                         csum["network_wire_bytes"]),
         "kernel_route": route,
-        "kernel_job_block": (_pick_job_block(j_loc, vb, "plus_times")
+        "kernel_pass_jobs": (fk.layout(j_loc, vb).pass_jobs
                              if route == "B1/B2" else None),
     }
 
@@ -413,8 +410,8 @@ def graph_table(records) -> str:
             f"{r['temp_gib_per_dev']:.4f} | {r['wire_gib_per_dev']:.6f} | "
             f"{r['flops_per_dev']:.5g} / {r['flops_plain_per_dev']:.5g} | "
             f"{r['roofline']['dominant']} | {r['kernel_route']}"
-            + (f" (jb {r['kernel_job_block']})"
-               if r.get("kernel_job_block") else "") + " |")
+            + (f" ({r['kernel_pass_jobs']} jobs a pass)"
+               if r.get("kernel_pass_jobs") else "") + " |")
     return "\n".join(out)
 
 

@@ -18,8 +18,6 @@ torch = pytest.importorskip("torch")
 from repro_torch.graph import (build_blocked, build_block_pairs,  # noqa: E402
                                rmat_graph, uniform_graph)
 from repro_torch.kernels.fused_superstep import kernel as fk  # noqa: E402
-from repro_torch.kernels.fused_superstep.ops import (  # noqa: E402
-    _pick_job_block)
 from repro_torch.kernels.fused_superstep.ref import (  # noqa: E402
     fused_superstep_ref)
 
@@ -85,8 +83,7 @@ def test_kernel_matches_plain(cuda, semiring, vb, j):
     before = fk.launches[semiring]
     got = fk.fused_superstep_call(
         bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles, values=vals,
-        run_start=bp.run_start, semiring=semiring,
-        job_block=_pick_job_block(j, vb, semiring))
+        run_start=bp.run_start, semiring=semiring)
     torch.cuda.synchronize()
     assert fk.launches[semiring] == before + 1
     want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
@@ -99,25 +96,26 @@ def test_kernel_matches_plain(cuda, semiring, vb, j):
 def test_kernel_width_contract_and_job_chunks(cuda, semiring, vb):
     """d at the global source width B_N, base/values/outputs at a local
     width B_loc < B_N: runs with a destination >= B_loc are dropped, the
-    rest match; explicit job chunks (jb < J, as many as 1024 threads
-    hold) give the same result."""
+    rest match; with every job live, and with half of them dead (their
+    rows the identity, flagged in `job_live`), J = 6 and J = 38."""
     g, bp = _pairs(semiring, vb, cuda, n=max(1500, 10 * vb))
     bn = g.num_blocks
     bn_loc = bn // 2
-    rng = np.random.default_rng(5)
-    d, base, vals = _state(rng, 6, bn, bn_loc, vb, semiring, cuda)
-    want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
-                               bp.tiles, values=vals, semiring=semiring)
     rows = bp.dst_touched.cpu().numpy()[:bn_loc]
-    for jb in (None, 1, 2, 3):
-        if jb is None and 6 * vb > 1024:     # the wrapper's default jb = J
-            jb = _pick_job_block(6, vb, semiring)
-        elif jb is not None and jb * vb > 1024:
-            continue
-        got = fk.fused_superstep_call(
-            bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
-            values=vals, semiring=semiring, job_block=jb)
-        _compare(semiring, got, want, rows)
+    ident = 0.0 if semiring == "plus_times" else float("inf")
+    for j in (6, 38):
+        rng = np.random.default_rng(5 + j)
+        d, base, vals = _state(rng, j, bn, bn_loc, vb, semiring, cuda)
+        for alive in (None, torch.arange(j, device=cuda) % 2 == 1):
+            dj = d if alive is None else torch.where(alive[:, None, None], d,
+                                                     ident)
+            want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last,
+                                       dj, base, bp.tiles, values=vals,
+                                       semiring=semiring)
+            got = fk.fused_superstep_call(
+                bp.src, bp.dst, bp.first, bp.last, dj, base, bp.tiles,
+                values=vals, job_live=alive, semiring=semiring)
+            _compare(semiring, got, want, rows)
 
 
 def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
@@ -132,22 +130,31 @@ def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
     fk.fused_superstep_call(bp.src, bp.dst, bp.first, bp.last, d, base,
                             bp.tiles)
     torch.cuda.synchronize()
-    # the Python mirror of the launcher's shared-memory size agrees, and
-    # every width's largest job chunk fits an SM
-    for jb, vb in [(1, 16), (13, 16), (4, 64), (8, 128), (4, 8), (64, 8),
-                   (4, 256), (1, 256), (2, 512), (1, 512)]:
-        assert fk._lib().fs_smem_bytes(jb, vb) == fk.smem_bytes(jb, vb)
+    # the Python mirrors of the launcher's shared-memory size and of JW
+    # agree, and every width's layout fits an SM (two blocks at the
+    # many-jobs layout up to Vb = 128)
+    for j, vb in [(1, 16), (13, 16), (4, 64), (8, 128), (4, 8), (64, 8),
+                  (4, 256), (1, 256), (2, 512), (1, 512), (48, 64),
+                  (38, 64), (16, 64), (10, 64), (38, 512), (7, 512),
+                  (13, 128), (100, 16)]:
+        geo = fk.kernel_geometry(vb, j)
+        lay = fk.layout(j, vb)
+        assert geo == {"wide_jobs": fk.wide_jobs(vb),
+                       "smem_bytes": fk.smem_bytes(vb, j, lay)}, (j, vb)
+        two = lay.jr > 1 and 2 * (fk.smem_bytes(vb, j, lay) + 1024) <= (
+            fk.SMEM_PER_SM)
         for sr in ("plus_times", "min_plus"):
-            assert fk.blocks_per_sm(jb, vb, sr) >= 1, (jb, vb, sr)
+            n = fk.blocks_per_sm(vb, j, sr)
+            assert n >= (2 if two else 1), (j, vb, sr)
     with pytest.raises(ValueError):      # Vb the kernels do not take
         fk.fused_superstep_call(bp.src, bp.dst, bp.first, bp.last,
                                 d[..., :12].contiguous(),
                                 base[..., :12].contiguous(),
                                 bp.tiles[:, :12, :12].contiguous())
-    with pytest.raises(ValueError):      # more than 1024 threads
-        big = torch.zeros((128, g.num_blocks, 16), device=cuda)
+    with pytest.raises(ValueError):      # job ids past the shared memory
+        big = torch.zeros((60000, g.num_blocks, 16), device=cuda)
         fk.fused_superstep_call(bp.src, bp.dst, bp.first, bp.last, big,
-                                big, bp.tiles, job_block=128)
+                                big, bp.tiles)
 
 
 @pytest.mark.parametrize("vb,n", [(16, 300), (512, 3000)])
@@ -215,24 +222,29 @@ def test_kernel_live_fraction_matches_plain(cuda, semiring, case, frac):
     g, bp = _split_pairs(semiring, cuda)
     assert int(np.diff(bp.run_start.cpu().numpy()).max()) > max(3 * 64, 256)
     bn, vb = g.num_blocks, g.block_size
-    j, jb, bn_loc = {"J4": (4, None, bn), "J7_jb1": (7, 1, bn),
-                     "J4_Bloc_half": (4, None, bn // 2)}[case]
-    jb = jb or _pick_job_block(j, vb, semiring)
+    # J7_jb1: seven jobs, the first dead (its rows the identity)
+    j, bn_loc = {"J4": (4, bn), "J7_jb1": (7, bn),
+                 "J4_Bloc_half": (4, bn // 2)}[case]
     rng = np.random.default_rng(int(frac * 10) + j)
     d, base, vals, live = _masked_state(rng, j, bn, bn_loc, vb, semiring,
                                         cuda, frac)
+    alive = None
+    if case == "J7_jb1":
+        alive = torch.arange(j, device=cuda) > 0
+        d = torch.where(alive[:, None, None], d,
+                        0.0 if semiring == "plus_times" else float("inf"))
     before = fk.launches[semiring]
     got = fk.fused_superstep_call(
         bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles, values=vals,
         run_start=bp.run_start, chunk_start=bp.chunk_start,
-        chunk_run=bp.chunk_run, arrivals=bp.arrivals(j // jb),
-        src_live=live, semiring=semiring, job_block=jb)
+        chunk_run=bp.chunk_run, arrivals=bp.arrivals(), src_live=live,
+        job_live=alive, semiring=semiring)
     torch.cuda.synchronize()
     assert fk.launches[semiring] == before + 1
     want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
                                bp.tiles, values=vals, semiring=semiring)
     _compare(semiring, got, want, bp.dst_touched.cpu().numpy()[:bn_loc])
-    assert int(bp.arrivals(j // jb).abs().sum()) == 0
+    assert int(bp.arrivals().abs().sum()) == 0
 
 
 @pytest.mark.parametrize("chunk", [1, 5, 64, None])
@@ -255,14 +267,14 @@ def test_kernel_repeated_calls_are_bit_identical(cuda, semiring, chunk):
         return fk.fused_superstep_call(
             bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
             values=vals, run_start=bp.run_start, chunk_start=cs,
-            chunk_run=cr, arrivals=bp.arrivals(1), src_live=live,
+            chunk_run=cr, arrivals=bp.arrivals(), src_live=live,
             semiring=semiring)
     first, second = call(), call()
     torch.cuda.synchronize()
     rows = bp.dst_touched
     for a, b in zip(first, second):
         assert torch.equal(a[:, rows], b[:, rows])
-    assert int(bp.arrivals(1).abs().sum()) == 0
+    assert int(bp.arrivals().abs().sum()) == 0
     want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
                                bp.tiles, values=vals, semiring=semiring)
     _compare(semiring, first, want, rows.cpu().numpy())
@@ -272,9 +284,9 @@ def test_kernel_repeated_calls_are_bit_identical(cuda, semiring, chunk):
 @pytest.mark.parametrize("vb", [8, 256, 512])
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
 def test_wide_kernel_split_runs_match_plain(cuda, semiring, vb, chunk):
-    """At the widths whose tiles stream in slices (256, 512: two job
-    chunks of the grid's neighbours at J = 4) and at Vb = 8: every run cut
-    into chunks of `chunk` pairs, half the sources live, against the plain
+    """At the widths whose tiles stream in slices (256, 512: a thread
+    carries the four jobs at 512) and at Vb = 8: every run cut into
+    chunks of `chunk` pairs, half the sources live, against the plain
     version; a repeat call bit-identical and the arrival counters back at
     0."""
     from repro_torch.graph import chunk_table
@@ -283,7 +295,6 @@ def test_wide_kernel_split_runs_match_plain(cuda, semiring, vb, chunk):
     cs, cr = (torch.as_tensor(a, device=cuda) for a in
               chunk_table(bp.run_start.cpu().numpy(), chunk))
     j = 4
-    jb = _pick_job_block(j, vb, semiring)
     rng = np.random.default_rng(vb + chunk)
     d, base, vals, live = _masked_state(rng, j, bn, bn, vb, semiring, cuda,
                                         0.5)
@@ -292,17 +303,84 @@ def test_wide_kernel_split_runs_match_plain(cuda, semiring, vb, chunk):
         return fk.fused_superstep_call(
             bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
             values=vals, run_start=bp.run_start, chunk_start=cs,
-            chunk_run=cr, arrivals=bp.arrivals(j // jb), src_live=live,
-            semiring=semiring, job_block=jb)
+            chunk_run=cr, arrivals=bp.arrivals(), src_live=live,
+            semiring=semiring)
     first, second = call(), call()
     torch.cuda.synchronize()
     rows = bp.dst_touched
     for a, b in zip(first, second):
         assert torch.equal(a[:, rows], b[:, rows])
-    assert int(bp.arrivals(j // jb).abs().sum()) == 0
+    assert int(bp.arrivals().abs().sum()) == 0
     want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d, base,
                                bp.tiles, values=vals, semiring=semiring)
     _compare(semiring, first, want, rows.cpu().numpy())
+
+
+#: the benchmark cells' views: (Vb, slots, the live slots of each view's
+#: jobs (the lowest free slot is taken), then a scattered layout and a
+#: view whose jobs all converged inside a poll)
+CELL_VIEWS = {(64, 48): {"plus_times": (38, "third", "none"),
+                         "min_plus": (16, 10, "third", "none")},
+              (512, 38): {"plus_times": (38, "third", "none"),
+                          "min_plus": (16, 10, "third", "none")}}
+
+
+def _cell_live(live, j, device):
+    idx = torch.arange(j, device=device)
+    if live == "third":
+        return idx % 3 == 1
+    if live == "none":
+        return torch.zeros(j, dtype=torch.bool, device=device)
+    return idx < live
+
+
+@pytest.mark.parametrize("bn_loc_half", [False, True],
+                         ids=["one_device", "mesh_width"])
+@pytest.mark.parametrize("shape", sorted(CELL_VIEWS),
+                         ids=lambda s: f"vb{s[0]}_j{s[1]}")
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_kernel_at_the_cells_shapes(cuda, semiring, shape, bn_loc_half):
+    """B1/B2 at the benchmark cells' (Vb, J) with their slot layouts, half
+    the sources live, d's dead rows the identity and flagged in
+    `job_live`: against the plain version on the full computation, a
+    repeat call bit-identical, and `b1b2_counts` adding what the flags and
+    the live pairs imply.  With bn_loc < bn_src, the mesh's width."""
+    vb, j = shape
+    g, bp = _pairs(semiring, vb, cuda, n=max(4000, 12 * vb))
+    bn = g.num_blocks
+    bn_loc = bn // 2 if bn_loc_half else bn
+    rows = bp.dst_touched.cpu().numpy()[:bn_loc]
+    ident = 0.0 if semiring == "plus_times" else float("inf")
+    for live in CELL_VIEWS[shape][semiring]:
+        rng = np.random.default_rng(vb + j + (live if isinstance(live, int)
+                                              else len(live)))
+        d, base, vals, src_live = _masked_state(rng, j, bn, bn_loc, vb,
+                                                semiring, cuda, 0.5)
+        alive = _cell_live(live, j, cuda)
+        d = torch.where(alive[:, None, None], d, ident)
+        counts = fk.b1b2_counts(cuda)
+
+        def call():
+            return fk.fused_superstep_call(
+                bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+                values=vals, run_start=bp.run_start,
+                chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
+                arrivals=bp.arrivals(), src_live=src_live, job_live=alive,
+                semiring=semiring)
+        before = counts.clone()
+        first = call()
+        added = (counts - before).tolist()
+        second = call()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a[:, :bn_loc][:, rows], b[:, :bn_loc][:, rows])
+        assert int(bp.arrivals().abs().sum()) == 0
+        assert added == fk.expected_counts(bp.src, bp.dst, src_live, alive,
+                                           j, vb, bn, bn_loc).tolist()
+        want = fused_superstep_ref(bp.src, bp.dst, bp.first, bp.last, d,
+                                   base, bp.tiles, values=vals,
+                                   semiring=semiring)
+        _compare(semiring, first, want, rows)
 
 
 def test_closed_gate_keeps_the_device_chunk_carry(cuda, monkeypatch):

@@ -412,7 +412,6 @@ def shard_kernel_check(sess, seed: int) -> dict:
     import torch
     from repro_torch.kernels.fused_superstep.kernel import (
         fused_superstep_call)
-    from repro_torch.kernels.fused_superstep.ops import _pick_job_block
     from repro_torch.kernels.fused_superstep.ref import fused_superstep_ref
     rng = np.random.default_rng(seed)
     checked = {}
@@ -433,12 +432,10 @@ def shard_kernel_check(sess, seed: int) -> dict:
             v = rng.random((j, b_loc, vb)) * 10
             d, base, vals = (t(d), t(np.where(rng.random(v.shape) < 0.5, v,
                                               np.inf)), t(v))
-        jb = _pick_job_block(j, vb, sr)
         got = fused_superstep_call(
             lp.src, lp.dst, lp.first, lp.last, d, base, lp.tiles,
             values=vals, run_start=lp.run_start, chunk_start=lp.chunk_start,
-            chunk_run=lp.chunk_run, arrivals=lp.arrivals(j // jb),
-            semiring=sr, job_block=jb)
+            chunk_run=lp.chunk_run, arrivals=lp.arrivals(), semiring=sr)
         want = fused_superstep_ref(lp.src, lp.dst, lp.first, lp.last, d,
                                    base, lp.tiles, values=vals, semiring=sr)
         rows = lp.dst_touched.cpu().numpy()

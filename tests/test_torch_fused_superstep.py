@@ -36,7 +36,7 @@ from repro_torch.core.push import (indep_push_fn, push_min_one,  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.fused_superstep import kernel as fk  # noqa: E402
 from repro_torch.kernels.fused_superstep.ops import (  # noqa: E402
-    _pick_job_block, fused_push)
+    fused_push, job_live)
 from repro_torch.kernels.fused_superstep.ref import (  # noqa: E402
     fused_superstep_ref)
 
@@ -329,15 +329,15 @@ def test_push_one_drops_sentinel_neighbors_like_reference(semiring):
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
 def test_prime_job_count_degrades_chunk(monkeypatch, semiring):
-    """J=13 (prime) under a tight shared-memory budget: the only divisor
-    under the cap is 1, and the chunk's footprint honours the budget; the
+    """J=13 (prime): the layout needs no divisor of J (a pass holds every
+    job, one (job, lane) a thread at Vb=16, and at Vb=128 two groups of 8
+    jobs a thread), it fits the thread and shared memory budgets, and the
     push still matches the reference."""
     vb = 16
-    budget = fk.smem_bytes(4, vb)               # room for jb=4 -> degrade
-    monkeypatch.setattr(common, "SMEM_BUDGET", budget)
-    assert _pick_job_block(13, vb, semiring) == 1
-    assert fk.smem_bytes(_pick_job_block(13, vb, semiring), vb) <= budget
-    assert _pick_job_block(12, vb, semiring) == 4
+    assert fk.layout(13, vb) == fk.Layout(1, 13, fk.stages(vb))
+    assert fk.layout(13, 128) == fk.Layout(8, 2, 2)
+    for v in (vb, 128):
+        fk.check_shape(13, v)
     rg_g, rbp, _, tbp = _graphs(semiring, vb=vb)
     bn = rg_g.num_blocks
     rng = np.random.default_rng(9)
@@ -352,27 +352,34 @@ def test_prime_job_count_degrades_chunk(monkeypatch, semiring):
     _check_push(semiring, got, want)
 
 
-@pytest.mark.parametrize("j,vb,jb", [(4, 64, 4), (6, 16, 6), (13, 128, 1),
-                                     (16, 128, 8), (64, 16, 64),
-                                     (100, 16, 50), (4, 8, 4), (64, 8, 64),
-                                     (4, 256, 4), (8, 256, 4), (4, 512, 2),
-                                     (2, 512, 2), (7, 512, 1)])
+@pytest.mark.parametrize("j,vb,jb", [(4, 64, 4), (6, 16, 6), (13, 128, 16),
+                                     (16, 128, 16), (64, 16, 64),
+                                     (100, 16, 104), (4, 8, 4), (64, 8, 64),
+                                     (4, 256, 4), (8, 256, 12), (4, 512, 12),
+                                     (2, 512, 2), (7, 512, 12)])
 def test_pick_job_block_fits_threads_and_smem(j, vb, jb):
-    got = _pick_job_block(j, vb, "plus_times")
-    assert got == jb == _pick_job_block(j, vb, "min_plus")
-    fk.check_shape(j, vb, got)                   # raises if it would not fit
+    """The layout table: one (job, lane) a thread where J x Vb fits 1024
+    threads, else JW jobs a thread in as many groups of Vb threads as the
+    jobs fill; `jb` is the jobs one pass holds.  Every layout fits the
+    thread and shared memory budgets."""
+    lay = fk.layout(j, vb)
+    assert lay.pass_jobs == jb
+    assert lay.jr == (1 if j * vb <= common.MAX_THREADS else fk.wide_jobs(vb))
+    assert common.threads(lay.groups, vb) <= common.MAX_THREADS
+    assert fk.smem_bytes(vb, j, lay) <= common.SMEM_BUDGET
+    assert lay.passes(j) == -(-j // jb) and lay.passes(0) == 0
+    fk.check_shape(j, vb)                        # raises if it would not fit
 
 
 def test_kernel_shape_checks_raise():
-    """A Vb that is not a power of two from 8 to 512 (ROADMAP C), a chunk
-    that does not divide J, more than 1024 threads."""
-    for j, vb, jb in [(4, 48, 4), (4, 24, 4), (4, 1024, 1), (4, 64, 3),
-                      (32, 64, 32), (4, 512, 4)]:
+    """A Vb that is not a power of two from 8 to 512 (ROADMAP C), no job,
+    more job ids than shared memory holds."""
+    for j, vb in [(4, 48), (4, 24), (4, 1024), (0, 64), (60000, 64)]:
         with pytest.raises(ValueError):
-            fk.check_shape(j, vb, jb)
+            fk.check_shape(j, vb)
     with pytest.raises(ValueError, match=r"takes Vb in \(8, 16, 32, 64, "
                        r"128, 256, 512\), not 48"):
-        fk.check_shape(4, 48, 4)
+        fk.check_shape(4, 48)
 
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
@@ -471,9 +478,9 @@ def test_block_pairs_carry_the_chunk_table(semiring):
     dcs, dcr = fk._chunks(tbp.run_start)
     np.testing.assert_array_equal(N(dcs), cs)
     np.testing.assert_array_equal(N(dcr), cr)
-    counters = tbp.arrivals(3)
-    assert counters.shape == (3 * tbp.num_runs,) and not counters.any()
-    assert tbp.arrivals(3) is counters
+    counters = tbp.arrivals()
+    assert counters.shape == (tbp.num_runs,) and not counters.any()
+    assert tbp.arrivals() is counters
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
@@ -512,8 +519,11 @@ def test_fused_push_passes_selection_as_src_live(monkeypatch, semiring):
     real = ops.fused_superstep_call
     seen = []
 
+    a_seen = []
+
     def spy(*a, **kw):
         seen.append(kw)
+        a_seen.append(a)
         return real(*a, **kw)
     monkeypatch.setattr(ops, "fused_superstep_call", spy)
     rng = np.random.default_rng(5)
@@ -531,7 +541,11 @@ def test_fused_push_passes_selection_as_src_live(monkeypatch, semiring):
     assert kw["gate"] is gate
     assert kw["chunk_start"] is tbp.chunk_start
     assert kw["chunk_run"] is tbp.chunk_run
-    assert kw["arrivals"] is tbp.arrivals(4 // kw["job_block"])
+    assert kw["arrivals"] is tbp.arrivals()
+    # the jobs with a live row of the operand the kernel gets
+    d_op = a_seen[0][4]
+    np.testing.assert_array_equal(N(kw["job_live"]),
+                                  N(job_live(d_op, semiring)))
 
 
 def _kernel_route_session(csr):
@@ -581,3 +595,111 @@ def test_device_run_with_gate_equals_run_without(monkeypatch):
     assert gates and all(g.shape == () and g.dtype == torch.bool
                          for g in gates)
     assert not all(bool(g) for g in gates)      # some slots were gated
+
+
+# ---------------------------------------------------------------------------
+# live jobs: skipped exactly, and counted
+# ---------------------------------------------------------------------------
+
+#: (vb, vertices) of the live-job cases: a handful of blocks at each width
+LIVE_GRAPHS = {8: 60, 64: 400, 512: 1400}
+
+
+def _live_flags(pattern, j, semiring):
+    """[J] bool of the jobs given a live row, by pattern."""
+    idx = np.arange(j)
+    if pattern == "all":
+        return np.ones(j, bool)
+    if pattern == "lowest":
+        return idx < max(1, (2 * j) // 5)
+    if pattern == "scattered":
+        return idx % 3 == 1
+    if pattern == "none":
+        return np.zeros(j, bool)
+    # "converged": job 0 has no live row (a min-plus job that converged
+    # inside a poll: pend all inf, its values and base finite)
+    return idx != 0
+
+
+@pytest.mark.parametrize("flags", ["plain", "masked", "gated"])
+@pytest.mark.parametrize("pattern", ["all", "lowest", "scattered", "none",
+                                     "converged"])
+@pytest.mark.parametrize("j", [1, 4, 7, 38, 48])
+@pytest.mark.parametrize("vb", sorted(LIVE_GRAPHS))
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_job_live_skips_exactly_and_counts(semiring, vb, j, pattern, flags):
+    """fused_superstep_call with `job_live` on d whose dead jobs' rows are
+    the semiring identity equals the full computation (job_live None):
+    every output and flush row, min-plus bit for bit and plus-times up to
+    the sign of a zero; live jobs bit for bit.  `b1b2_counts` adds the
+    live pairs (live source, destination in range) x the layout's passes
+    of the live jobs, and the jobs without a live row; a closed gate adds
+    nothing."""
+    _, _, _, tbp = _graphs(semiring, n=LIVE_GRAPHS[vb], vb=vb)
+    bn = tbp.num_blocks
+    ident = 0.0 if semiring == "plus_times" else np.inf
+    rng = np.random.default_rng(vb * 100 + j)
+    d, base, vals = _rand_state(rng, j, bn, bn, vb, semiring)
+    alive = _live_flags(pattern, j, semiring)
+    d = np.where(alive[:, None, None], d, ident).astype(np.float32)
+    src_live = None
+    if flags != "plain":
+        src_live = rng.random(bn) < 0.6
+        d = np.where(src_live[None, :, None], d, ident).astype(np.float32)
+    gate = None if flags != "gated" else torch.tensor(False)
+    kw = dict(values=None if vals is None else T(vals), semiring=semiring,
+              src_live=None if src_live is None else T(src_live))
+    args = (tbp.src, tbp.dst, tbp.first, tbp.last, T(d), T(base), tbp.tiles)
+    counts = fk.b1b2_counts("cpu")
+    before = counts.clone()
+    got = fk.fused_superstep_call(*args, job_live=T(alive), gate=gate, **kw)
+    added = (counts - before).tolist()
+    full = fk.fused_superstep_call(*args, **kw)
+    rows = N(tbp.dst_touched)
+    for a, b in zip(got, full):
+        a, b = N(a)[:, rows], N(b)[:, rows]
+        np.testing.assert_array_equal(a[alive], b[alive])
+        # dead jobs: +0.0 folds a -0.0 to +0.0 (the sign of a zero)
+        np.testing.assert_array_equal(a[~alive] + 0.0, b[~alive] + 0.0)
+    np.testing.assert_array_equal(N(job_live(T(d), semiring)),
+                                  alive & (src_live is None
+                                           or src_live.any()))
+    if flags == "gated":
+        assert added == [0, 0]
+        return
+    src = N(tbp.src)
+    live_pairs = int(np.sum(src_live[src])) if src_live is not None \
+        else len(src)
+    n_live = int(alive.sum())
+    assert added == [live_pairs * fk.layout(j, vb).passes(n_live),
+                     j - n_live]
+
+
+@pytest.mark.parametrize("policy", ["two_level", "fused"])
+def test_run_metrics_count_b1b2_work(monkeypatch, policy):
+    """RunMetrics.b1b2_stagings / b1b2_jobs_skipped of a kernel-route run
+    equal the sums, over the run's open calls, of the live pairs x passes
+    and the jobs without a live row, read from each call's own flags;
+    they stay out of to_dict.  A second run starts from zero."""
+    from repro_torch.core import TwoLevel
+    from repro_torch.kernels.fused_superstep import ops
+    real = ops.fused_superstep_call
+    want = np.zeros(2, np.int64)
+
+    def spy(src, dst, first, last, d, base, tiles, **kw):
+        gate = kw.get("gate")
+        if gate is None or bool(gate):
+            want[:] += N(fk.expected_counts(
+                src, dst, kw["src_live"], kw["job_live"], d.shape[0],
+                d.shape[2], d.shape[1], base.shape[1]))
+        return real(src, dst, first, last, d, base, tiles, **kw)
+
+    monkeypatch.setattr(ops, "fused_superstep_call", spy)
+    sess = _kernel_route_session(tg.rmat_graph(300, 4, seed=13))
+    pol = TwoLevel() if policy == "two_level" else Fused(steps_per_sync=4)
+    for _ in range(2):
+        want[:] = 0
+        m = sess.run(pol, 40)
+        assert m.supersteps > 0 and want[0] > 0
+        assert (m.b1b2_stagings, m.b1b2_jobs_skipped) == tuple(want)
+        assert "b1b2_stagings" not in m.to_dict()

@@ -131,8 +131,11 @@ def test_published_record_matches_reference(ref, port, mesh, job_shards):
     assert r["flops_one_device"] == want["flops_per_dev"] * job_shards
     assert r["flops_per_dev"] * 16 == want["flops_per_dev"]
     assert r["wire_gib_per_dev"] < want["wire_gib_per_dev"] / 1000
-    # B1/B2 take Vb = 512: two jobs a thread block (1024 threads)
-    assert (r["kernel_route"], r["kernel_job_block"]) == ("B1/B2", 2)
+    # B1/B2 take Vb = 512: the rank's jobs in one pass, 12 jobs a pass
+    # where a thread carries JW jobs, one (job, lane) a thread where two
+    # jobs fit 1024 threads
+    want_pass = {4: 12, 2: 2}[r["local_jobs"]]
+    assert (r["kernel_route"], r["kernel_pass_jobs"]) == ("B1/B2", want_pass)
 
 
 @pytest.mark.parametrize("mesh,local_jobs", [("16x16", 4),
