@@ -2107,7 +2107,7 @@ def mesh_rank(rank: int, csr, plan: dict, world_t0: float) -> dict:
         setup_s=setup_s, build_peak=build_peak,
         held=torch.cuda.memory_allocated(),
         tile_bytes={sr: ps.tile_bytes for sr, ps in shards.items()},
-        ell_bytes={g.semiring: g.graph.tiles.numel() * 4
+        ell_bytes={g.semiring: g.graph.ell_bytes
                    for g in sess.view_groups()},
         jobs_local={g.semiring: int(g.values.shape[0])
                     for g in sess.view_groups()},
@@ -6137,7 +6137,7 @@ def main() -> int:
         handles.append(sess.submit(alg))
         torch.cuda.synchronize()
         log(f"submit {type(alg).__name__}: {time.perf_counter() - t0:.2f} s"
-            f" (the first job of a view builds its block-ELL tiles)")
+            f" (the first job of a view builds its pair tiles)")
     groups = {g.semiring: g for g in sess.view_groups()}
     for sr, g in groups.items():
         t0 = time.perf_counter()
@@ -6145,9 +6145,9 @@ def main() -> int:
         torch.cuda.synchronize()
         gr = g.graph
         log(f"view {sr}: B_N={gr.num_blocks} K={gr.max_nbr_blocks} "
-            f"P={bp.num_pairs} runs={bp.num_runs}; ELL tiles "
-            f"{gr.tiles.numel() * 4 / 1e9:.2f} GB, pair tiles "
-            f"{bp.tiles.numel() * 4 / 1e9:.2f} GB; pairs built in "
+            f"P={bp.num_pairs} runs={bp.num_runs}; ELL tiles held "
+            f"{gr.ell_bytes / 1e9:.2f} GB, pair tiles "
+            f"{bp.tiles.numel() * 4 / 1e9:.2f} GB; pair view read in "
             f"{time.perf_counter() - t0:.2f} s")
     # phases 6 and 7 replace or free the views: a name bound here would
     # keep one alive

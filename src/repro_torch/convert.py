@@ -51,7 +51,7 @@ def blocked_from_arrays(n_real: int, block_size: int, num_blocks: int,
         num_blocks=int(num_blocks), max_nbr_blocks=int(max_nbr_blocks),
         fill=float(fill), nbr_ids=_tensor(nbr_ids, np.int32, dev),
         nbr_mask=_tensor(nbr_mask, bool, dev),
-        tiles=_tensor(tiles, np.float32, dev),
+        ell=_tensor(tiles, np.float32, dev),
         vertex_mask=_tensor(vertex_mask, bool, dev))
 
 
@@ -124,13 +124,16 @@ def load_overlay(sess: GraphSession, view_key: tuple, capacity: int, src_u,
     not built them yet).  `graph` (from `blocked_from_arrays`) replaces
     the group's BlockedGraph when the reference's tiles were edited by
     earlier batches.  The group's (src block, dst block) -> slot mirror
-    is rebuilt from its graph and its pair view dropped, so the next run
-    rebuilds it.  The group for `view_key` must already exist."""
+    is rebuilt from its graph; with `graph` its pair view is dropped, so
+    the next run rebuilds it from the new tiles.  The group for
+    `view_key` must already exist."""
     grp = sess.groups.get(tuple(view_key))
     if grp is None:
         raise KeyError(f"no view group {view_key!r}: submit its jobs first")
     if graph is not None:
+        # the pair view is rebuilt from the new graph's tiles
         grp.graph = graph
+        grp.pairs = None
     bn = grp.graph.num_blocks
     capacity = int(capacity)
     dev = sess.device
@@ -144,7 +147,6 @@ def load_overlay(sess: GraphSession, view_key: tuple, capacity: int, src_u,
         dst=_tensor(arrays[1], np.int32, dev),
         w=_tensor(arrays[2], np.float32, dev),
         mask=_tensor(arrays[3], np.float32, dev))
-    grp.pairs = None
     grp.pair_slot = grp.ov_used = grp.ov_entry = None
     if ov_used is not None:
         _ensure_mirrors(grp)

@@ -86,7 +86,8 @@ import torch
 from repro_torch.core import priority as prio
 from repro_torch.core.do_select import group_queues_device, step_key
 from repro_torch.core.global_q import accumulate_priority, synthesize_topq
-from repro_torch.core.push import compute_pairs, indep_push_fn, shared_push_fn
+from repro_torch.core.push import (compute_pairs, indep_push_fn, reads_ell,
+                                   shared_push_fn)
 from repro_torch.kernels.fused_superstep import kernel as fk
 from repro_torch.obs.telemetry import (SERIES_FIELDS, HostSeriesBuilder,
                                        TelemetrySeries, device_buffers,
@@ -186,6 +187,7 @@ class SchedulePolicy:
 
     name = "abstract"
     needs_pairs = True  # driver computes <Node_un, P_mean> before select()
+    shared_staging = True  # one staging serves every job (Selection.shared)
 
     def __init__(self, *, backend: str = HOST,
                  steps_per_sync: Union[int, float] = 1):
@@ -312,6 +314,13 @@ def _run_host(policy: SchedulePolicy, sess,
         shared_fns = [shared_push_fn(g.semiring, g.push_one,
                                      sess.use_pallas) for g in groups]
         indep_fns = [indep_push_fn(g.push_one) for g in groups]
+
+    def ell(gi, shared):
+        # the ELL tiles only where the route reads them (built on demand)
+        g = groups[gi]
+        return (g.graph.tiles if spec is None and reads_ell(
+            g.semiring, sess.use_pallas, shared) else None)
+
     # host mirror of the per-source-block real-pair counts, read once
     nnz_host = [p.src_nnz.cpu().numpy() for p in grp_pairs]  # noqa: RPT002 - once a run
     m = RunMetrics(
@@ -425,7 +434,7 @@ def _run_host(policy: SchedulePolicy, sess,
                             continue
                         pair_step += int(nnz_host[gi][sel_np][on_np].sum())
                         g.values, g.deltas = shared_fns[gi](
-                            g.values, g.deltas, g.graph.tiles,
+                            g.values, g.deltas, ell(gi, True),
                             g.graph.nbr_ids, sel, msk, g.push_scale,
                             g.overlay, grp_pairs[gi])
                 else:
@@ -436,7 +445,7 @@ def _run_host(policy: SchedulePolicy, sess,
                         on_np = np.asarray(selection.msk[gi]) > 0
                         pair_step += int((nnz_host[gi][sel_np] * on_np).sum())
                         g.values, g.deltas = indep_fns[gi](
-                            g.values, g.deltas, g.graph.tiles,
+                            g.values, g.deltas, ell(gi, False),
                             g.graph.nbr_ids,
                             torch.as_tensor(sel_np, dtype=torch.int32,
                                             device=dev),
@@ -636,11 +645,13 @@ def build_device_step(policy: SchedulePolicy, sess):
     return step_fn
 
 
-def device_inputs(sess):
+def device_inputs(sess, policy: Optional[SchedulePolicy] = None):
     """(state, scales, tiles, nbrs, overlays, pairs): the device driver's
     initial carry over the session's current job state (with fresh
     telemetry buffer when the session has telemetry), and the per-group
-    graph arguments of its step function."""
+    graph arguments of its step function.  A group's ELL tiles are
+    handed over only where `policy`'s route reads them (`push.reads_ell`;
+    None: a policy with one shared staging), else None."""
     groups = sess.view_groups()
     dev = sess.device
     boost = sess._consume_dirty_boost()
@@ -659,7 +670,10 @@ def device_inputs(sess):
                                         dev),)
     return (state,
             tuple(g.push_scale for g in groups),
-            tuple(g.graph.tiles for g in groups),
+            tuple(g.graph.tiles if reads_ell(
+                g.semiring, sess.use_pallas,
+                policy is None or policy.shared_staging) else None
+                for g in groups),
             tuple(g.graph.nbr_ids for g in groups),
             tuple(g.overlay for g in groups),
             tuple(sess._pair_data(g) for g in groups))
@@ -687,7 +701,7 @@ def _run_device(policy: SchedulePolicy, sess,
         state, *args = mesh2d.device_inputs_2d(policy, sess)
         finish = mesh2d.finish_device_2d
     else:
-        state, *args = device_inputs(sess)
+        state, *args = device_inputs(sess, policy)
         finish = _finish_device
     fk.b1b2_counts(sess.device).zero_()
     budget = int(min(max_supersteps, np.iinfo(np.int32).max))
@@ -801,6 +815,7 @@ class Independent(SchedulePolicy):
     """Per-job queues processed separately (paper Fig. 3 'current mode')."""
 
     name = "independent"
+    shared_staging = False
 
     def select(self, sess, node_un, p_mean, active):
         q = sess.q

@@ -37,7 +37,7 @@ from repro_torch.kernels.fused_superstep.ref import (_sink_index,
 
 __all__ = [
     "push_plus_one", "push_min_one", "compute_pairs",
-    "shared_push_fn", "indep_push_fn",
+    "shared_push_fn", "indep_push_fn", "reads_ell",
     "overlay_push_plus", "overlay_push_min",
 ]
 
@@ -209,6 +209,15 @@ def push_min_one(values: torch.Tensor, deltas: torch.Tensor,
 def compute_pairs(alg: Algorithm, values: torch.Tensor, deltas: torch.Tensor):
     """[J, B_N, Vb] -> (node_un [J,B_N], p_mean [J,B_N])."""
     return prio.block_pairs(alg.vertex_priority(values, deltas))
+
+
+def reads_ell(semiring: str, use_pallas: bool, shared: bool = True) -> bool:
+    """Whether a one-device push route reads the view's ELL tiles (the
+    drivers hand them over only then, so a view builds them on demand):
+    the per-job selection route (`indep_push_fn`) and the plain min-plus
+    route do; the kernel route and the plain plus-times pair sweep read
+    the pair view alone."""
+    return not shared or not (use_pallas or semiring == "plus_times")
 
 
 def shared_push_fn(semiring: str, push_one, use_pallas: bool):

@@ -15,6 +15,11 @@ graph-view key `(semiring, fill, normalize, symmetrize)`; every view is
 built with the same block size, so block id b names the same vertex range
 in every view and one scheduling decision drives every family at once.
 
+A view holds its destination-sorted pair tiles alone (`BlockPairs`,
+built straight from the CSR's block adjacency); its ELL tiles are built
+on demand, under a `view.ell` span, only for a route that reads them
+(`view_bytes` reports both and the builds).
+
 Each group keeps a PADDED [J_view_cap, B_N, Vb] job axis plus an active
 mask: free slots hold the semiring's inert state (delta 0 / +inf), which
 makes them arithmetic no-ops in every policy.  Slots are recycled (handle
@@ -41,6 +46,7 @@ gather, so every rank calls them, in the same order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,7 +61,7 @@ from repro_torch.core.do_select import DEFAULT_SAMPLES
 from repro_torch.core.global_q import DEFAULT_ALPHA
 from repro_torch.graph.structure import (BlockedGraph, BlockPairs, CSRGraph,
                                          TileOverlay, build_block_pairs,
-                                         build_blocked, empty_overlay)
+                                         build_view, empty_overlay)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.obs.telemetry import TelemetryConfig
 from repro_torch.obs.trace import TraceRecorder
@@ -100,13 +106,18 @@ class ViewGroup:
     pair_slot: Optional[Dict[Tuple[int, int], int]] = None
     ov_used: Optional[np.ndarray] = None   # [B_N, C] bool
     ov_entry: Optional[Dict[Tuple[int, int], Tuple[int, int]]] = None
-    # destination-sorted pair view of `graph`, built lazily and dropped
-    # to None whenever the tiles change (stream edits, compaction)
+    # destination-sorted pair view of `graph`: built with the view
+    # (`graph.structure.build_view`, the tiles the view holds; its ELL
+    # tiles are built from it only when a route asks), edited in place by
+    # the stream and rebuilt by a compaction; None where the view came
+    # with its ELL tiles alone (then built from them on first use)
     pairs: Optional[BlockPairs] = None
     # on a mesh (repro_torch.dist): (placement signature, this rank's
     # PairShards), cut at placement from the whole view or built from the
     # CSR (a new view, a compaction); stream edits write it in place
     pair_shards: Optional[tuple] = None
+    # on-demand builds of the view's ELL tiles (`GraphSession.view_bytes`)
+    ell_builds: int = 0
 
     @property
     def capacity(self) -> int:
@@ -318,12 +329,7 @@ class GraphSession:
                 from repro_torch.dist.mesh2d import build_group_slices
                 g, shards = build_group_slices(self, spec, key, cap)
             else:
-                g_csr = (self._csr.symmetrized() if alg.graph_symmetrize
-                         else self._csr)
-                g = build_blocked(g_csr, self.block_size,
-                                  fill=alg.graph_fill,
-                                  normalize=alg.graph_normalize,
-                                  device=self.device)
+                g, pairs = self._build_view(key)
         self._install_scheduler(g)
         values, deltas = _inert_state(alg.semiring, g, cap)
         grp = ViewGroup(
@@ -340,8 +346,51 @@ class GraphSession:
             from repro_torch.dist.mesh2d import slice_job_state
             grp.pair_shards = (spec.signature(), shards)
             slice_job_state(spec, grp)
+        else:
+            grp.pairs = pairs
+        self._watch_ell(grp)
         self.groups[key] = grp
         return grp
+
+    def _build_view(self, key: tuple) -> Tuple[BlockedGraph, BlockPairs]:
+        """View `key` of the session's CSR on one device: its pair view
+        and its graph, whose ELL tiles stay unbuilt (`build_view`)."""
+        _, fill, normalize, symmetrize = key
+        csr = self._csr.symmetrized() if symmetrize else self._csr
+        return build_view(csr, self.block_size, fill=fill,
+                          normalize=normalize, device=self.device)
+
+    def _watch_ell(self, grp: ViewGroup) -> None:
+        """Route the view's on-demand ELL build (`BlockedGraph.tiles`)
+        through a `view.ell` span and count it on the group; called
+        whenever the group takes a new graph or a new way to build it."""
+        build = grp.graph.build_ell
+        if build is not None:
+            grp.graph.build_ell = functools.partial(self._build_ell, grp,
+                                                    build)
+
+    def _build_ell(self, grp: ViewGroup, build: Callable) -> torch.Tensor:
+        """One on-demand build of the group's ELL tiles (`_watch_ell`)."""
+        with self.trace.span("view.ell", view=str(grp.key)):
+            tiles = build()
+        grp.ell_builds += 1
+        return tiles
+
+    def view_bytes(self) -> List[dict]:
+        """Per view, in creation order: its key (`view`), the bytes of
+        the pair tiles it holds (`pair_bytes`; this rank's pair shard on
+        a mesh), of its ELL tiles (`ell_bytes`, 0 while unbuilt), and the
+        on-demand builds of its ELL tiles so far (`ell_builds`)."""
+        out = []
+        for g in self.groups.values():
+            if g.pair_shards is not None:
+                pair = g.pair_shards[1].tile_bytes
+            else:
+                pair = 0 if g.pairs is None else g.pairs.tiles.numel() * 4
+            out.append({"view": g.key, "pair_bytes": int(pair),
+                        "ell_bytes": g.graph.ell_bytes,
+                        "ell_builds": g.ell_builds})
+        return out
 
     def _grow(self, grp: ViewGroup) -> None:
         """Double the group's job axis.  On a mesh the whole state is
@@ -579,8 +628,9 @@ class GraphSession:
         return self._jit_cache[key]
 
     def _pair_data(self, grp: ViewGroup) -> BlockPairs:
-        """The view's destination-sorted `BlockPairs`, built lazily from
-        the current tiles and cached on the group."""
+        """The view's destination-sorted `BlockPairs`: the one built with
+        the view, or for a view that came with its ELL tiles alone one
+        gathered from them on first use and cached on the group."""
         if grp.pairs is None:
             if self._mesh2d is not None:
                 raise RuntimeError("a placed session holds its pair "

@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import time
 import warnings
@@ -81,9 +82,11 @@ from repro_torch.core.global_q import accumulate_priority, synthesize_topq
 from repro_torch.core.push import compute_pairs
 from repro_torch.dist import comm
 from repro_torch.dist.compression import quantize_ef
-from repro_torch.graph.structure import (BlockedGraph, BlockPairs,
-                                         build_view_shard, chunk_table,
-                                         run_starts)
+from repro_torch.graph.structure import (DENSE_OP_MAX_BYTES,
+                                         DENSE_OP_MIN_DENSITY, BlockedGraph,
+                                         BlockPairs, _dense_op,
+                                         _ell_from_pairs, build_view_shard,
+                                         chunk_table, run_starts)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fused_superstep import kernel as fk
 from repro_torch.kernels.fused_superstep.kernel import fused_superstep_call
@@ -1249,11 +1252,15 @@ def host_halo_bytes(spec: Optional[Mesh2DSpec], groups, selection,
 def place_group(session, grp, spec: Mesh2DSpec) -> None:
     """Place one view group held whole on this rank: keep job rows
     [j0, j0 + J_loc) of values/deltas/push_scale, block rows
-    [b0, b0 + B_loc) of values/deltas and of the ELL tiles, neighbour ids
-    and mask, and the shard's `PairShards` cut from the view's current
-    pair view (its tile edits and overlay as they are).  The dense
-    operator is dropped, as the reference drops it under a mesh.  Purely
-    local: no collective."""
+    [b0, b0 + B_loc) of values/deltas, neighbour ids and mask, and the
+    shard's `PairShards` cut from the view's current pair view (its tile
+    edits and overlay as they are).  Where the blocks axis slices the
+    ELL rows, the rank keeps its rows of the ELL tiles: cut from them
+    where built, else built now from the whole pair view, which is not
+    kept (a view that keeps its rows whole builds its ELL tiles from its
+    pair view on demand, as on one device).  The dense operator is
+    dropped, as the reference drops it under a mesh.  Purely local: no
+    collective."""
     lay = spec.layout(grp, warn=True)
     g = grp.graph
     bp = session._pair_data(grp)
@@ -1262,7 +1269,14 @@ def place_group(session, grp, spec: Mesh2DSpec) -> None:
     slice_job_state(spec, grp)
     b0, bl = spec.block_range(g.num_blocks, lay)
     if bl != g.num_blocks:
-        g.tiles = g.tiles[b0:b0 + bl].clone()
+        if g.ell is None:
+            g.build_ell = functools.partial(
+                _ell_from_pairs, bp, b0, bl, g.max_nbr_blocks, g.fill)
+            session._watch_ell(grp)
+            g.tiles                   # the shard keeps other rows' pairs
+        else:
+            g.tiles = g.tiles[b0:b0 + bl].clone()
+        g.build_ell = None
         g.nbr_ids = g.nbr_ids[b0:b0 + bl].clone()
         g.nbr_mask = g.nbr_mask[b0:b0 + bl].clone()
     grp.pairs = None
@@ -1340,7 +1354,8 @@ def unshard_session(session):
     rows are sliced over the blocks axis is rebuilt whole from the
     session's CSR as `compact()` rebuilds it (its overlay folded into the
     tiles), never gathered; only a session adopted without a CSR gathers
-    its ELL rows.  Every pair view is rebuilt lazily."""
+    its ELL rows.  A view kept whole takes its pair shard back as its
+    pair view (its ELL tiles, where built, stay)."""
     spec = getattr(session, "_mesh2d", None)
     if spec is None:
         return session
@@ -1362,7 +1377,11 @@ def unshard_session(session):
             g.nbr_ids = _gather_max(spec, g.nbr_ids, (bn, k),
                                     rows).to(torch.int32)
             g.nbr_mask = _gather_max(spec, g.nbr_mask, (bn, k), rows) > 0
-        grp.pairs = None
+            grp.pairs = None
+        else:
+            local = grp.pair_shards[1].local
+            grp.pairs = dataclasses.replace(local, dense_op=_dense_op(
+                local, g.fill, DENSE_OP_MIN_DENSITY, DENSE_OP_MAX_BYTES))
         grp.pair_shards = None
     session._mesh2d = None
     if rebuild:

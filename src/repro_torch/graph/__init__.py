@@ -1,6 +1,7 @@
 from repro_torch.graph.structure import (CSRGraph, BlockedGraph, BlockPairs,
                                          TileOverlay, build_blocked,
-                                         build_block_pairs, chunk_table,
+                                         build_block_pairs, build_view,
+                                         chunk_table,
                                          empty_overlay, run_starts)
 from repro_torch.graph.generators import (rmat_graph, uniform_graph,
                                           chain_graph, grid_graph,
@@ -13,6 +14,7 @@ __all__ = [
     "TileOverlay",
     "build_blocked",
     "build_block_pairs",
+    "build_view",
     "empty_overlay",
     "run_starts",
     "chunk_table",

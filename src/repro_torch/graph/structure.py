@@ -8,14 +8,22 @@ dense [Vb, Vb] tile
 
 with `fill` (0.0 for plus-times, +inf for min-plus) where no edge exists.
 The host enumeration is numpy, copied from the reference so every array
-equals it; the tensors move to the requested device at the end and the
-numpy copies are dropped.
+equals it; the tiles are filled on the requested device by one scatter
+of the edges (no host copy of them is made).
+
+A session's view (`build_view`) holds its destination-sorted pair tiles
+(`BlockPairs`) alone, built straight from the host block adjacency: the
+kernel route reads nothing else.  Its `BlockedGraph` keeps the block
+metadata (nbr_ids, nbr_mask, vertex_mask, K) and builds the ELL tiles
+only when a route that reads them asks (`BlockedGraph.tiles`), by one
+scatter of the pair tiles; they then stay with the view.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -95,7 +103,11 @@ class CSRGraph:
 
 @dataclasses.dataclass
 class BlockedGraph:
-    """Device-side block-ELL dense-tile layout (see module docstring)."""
+    """Device-side block-ELL dense-tile layout (see module docstring).
+
+    `ell` holds the [B_N, K, Vb, Vb] tiles, or None where they are built
+    on demand: `tiles` then calls `build_ell` once and keeps the result
+    in `ell` until the view is rebuilt."""
 
     n_real: int          # number of real vertices
     block_size: int      # Vb
@@ -104,8 +116,29 @@ class BlockedGraph:
     fill: float          # 0.0 (plus-times) or +inf (min-plus)
     nbr_ids: torch.Tensor   # [B_N, K] int32, padded entries point at block 0
     nbr_mask: torch.Tensor  # [B_N, K] bool, True where the tile is real
-    tiles: torch.Tensor     # [B_N, K, Vb, Vb] float32
+    ell: Optional[torch.Tensor]  # [B_N, K, Vb, Vb] float32, None unbuilt
     vertex_mask: torch.Tensor  # [B_N, Vb] bool, True for real vertices
+    build_ell: Optional[Callable[[], torch.Tensor]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def tiles(self) -> torch.Tensor:
+        """The ELL tiles, built on first use where the view holds none."""
+        if self.ell is None:
+            if self.build_ell is None:
+                raise RuntimeError("the view holds no ELL tiles and has "
+                                   "no way to build them")
+            self.ell = self.build_ell()
+        return self.ell
+
+    @tiles.setter
+    def tiles(self, value: torch.Tensor) -> None:
+        self.ell = value
+
+    @property
+    def ell_bytes(self) -> int:
+        """Bytes of the ELL tiles the view holds (0 while unbuilt)."""
+        return 0 if self.ell is None else int(self.ell.numel()) * 4
 
     @property
     def n_padded(self) -> int:
@@ -113,7 +146,7 @@ class BlockedGraph:
 
     @property
     def device(self) -> torch.device:
-        return self.tiles.device
+        return self.nbr_ids.device
 
 
 @dataclasses.dataclass
@@ -260,21 +293,34 @@ def build_block_pairs(g: BlockedGraph, *,
     touched = np.zeros(bn, bool)
     touched[db] = True
     tiles = g.tiles[t(sb, torch.int64), t(slot, torch.int64)]   # [P, Vb, Vb]
-    dense_op = None
-    density = len(sb) / float(bn * bn)
-    if (g.fill == 0.0 and density >= dense_min_density
-            and (bn * vb) ** 2 * 4 <= dense_max_bytes):
-        op = torch.zeros((bn, vb, bn, vb), dtype=torch.float32, device=dev)
-        op[t(sb, torch.int64), :, t(db, torch.int64), :] = tiles
-        dense_op = op.reshape(bn * vb, bn * vb)
     rs = run_starts(first)
     chunk_start, chunk_run = chunk_table(rs)
-    return BlockPairs(
+    bp = BlockPairs(
         num_pairs=len(sb), block_size=vb, num_blocks=bn,
         src=t(sb), dst=t(db), slot=t(slot), first=t(first), last=t(last),
         src_nnz=t(src_nnz), dst_touched=t(touched, torch.bool),
-        tiles=tiles, run_start=t(rs), dense_op=dense_op,
+        tiles=tiles, run_start=t(rs),
         chunk_start=t(chunk_start), chunk_run=t(chunk_run))
+    bp.dense_op = _dense_op(bp, g.fill, dense_min_density, dense_max_bytes)
+    return bp
+
+
+def _dense_op(bp: BlockPairs, fill: float, min_density: float,
+              max_bytes: int) -> Optional[torch.Tensor]:
+    """The full [B_N*Vb, B_N*Vb] operator of a plus-times pair view at
+    least `min_density` dense (P / B_N^2) whose operator fits
+    `max_bytes`; None otherwise (and for the edgeless pad view)."""
+    bn, vb = bp.num_blocks, bp.block_size
+    if (fill != 0.0 or (bn * vb) ** 2 * 4 > max_bytes
+            or bp.tiles.device.type == "meta"):
+        return None
+    real = int(bp.src_nnz.sum())          # 0 for the edgeless pad view
+    if not real or real / float(bn * bn) < min_density:
+        return None
+    op = torch.zeros((bn, vb, bn, vb), dtype=torch.float32,
+                     device=bp.tiles.device)
+    op[bp.src.long(), :, bp.dst.long(), :] = bp.tiles
+    return op.reshape(bn * vb, bn * vb)
 
 
 @dataclasses.dataclass
@@ -387,33 +433,62 @@ def block_adjacency(csr: CSRGraph, block_size: int,
         tile_slot=np.arange(len(keys)) - row_start[tile_sb])
 
 
-def _tiles_on(dev: torch.device, shape, fill: float, write):
-    """[shape] float32 tiles on `dev`: filled with `fill`, written on the
-    host by `write(array)` and moved.  On the meta device they are
-    allocated there and never filled (a dry run reads their shape only),
-    so no host memory holds them."""
+def _scatter_tiles(dev: torch.device, shape, fill: float, flat: np.ndarray,
+                   w: np.ndarray) -> torch.Tensor:
+    """[shape] float32 tiles on `dev`, filled with `fill` and w[i] written
+    at flat index flat[i] (int64: a view's tiles pass 2^31 floats), in one
+    scatter on the device; no host copy of the tiles is made.  On the
+    meta device they are allocated there and never filled (a dry run
+    reads their shape only)."""
+    tiles = torch.empty(shape, dtype=torch.float32, device=dev)
     if dev.type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-    tiles = np.full(shape, fill, dtype=np.float32)
-    write(tiles)
-    return torch.from_numpy(tiles).to(dev)
+        return tiles
+    tiles.fill_(fill)
+    if len(flat):
+        tiles.view(-1)[torch.as_tensor(flat, device=dev)] = \
+            torch.as_tensor(w, dtype=torch.float32, device=dev)
+    return tiles
 
 
-def _fill_ell(tiles: np.ndarray, adj: BlockAdjacency, b0: int,
-              b_loc: int) -> None:
-    """Write the edges of source blocks [b0, b0 + b_loc) into their ELL
-    tiles."""
-    vb = adj.block_size
+def _ell_fill(adj: BlockAdjacency, fill: float, b0: int, b_loc: int,
+              dev: torch.device) -> torch.Tensor:
+    """The ELL tiles of source blocks [b0, b0 + b_loc), from the
+    adjacency: each edge written into its tile's slot."""
+    vb, k = adj.block_size, adj.k_max
     sb = adj.src // vb
     e = np.flatnonzero((sb >= b0) & (sb < b0 + b_loc))
-    tiles[sb[e] - b0, adj.tile_slot[adj.edge_tile[e]], adj.src[e] % vb,
-          adj.dst[e] % vb] = adj.w[e]
+    flat = ((((sb[e] - b0) * k + adj.tile_slot[adj.edge_tile[e]]) * vb
+             + adj.src[e] % vb) * vb + adj.dst[e] % vb)
+    return _scatter_tiles(dev, (b_loc, k, vb, vb), fill, flat, adj.w[e])
+
+
+def _ell_from_pairs(pairs: BlockPairs, b0: int, b_loc: int, k: int,
+                    fill: float) -> torch.Tensor:
+    """The ELL tiles of source blocks [b0, b0 + b_loc) from a pair view
+    holding every pair of those rows: each pair's tile scattered to its
+    (source block, slot), so the ELL equals the pairs' tiles as they are
+    now, stream edits included."""
+    vb = pairs.block_size
+    dev = pairs.tiles.device
+    tiles = torch.empty((b_loc, k, vb, vb), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return tiles
+    tiles.fill_(fill)
+    src, slot = pairs.src.long() - b0, pairs.slot.long()
+    if b0 == 0 and b_loc >= int(pairs.src_nnz.shape[0]):
+        tiles[src, slot] = pairs.tiles
+    else:
+        keep = torch.nonzero((src >= 0) & (src < b_loc)).reshape(-1)
+        tiles[src[keep], slot[keep]] = pairs.tiles.index_select(0, keep)
+    return tiles
 
 
 def _ell_rows(adj: BlockAdjacency, fill: float, b0: int, b_loc: int,
-              dev: torch.device) -> BlockedGraph:
+              dev: torch.device, tiles: bool = True) -> BlockedGraph:
     """The ELL rows of source blocks [b0, b0 + b_loc) as a BlockedGraph
-    whose other fields (num_blocks, K, vertex_mask) are the view's."""
+    whose other fields (num_blocks, K, vertex_mask) are the view's; with
+    `tiles` False its tiles are left unbuilt (the caller sets how they
+    are built)."""
     vb, bn = adj.block_size, adj.num_blocks
     nbr_ids = np.zeros((b_loc, adj.k_max), dtype=np.int32)
     nbr_mask = np.zeros((b_loc, adj.k_max), dtype=bool)
@@ -423,17 +498,13 @@ def _ell_rows(adj: BlockAdjacency, fill: float, b0: int, b_loc: int,
 
     vmask = np.zeros((bn, vb), dtype=bool)
     vmask.reshape(-1)[:adj.n] = True
-
-    # the ELL tiles dominate host memory (15 GB per view at 2^16 vertices,
-    # Vb=64): their numpy copy lives only inside `_tiles_on`
-    tiles_t = _tiles_on(dev, (b_loc, adj.k_max, vb, vb), fill,
-                        lambda tiles: _fill_ell(tiles, adj, b0, b_loc))
     return BlockedGraph(
         n_real=adj.n, block_size=vb, num_blocks=bn, max_nbr_blocks=adj.k_max,
         fill=float(fill),
         nbr_ids=torch.from_numpy(nbr_ids).to(dev),
         nbr_mask=torch.from_numpy(nbr_mask).to(dev),
-        tiles=tiles_t, vertex_mask=torch.from_numpy(vmask).to(dev))
+        ell=_ell_fill(adj, fill, b0, b_loc, dev) if tiles else None,
+        vertex_mask=torch.from_numpy(vmask).to(dev))
 
 
 def _pair_slice(adj: BlockAdjacency, fill: float, n_shards: int,
@@ -478,14 +549,13 @@ def _pair_slice(adj: BlockAdjacency, fill: float, n_shards: int,
     rs = run_starts(first)
     chunk_start, chunk_run = chunk_table(rs)
 
-    def write(tiles):
-        # each edge of the shard's pairs lands in its pair's tile
-        pos = np.full(len(adj.tile_sb), -1, dtype=np.int64)
-        pos[sel] = np.arange(len(sel))
-        p = pos[adj.edge_tile]
-        e = np.flatnonzero(p >= 0)
-        tiles[p[e], adj.src[e] % vb, adj.dst[e] % vb] = adj.w[e]
-    tiles_t = _tiles_on(dev, (len(sel), vb, vb), fill, write)
+    # each edge of the shard's pairs lands in its pair's tile
+    pos = np.full(len(adj.tile_sb), -1, dtype=np.int64)
+    pos[sel] = np.arange(len(sel))
+    p = pos[adj.edge_tile]
+    e = np.flatnonzero(p >= 0)
+    flat = (p[e] * vb + adj.src[e] % vb) * vb + adj.dst[e] % vb
+    tiles_t = _scatter_tiles(dev, (len(sel), vb, vb), fill, flat, adj.w[e])
     return BlockPairs(
         num_pairs=len(sel), block_size=vb, num_blocks=b_loc,
         src=t(sb), dst=t(dl), slot=t(adj.tile_slot[sel]), first=t(first),
@@ -499,7 +569,7 @@ def build_blocked(csr: CSRGraph, block_size: int, *,
                   normalize: Optional[str] = None,
                   device=None) -> BlockedGraph:
     """Partition a CSR graph into dense [Vb, Vb] tiles, block-ELL layout,
-    on `device` (None: CUDA).
+    on `device` (None: CUDA), its tiles built at once.
 
     normalize:
       None          - raw edge weights
@@ -512,6 +582,25 @@ def build_blocked(csr: CSRGraph, block_size: int, *,
     return _ell_rows(adj, fill, 0, adj.num_blocks, dev)
 
 
+def build_view(csr: CSRGraph, block_size: int, *, fill: float = 0.0,
+               normalize: Optional[str] = None, device=None):
+    """A session's view of `csr` as (graph, pairs), built straight from
+    the host block adjacency: `pairs` equals `build_block_pairs(
+    build_blocked(...))` field by field, and `graph` holds the block
+    metadata with its ELL tiles unbuilt; asked for, they are scattered
+    from `pairs` (`BlockedGraph.tiles`).  No [B_N, K, Vb, Vb] tensor is
+    made on the way."""
+    dev = resolve_device(device)
+    adj = block_adjacency(csr, block_size, normalize)
+    pairs, _ = _pair_slice(adj, fill, 1, 0, dev)
+    pairs.dense_op = _dense_op(pairs, fill, DENSE_OP_MIN_DENSITY,
+                               DENSE_OP_MAX_BYTES)
+    g = _ell_rows(adj, fill, 0, adj.num_blocks, dev, tiles=False)
+    g.build_ell = functools.partial(_ell_from_pairs, pairs, 0,
+                                    adj.num_blocks, adj.k_max, float(fill))
+    return g, pairs
+
+
 def build_view_shard(csr: CSRGraph, block_size: int, n_shards: int = 1,
                      shard: int = 0, *, fill: float = 0.0,
                      normalize: Optional[str] = None, device=None):
@@ -520,8 +609,12 @@ def build_view_shard(csr: CSRGraph, block_size: int, n_shards: int = 1,
     pairs, shard_pairs).
 
       graph        the ELL rows of source blocks [s*B_loc, (s+1)*B_loc)
-                   (tiles, nbr_ids, nbr_mask [B_loc, K, ...]; num_blocks,
-                   K and vertex_mask those of the whole view)
+                   (nbr_ids, nbr_mask [B_loc, K]; num_blocks, K and
+                   vertex_mask those of the whole view), their tiles
+                   unbuilt: asked for, they are scattered from `pairs`
+                   where it is the whole view (one shard), else written
+                   from the CSR's adjacency at this build (so a caller
+                   that edits the tiles builds them first)
       pairs        the dst-sorted `BlockPairs` slice whose destinations
                    fall in the same range, as `dist.mesh2d.
                    partition_block_pairs` cuts `build_block_pairs` of the
@@ -541,4 +634,10 @@ def build_view_shard(csr: CSRGraph, block_size: int, n_shards: int = 1,
         raise ValueError(f"shard {shard} outside [0, {n_shards})")
     b_loc = bn // n_shards
     pairs, counts = _pair_slice(adj, fill, n_shards, shard, dev)
-    return _ell_rows(adj, fill, shard * b_loc, b_loc, dev), pairs, counts
+    g = _ell_rows(adj, fill, shard * b_loc, b_loc, dev, tiles=False)
+    g.build_ell = (
+        functools.partial(_ell_from_pairs, pairs, 0, bn, adj.k_max,
+                          float(fill)) if n_shards == 1
+        else functools.partial(_ell_fill, adj, float(fill), shard * b_loc,
+                               b_loc, dev))
+    return g, pairs, counts

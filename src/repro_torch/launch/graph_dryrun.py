@@ -42,10 +42,12 @@ the GiB figures):
                         `launch.dryrun.local_bytes`): the number the
                         reference reports;
   arg_gib_per_dev       the bytes of every tensor the rank's placed
-                        session holds when the step starts: ELL rows,
-                        pair shard, job state, overlay and the carry.
-                        The port holds both the ELL rows and the pair
-                        shard (ROADMAP P3), so about twice the
+                        session holds when the step starts: pair shard,
+                        job state, overlay, the ELL rows' metadata and
+                        the carry.  The kernel route reads the pair
+                        shard alone, so a view holds no ELL tiles (they
+                        are built only for a route that reads them,
+                        `graph.structure.BlockedGraph.tiles`): about the
                         reference's tile bytes;
   temp_gib_per_dev      `MemTracker`'s peak over the step less what the
                         rank held when it started;
@@ -195,7 +197,8 @@ def _tensors(x, out: list) -> list:
 
 def held_tensors(sess, inputs) -> list:
     """Every tensor a placed session holds (each view's job state, ELL
-    rows, overlay and pair shard) and those of `inputs`."""
+    metadata and ELL tiles where built, overlay and pair shard) and
+    those of `inputs`."""
     out: list = []
     for g in sess.view_groups():
         _tensors((g.values, g.deltas, g.push_scale, g.graph, g.overlay,

@@ -28,13 +28,16 @@ reference's; the tiles, the overlay and the job state are edited on the
 session's device.  The edited tiles and overlay arrays equal the
 reference's bit for bit after every batch (the degree rescale's ratio is
 computed in numpy as the reference does, then multiplied in float32; the
-writes are deduplicated first).  Every batch drops the view's cached
-`BlockPairs`, so the next run rebuilds the pair tiles, run and chunk
-tables and arrival counters the fused kernels read.
+writes are deduplicated first).  A view holds its pair tiles
+(`BlockPairs`) and builds its ELL tiles only when a route asks: each
+write goes to the pair that holds the tile, and to the ELL tiles where
+they are built, so the two stay bit-equal to a gather of one from the
+other (the pair view's run and chunk tables do not change).
 
 On a session placed on a mesh (`repro_torch.dist`) the host bookkeeping
 runs identically on every rank; each tile write goes to the ELL row of
-its source block where this rank holds it AND to the pair of this rank's
+its source block where this rank holds it (rows sliced over the blocks
+axis are built before their first edit) AND to the pair of this rank's
 pair shard that copies that tile, so the shard stays bit-equal to a
 partition of the rebuilt pair view (a degree rescale multiplies both by
 the same float32 ratio); the replicated overlay takes the same writes
@@ -56,7 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.algorithms.base import PLUS_TIMES
-from repro_torch.graph.structure import build_blocked, empty_overlay
+from repro_torch.graph.structure import empty_overlay
 from repro_torch.stream import invalidate as inval
 from repro_torch.stream.invalidate import host_to
 from repro_torch.stream.updates import UpdateBatch, apply_to_csr
@@ -172,14 +175,16 @@ def _grow_overlay(grp, capacity: int) -> None:
 
 
 def compact_group(sess, grp) -> None:
-    """Rebuild the view's BlockedGraph from the updated CSR — by
-    construction bit-identical to a from-scratch build — and empty the
-    overlay.  Job state is untouched (same logical operator).  The stale
-    pair view is released before the rebuild, the old tiles after it.
-    On a mesh only this rank's ELL rows and pair shard are rebuilt
-    (`dist.mesh2d.build_group_slices`, no collective)."""
-    semiring, fill, normalize, symmetrize = grp.key
-    grp.pairs = None      # block-pair view follows the rebuilt tiles
+    """Rebuild the view from the updated CSR — by construction
+    bit-identical to a from-scratch build — and empty the overlay.  Job
+    state is untouched (same logical operator).  The old view's tiles
+    (its pair view, and its ELL tiles where built) are released before
+    the rebuild, which builds the pair view alone, as a new view does
+    (`GraphSession._build_view`).  On a mesh only this rank's ELL rows
+    and pair shard are rebuilt (`dist.mesh2d.build_group_slices`, no
+    collective)."""
+    grp.pairs = None
+    grp.graph.ell = grp.graph.build_ell = None
     spec = sess._mesh2d
     if spec is not None:
         from repro_torch.dist.mesh2d import build_group_slices
@@ -187,12 +192,11 @@ def compact_group(sess, grp) -> None:
         g, shards = build_group_slices(sess, spec, grp.key, grp.capacity)
         grp.pair_shards = (spec.signature(), shards)
     else:
-        csr_view = sess._csr.symmetrized() if symmetrize else sess._csr
-        g = build_blocked(csr_view, sess.block_size, fill=fill,
-                          normalize=normalize, device=sess.device)
+        g, grp.pairs = sess._build_view(grp.key)
     if g.num_blocks != grp.graph.num_blocks:
         raise ValueError("compaction changed the block count")
     grp.graph = g
+    sess._watch_ell(grp)
     if spec is not None and sess.device.type == "cuda":
         # the old slices go back to the driver: ranks share the card
         torch.cuda.empty_cache()
@@ -221,23 +225,41 @@ def _group_touched_pairs(batch: UpdateBatch,
     return pairs
 
 
+def _pair_view(sess, grp):
+    """The view's pair tiles as this rank holds them, a
+    `dist.mesh2d.PairShards`: its pair shard on a mesh, else the whole
+    pair view as one shard (sharing its tensors)."""
+    if sess._mesh2d is not None:
+        return sess._pair_shards(grp)
+    from repro_torch.dist.mesh2d import partition_block_pairs
+    return partition_block_pairs(sess._pair_data(grp), 1, grp.graph.fill)
+
+
 class _TileWriter:
-    """The group's tile edits, routed to what this rank holds: on one
-    device the ELL tiles (the pair view is dropped and rebuilt); on a
-    mesh the ELL rows of its source blocks AND the pairs of its pair
-    shard that copy the edited tiles (edited in place: the placed session
-    has no whole view to rebuild them from)."""
+    """The group's tile edits, written to every copy of an edited tile
+    this rank holds: the pair of the view's pair view (this rank's pair
+    shard on a mesh) that holds it, and the ELL tiles where they are
+    built.  On a mesh whose blocks axis slices the ELL rows, this rank's
+    rows are built before their first edit (built later, from the
+    adjacency of the view's build, they would miss it)."""
 
     def __init__(self, sess, grp):
         g = grp.graph
-        self.tiles = g.tiles
         spec = sess._mesh2d
-        self.shards = None
         self.b0, self.bl = 0, g.num_blocks
+        self.shards = None
         if spec is not None:
             self.b0, self.bl = spec.block_range(g.num_blocks,
                                                 spec.layout(grp))
             self.shards = sess._pair_shards(grp)
+            if self.bl != g.num_blocks:
+                g.tiles                       # built before the edit
+        elif grp.pairs is not None:
+            self.shards = _pair_view(sess, grp)
+            # the dense operator, a reference view for tests, is not
+            # edited: it goes with the first edit
+            grp.pairs.dense_op = None
+        self.tiles = g.ell
 
     def _rows(self, sb):
         """Local ELL row of each source block, and which are held here."""
@@ -248,7 +270,7 @@ class _TileWriter:
     def scale_rows(self, sb, su, ratio) -> None:
         """Multiply source vertex (sb, su)'s out-row by `ratio` (float32)."""
         rows, k = self._rows(sb)
-        if len(k):
+        if self.tiles is not None and len(k):
             self.tiles[host_to(self.tiles, rows), :,
                        host_to(self.tiles, su[k]), :] *= host_to(
                 self.tiles, ratio[k], torch.float32)[:, None, None]
@@ -262,7 +284,7 @@ class _TileWriter:
     def write(self, sb, slot, db, uo, vo, w) -> None:
         """tiles[sb, slot, uo, vo] = w (the tile of pair (sb, db))."""
         rows, k = self._rows(sb)
-        if len(k):
+        if self.tiles is not None and len(k):
             idx = tuple(host_to(self.tiles, a)
                         for a in (rows, slot[k], uo[k], vo[k]))
             self.tiles[idx] = host_to(self.tiles, w[k], torch.float32)
@@ -366,10 +388,6 @@ def _apply_structure(sess, grp, pairs, new_w: Dict,
 def _apply_to_group(sess, grp, batch: UpdateBatch, csr_old, csr_new,
                     dirty: np.ndarray, stats: Dict) -> None:
     semiring, fill, normalize, symmetrize = grp.key
-    # any batch may edit tiles (in place or via compaction): drop the
-    # cached block-pair view so the next run rebuilds it from the edited
-    # tiles (the pair tiles are a copy, not an alias)
-    grp.pairs = None
     pairs = _group_touched_pairs(batch, symmetrize)
     deg_o = deg_n = None
     if normalize == "out_degree":
@@ -411,12 +429,13 @@ def _invalidate(sess, grp, pairs, csr_old, csr_new, old_w, new_w, deg_o,
     if semiring == PLUS_TIMES:
         if symmetrize:
             # the view row of u is raw-out ∪ raw-in: no cheap row diff —
-            # recompute the deltas exactly with one full matvec instead
-            # (over this rank's pair shard where its ELL rows are sliced)
+            # recompute the deltas exactly with one full matvec instead,
+            # over the whole ELL tiles where they are built, else over
+            # the pair view (this rank's pair shard on a mesh)
             g = grp.graph
             inval.full_reseed_plus_times(
-                grp, sess._pair_shards(grp)
-                if g.tiles.shape[0] != g.num_blocks else None)
+                grp, _pair_view(sess, grp) if g.ell is None
+                or g.nbr_ids.shape[0] != g.num_blocks else None)
             stats["reseed_num"] += grp.num_active * n
         else:
             u_idx, dst_idx, dw = [], [], []

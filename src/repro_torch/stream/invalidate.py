@@ -78,8 +78,10 @@ def full_reseed_plus_times(grp, shards=None) -> None:
     """Exact d' = b - v + A'v for every active job (symmetrized-view
     fallback: stages all tiles + overlay once).
 
-    `shards`: on a mesh, this rank's `dist.mesh2d.PairShards`, with the
-    group's WHOLE job state in place (`dist.mesh2d.whole_job_state`).
+    `shards`: a `dist.mesh2d.PairShards` of the view's pair tiles, for
+    a view whose ELL tiles are not built (the whole pair view as one
+    shard) or, on a mesh, are sliced (this rank's shard, with the
+    group's WHOLE job state in place, `dist.mesh2d.whole_job_state`).
     The matvec then runs over the shard's pairs and is complete only on
     the shard's own destination rows, the ones the rank keeps (its sum
     order differs from the ELL sweep's: plus-times tolerance)."""

@@ -1408,3 +1408,128 @@ def test_tp_training_on_the_card_matches_one_process(cuda, tmp_path):
         np.testing.assert_allclose(sg, wg, rtol=1e-4)
         assert st["opt"]["step"] == wst["opt"]["step"] == 1
         scaled(st["opt"]["mu"], wst["opt"]["mu"])
+
+
+# --- views that hold their pair tiles alone, at the benchmark's scale 16 ----
+
+
+def _g500_csr(scale=None):
+    """The benchmark's Graph500 graph of `graphbench/configs/
+    g500-s16-vb64.json` (or the same draw at `scale`) as the port's
+    CSR."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from repro_torch.graph import CSRGraph
+    root = Path(__file__).resolve().parent.parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from graphbench.graph import graph500
+    cfg = json.loads(
+        (root / "graphbench/configs/g500-s16-vb64.json").read_text())
+    if scale is not None:
+        cfg["scale"] = scale
+    c = graph500(cfg, np.random.default_rng(cfg["graph_seed"]))
+    return CSRGraph.from_edges(c.n, *c.edges())
+
+
+def _tile_from_csr(csr, sb, db, vb, normalize):
+    """Tile (sb, db) of the view, from the CSR's rows on the host."""
+    fill = 0.0 if normalize else np.inf
+    want = np.full((vb, vb), fill, np.float32)
+    deg = np.maximum(csr.out_degree, 1).astype(np.float32)
+    for u in range(vb):
+        x = sb * vb + u
+        if x >= csr.n:
+            continue
+        cols, w = csr.row(x)
+        m = (cols >= db * vb) & (cols < db * vb + vb)
+        want[u, cols[m] - db * vb] = w[m] / deg[x] if normalize else w[m]
+    return want
+
+
+def test_scale16_view_holds_pair_tiles_alone_past_2_31(cuda):
+    """The benchmark's scale-16 views at Vb 64, built on the card, hold
+    their pair tiles alone (past 2^31 floats; no ELL tensor, which would
+    be 17 GB); pair tiles past element 2^31 hold the CSR's weights; one
+    B1/B2 call over the whole view matches the plain version on 8
+    sampled destination blocks whose pairs all lie past element 2^31,
+    in both semirings."""
+    from repro_torch.graph import build_view
+    csr = _g500_csr()
+    vb, j = 64, 16
+    rng = np.random.default_rng(16)
+    for semiring, fill, normalize in (("plus_times", 0.0, "out_degree"),
+                                      ("min_plus", float("inf"), None)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        g, bp = build_view(csr, vb, fill=fill, normalize=normalize,
+                           device=cuda)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - m0
+        tile_bytes = bp.tiles.numel() * 4
+        assert g.ell is None and g.ell_bytes == 0
+        assert bp.tiles.numel() > 2 ** 31
+        assert tile_bytes <= held < tile_bytes + 2 ** 28
+        p0 = -(-2 ** 31 // (vb * vb))      # the first tile past 2^31
+        rs = bp.run_start.cpu().numpy()
+        dst, src = bp.dst.cpu().numpy(), bp.src.cpu().numpy()
+        late = np.flatnonzero(rs[:-1] >= p0)
+        runs = np.sort(rng.choice(late, size=8, replace=False))
+        for r in runs[:3]:
+            p = rs[r + 1] - 1
+            np.testing.assert_array_equal(
+                bp.tiles[p].cpu().numpy(),
+                _tile_from_csr(csr, src[p], dst[p], vb, normalize))
+        idx = torch.as_tensor(np.concatenate(
+            [np.arange(rs[r], rs[r + 1]) for r in runs]), device=cuda)
+        bn = g.num_blocks
+        d, base, vals = _state(rng, j, bn, bn, vb, semiring, cuda)
+        got = fk.fused_superstep_call(
+            bp.src, bp.dst, bp.first, bp.last, d, base, bp.tiles,
+            values=vals, run_start=bp.run_start,
+            chunk_start=bp.chunk_start, chunk_run=bp.chunk_run,
+            arrivals=bp.arrivals(), semiring=semiring)
+        want = fused_superstep_ref(
+            bp.src[idx], bp.dst[idx], bp.first[idx], bp.last[idx], d, base,
+            bp.tiles[idx], values=vals, semiring=semiring)
+        _compare(semiring, got, want, dst[rs[runs]])
+        del g, bp, got, want
+
+
+def test_fused_session_views_hold_the_bytes_the_counter_reports(cuda):
+    """A Fused session on the card: its three views take their pair
+    tiles as `view_bytes` reports them, their job state and a little
+    metadata, and no ELL tiles; after a run to convergence still no
+    view holds ELL tiles and no `view.ell` span was recorded."""
+    from repro_torch.algorithms import (BFS, SSSP, PageRank,
+                                        PersonalizedPageRank)
+    from repro_torch.core import Fused, GraphSession
+    from repro_torch.obs import TelemetryConfig
+    csr = _g500_csr(scale=14)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    sess = GraphSession(csr, 64, capacity=16, seed=3,
+                        telemetry=TelemetryConfig(capacity=0))
+    keys = np.flatnonzero(csr.out_degree > 0)
+    for a in (PageRank(), PersonalizedPageRank(source=int(keys[5])),
+              SSSP(source=int(keys[9])), BFS(source=int(keys[9]))):
+        sess.submit(a)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - m0
+    vbytes = sess.view_bytes()
+    groups = sess.view_groups()
+    assert len(vbytes) == 3
+    pair = sum(v["pair_bytes"] for v in vbytes)
+    assert pair == sum(g.pairs.tiles.numel() * 4 for g in groups)
+    state = sum((g.values.numel() + g.deltas.numel()
+                 + g.push_scale.numel()) * 4 for g in groups)
+    assert pair + state <= held < pair + state + 2 ** 26
+    assert sess.run(Fused(), 50000).converged
+    assert sess.view_bytes() == vbytes
+    assert all(v["ell_bytes"] == 0 and v["ell_builds"] == 0
+               for v in vbytes)
+    assert "view.ell" not in sess.trace.totals()

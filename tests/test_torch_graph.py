@@ -192,3 +192,101 @@ def test_port_sources_import_no_jax_or_repro():
     for f in files:
         bad = {r for r in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f}: imports {bad}"
+
+
+# -- a session's view: pair tiles built alone, ELL tiles on demand -------------
+
+
+def _graph500(scale):
+    """A Graph500 draw (the benchmark's generator, graphbench/graph.py) as
+    the port's CSR; None draws the edgeless graph."""
+    if scale is None:
+        return tg.CSRGraph.from_edges(200, [], [])
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from graphbench.graph import graph500
+    c = graph500(dict(scale=scale, edgefactor=16, a=0.57, b=0.19, c=0.19),
+                 np.random.default_rng(2))
+    return tg.CSRGraph.from_edges(c.n, *c.edges())
+
+
+VIEW_GRAPHS = [(9, 8), (10, 64), (11, 512), (None, 64)]
+VIEW_KEYS = [(0.0, "out_degree"), (float("inf"), None),
+             (float("inf"), "unit")]
+
+
+@pytest.mark.parametrize("fill,normalize", VIEW_KEYS)
+@pytest.mark.parametrize("scale,vb", VIEW_GRAPHS)
+def test_view_pairs_equal_pairs_of_the_ell_build(scale, vb, fill,
+                                                 normalize):
+    """`build_view`'s pair view, built from the block adjacency, equals
+    `build_block_pairs(build_blocked(...))` field by field and tile by
+    tile (its dense operator too), and no ELL tiles are made."""
+    csr = _graph500(scale)
+    kw = dict(fill=fill, normalize=normalize, device="cpu")
+    want = tg.build_block_pairs(tg.build_blocked(csr, vb, **kw))
+    g, got = tg.build_view(csr, vb, **kw)
+    assert g.ell is None and g.ell_bytes == 0
+    _pair_fields_equal(got, want)
+    for f in ("run_start", "chunk_start", "chunk_run"):
+        x, y = _np(getattr(got, f)), _np(getattr(want, f))
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y)
+    assert (got.dense_op is None) == (want.dense_op is None)
+    if want.dense_op is not None:
+        np.testing.assert_array_equal(_np(got.dense_op), _np(want.dense_op))
+    if scale == 9 and fill == 0.0:
+        assert got.dense_op is not None       # the dense operator's path
+    if scale is None:
+        assert got.num_pairs == 1 and not _np(got.dst_touched).any()
+
+
+@pytest.mark.parametrize("fill,normalize", VIEW_KEYS)
+@pytest.mark.parametrize("scale,vb", VIEW_GRAPHS)
+def test_view_ell_on_demand_equals_build_blocked(scale, vb, fill,
+                                                 normalize):
+    """A view's ELL tiles, built on first use from its pair view, equal
+    `build_blocked`'s; its metadata equals it before any build; the
+    tiles then stay with the view."""
+    csr = _graph500(scale)
+    kw = dict(fill=fill, normalize=normalize, device="cpu")
+    want = tg.build_blocked(csr, vb, **kw)
+    g, _ = tg.build_view(csr, vb, **kw)
+    for f in ("n_real", "block_size", "num_blocks", "max_nbr_blocks",
+              "fill"):
+        assert getattr(g, f) == getattr(want, f), f
+    for f in ("nbr_ids", "nbr_mask", "vertex_mask"):
+        x, y = _np(getattr(g, f)), _np(getattr(want, f))
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y)
+    assert g.ell is None
+    tiles = g.tiles
+    assert tiles.dtype == torch.float32 and tiles.is_contiguous()
+    np.testing.assert_array_equal(_np(tiles), _np(want.tiles))
+    assert g.tiles is tiles and g.ell is tiles
+    assert g.ell_bytes == want.tiles.numel() * 4
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_view_shard_rows_on_demand_equal_the_whole_build(shards):
+    """`build_view_shard`'s ELL rows, left unbuilt, equal the whole
+    build's rows when asked for: from its pair view with one shard,
+    from the adjacency with several."""
+    csr = _graph500(10)
+    kw = dict(fill=0.0, normalize="out_degree", device="cpu")
+    whole = tg.build_blocked(csr, 32, **kw)
+    b_loc = whole.num_blocks // shards
+    for s in range(shards):
+        g, _, _ = tg.structure.build_view_shard(csr, 32, shards, s, **kw)
+        assert g.ell is None
+        np.testing.assert_array_equal(
+            _np(g.tiles), _np(whole.tiles[s * b_loc:(s + 1) * b_loc]))
+        np.testing.assert_array_equal(
+            _np(g.nbr_ids), _np(whole.nbr_ids[s * b_loc:(s + 1) * b_loc]))
+
+
+def test_view_without_a_way_to_build_ell_says_so():
+    g, _ = tg.build_view(_graph500(9), 8, device="cpu")
+    g.build_ell = None
+    with pytest.raises(RuntimeError, match="no ELL tiles"):
+        g.tiles

@@ -462,7 +462,14 @@ def test_span_tree_of_both_drivers(backend):
     assert parents["submit"] == parents["run"] == parents["counts"] \
         == parents["detach"] == {None}
     assert parents["view.build"] == {"submit"}
-    assert parents["pairs.build"] == {"run"}
+    # a view is built with its pair view; the plain min-plus route of
+    # the SSSP view asks for its ELL tiles once, the PageRank view never
+    assert "pairs.build" not in parents
+    assert parents["view.ell"] == ({"step.push"} if backend == "host"
+                                   else {"run"})
+    ells = [e for e in spans if e["name"] == "view.ell"]
+    assert [e["args"]["view"] for e in ells] == [str(
+        sess.view_groups()[1].key)]
     assert parents["run.finish"] == {"run"}
     if backend == "host":
         assert parents["superstep"] == {"run"}

@@ -18,6 +18,7 @@ import repro.core as rc  # noqa: E402
 import repro.graph as rg  # noqa: E402
 import repro_torch.algorithms as ta  # noqa: E402
 import repro_torch.core as tc  # noqa: E402
+import repro_torch.core.push as tpush  # noqa: E402
 import repro_torch.graph as tg  # noqa: E402
 from repro_torch import convert  # noqa: E402
 
@@ -311,3 +312,154 @@ def test_unported_options_raise(tmp_path):
     grp.overlay = tg.empty_overlay(grp.graph.num_blocks, 4, device="cpu")
     assert inert.run().converged
     np.testing.assert_array_equal(inert.result(h2), sess.result(h))
+
+
+# -- views that hold their pair tiles alone ------------------------------------
+
+
+def _g500_small():
+    """A Graph500 draw at scale 8 (256 vertices; the benchmark's
+    generator, graphbench/graph.py) as the port's CSR."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from graphbench.graph import graph500
+    c = graph500(dict(scale=8, edgefactor=16, a=0.57, b=0.19, c=0.19),
+                 np.random.default_rng(2))
+    return tg.CSRGraph.from_edges(c.n, *c.edges())
+
+
+def _dense_walk(csr):
+    """[n, n] float64 matrix of the out-degree normalized view's weights
+    (w_uv / outdeg(u) in float32, as the view holds them)."""
+    src = np.repeat(np.arange(csr.n), csr.out_degree)
+    deg = np.maximum(csr.out_degree, 1).astype(np.float32)
+    a = torch.zeros((csr.n, csr.n), dtype=torch.float64)
+    a[src, csr.indices] = torch.from_numpy(
+        (csr.weights / deg[src]).astype(np.float32)).double()
+    return a
+
+
+def _power_iteration(csr, damping, source=None):
+    """x = b + damping A^T x by power iteration in float64, with b
+    (1 - damping) at every vertex (PageRank) or at `source` (PPR)."""
+    at = _dense_walk(csr).T
+    b = torch.zeros(csr.n, dtype=torch.float64)
+    if source is None:
+        b[:] = 1.0 - damping
+    else:
+        b[source] = 1.0 - damping
+    x = b.clone()
+    for _ in range(2000):
+        nxt = b + damping * (at @ x)
+        if torch.max(torch.abs(nxt - x)) < 1e-14:
+            break
+        x = nxt
+    return nxt.numpy()
+
+
+def _bellman_ford(csr, source, unit):
+    """Shortest distances from `source` by Bellman-Ford on a dense
+    matrix.  Relaxed in float32, as the session relaxes: each relaxation
+    is monotone, so every fair order from +inf ends at the same float32
+    fixpoint, and the answers are compared bit for bit."""
+    src = np.repeat(np.arange(csr.n), csr.out_degree)
+    w = torch.full((csr.n, csr.n), float("inf"), dtype=torch.float32)
+    w[src, csr.indices] = torch.from_numpy(
+        np.ones_like(csr.weights) if unit else csr.weights)
+    d = torch.full((csr.n,), float("inf"), dtype=torch.float32)
+    d[source] = 0.0
+    for _ in range(csr.n):
+        nxt = torch.minimum(d, (d[:, None] + w).min(dim=0).values)
+        if torch.equal(nxt, d):
+            break
+        d = nxt
+    return d.numpy()
+
+
+VIEW_POLICIES = {"Fused": lambda: tc.Fused(),
+                 "TwoLevel": lambda: tc.TwoLevel(),
+                 "Independent": lambda: tc.Independent(),
+                 "AllBlocks": lambda: tc.AllBlocks()}
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("policy", list(VIEW_POLICIES))
+def test_pair_views_match_a_plain_dense_solve(policy, use_pallas):
+    """Sessions on views that hold their pair tiles alone, against a
+    plain float64 power iteration (PageRank, PPR; rtol 5e-3, atol 1e-4,
+    the bar of an independent solver) and Bellman-Ford on a dense matrix
+    (SSSP, BFS; bit for bit).  The ELL tiles are built only where the
+    route reads them: the per-job route (Independent) and the plain
+    min-plus route."""
+    csr = _g500_small()
+    sess = tc.GraphSession(csr, 16, capacity=2, seed=4, device="cpu",
+                           use_pallas=use_pallas)
+    keys = np.flatnonzero(csr.out_degree > 0)
+    s1, s2 = int(keys[7]), int(keys[40])
+    hs = [sess.submit(ta.PageRank()), sess.submit(ta.PersonalizedPageRank(
+        source=s1)), sess.submit(ta.SSSP(source=s2)),
+        sess.submit(ta.BFS(source=s1))]
+    assert sess.run(VIEW_POLICIES[policy](), 20000).converged
+    got = [sess.result(h) for h in hs]
+    np.testing.assert_allclose(got[0], _power_iteration(csr, 0.85),
+                               rtol=5e-3, atol=1e-4)
+    np.testing.assert_allclose(got[1], _power_iteration(csr, 0.85, s1),
+                               rtol=5e-3, atol=1e-4)
+    np.testing.assert_array_equal(got[2], _bellman_ford(csr, s2, False))
+    np.testing.assert_array_equal(got[3], _bellman_ford(csr, s1, True))
+    for g, vb in zip(sess.view_groups(), sess.view_bytes()):
+        assert vb["view"] == g.key
+        assert vb["pair_bytes"] == g.pairs.tiles.numel() * 4 > 0
+        reads = tpush.reads_ell(g.semiring, use_pallas,
+                                policy != "Independent")
+        assert vb["ell_builds"] == int(reads)
+        assert vb["ell_bytes"] == (g.graph.tiles.numel() * 4 if reads
+                                   else 0)
+
+
+def test_fused_kernel_route_builds_no_ell():
+    """A plus-times view (and every other) after a Fused run on the
+    kernel-route contract (use_pallas) holds 0 ELL bytes and no
+    `view.ell` span was recorded, after set-up and after the run."""
+    from repro_torch.obs import TelemetryConfig
+    csr = _g500_small()
+    sess = tc.GraphSession(csr, 16, capacity=2, seed=4, device="cpu",
+                           use_pallas=True,
+                           telemetry=TelemetryConfig(capacity=0))
+    for a in (ta.PageRank(), ta.SSSP(source=3), ta.BFS(source=3)):
+        sess.submit(a)
+    for _ in range(2):
+        assert all(v["ell_bytes"] == 0 and v["ell_builds"] == 0
+                   for v in sess.view_bytes())
+        assert all(g.graph.ell is None for g in sess.view_groups())
+        assert "view.ell" not in sess.trace.totals()
+        assert "view.build" in sess.trace.totals()
+        sess.run(tc.Fused(), 20000)
+    assert sess.view_groups()[0].semiring == "plus_times"
+
+
+def test_plain_route_builds_ell_once_until_the_view_is_rebuilt():
+    """The plain min-plus route asks for the view's ELL tiles: built
+    once under a `view.ell` span, kept across runs, dropped by a
+    compaction and built again when next asked."""
+    from repro_torch.obs import TelemetryConfig
+    sess = tc.GraphSession(_g500_small(), 16, capacity=2, seed=4,
+                           device="cpu", use_pallas=False,
+                           telemetry=TelemetryConfig(capacity=0))
+    h = sess.submit(ta.SSSP(source=3))
+    grp = sess.view_groups()[0]
+    sess.run(tc.TwoLevel(), 3)
+    sess.run(tc.TwoLevel(), 3)
+    assert grp.ell_builds == 1 and sess.trace.totals()["view.ell"][1] == 1
+    built = grp.graph.tiles
+    assert sess.view_bytes()[0]["ell_bytes"] == built.numel() * 4
+    sess.compact()
+    assert sess.view_bytes()[0]["ell_bytes"] == 0
+    assert sess.run(tc.TwoLevel(), 20000).converged
+    assert grp.ell_builds == 2
+    np.testing.assert_array_equal(grp.graph.tiles.numpy(), built.numpy())
+    np.testing.assert_array_equal(
+        sess.result(h), _bellman_ford(sess._csr, 3, False))

@@ -326,6 +326,18 @@ def _from_port_state_to_mid_stream(case):
     return ref, port
 
 
+PAIR_FIELDS = ("src", "dst", "slot", "first", "last", "src_nnz",
+               "dst_touched", "tiles", "run_start", "chunk_start",
+               "chunk_run")
+
+
+def _same_pairs(a, b):
+    assert a.num_pairs == b.num_pairs
+    for f in PAIR_FIELDS:
+        np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                      getattr(b, f).numpy())
+
+
 def _same_structure(gp, gr):
     for f in ("tiles", "nbr_ids", "nbr_mask"):
         np.testing.assert_array_equal(getattr(gp.graph, f).numpy(),
@@ -348,10 +360,11 @@ def test_apply_updates_matches_reference(case):
     """One apply_updates on identical sessions: the CSR, tiles, overlay
     arrays, ov_entry, ov_used, the dirty boost, StreamStats and the
     min-plus values and deltas bit-equal; plus-times deltas at rtol
-    1e-6, atol 1e-7.  Every batch drops the cached pair view."""
+    1e-6, atol 1e-7.  The pair view is edited with the tiles (or rebuilt
+    by a compaction): bit-equal to a gather from them after the batch."""
     ref, port = _from_port_state_to_mid_stream(case)
     for g in port.view_groups():
-        port._pair_data(g)                 # a pair view the batch must drop
+        port._pair_data(g)                 # a pair view the batch must edit
     ops = CASES[case][4]
     st_r = ref.apply_updates(_batch("ref", ops))
     st_p = port.apply_updates(_batch("port", ops))
@@ -360,7 +373,8 @@ def test_apply_updates_matches_reference(case):
     np.testing.assert_array_equal(port._dirty_boost, ref._dirty_boost)
     assert port._stream_pending == ref._stream_pending
     for gp, gr in zip(port.view_groups(), ref.view_groups()):
-        assert gp.pairs is None
+        assert gp.pairs is not None
+        _same_pairs(gp.pairs, tg.build_block_pairs(gp.graph))
         _same_structure(gp, gr)
         np.testing.assert_array_equal(gp.values.numpy(), _np(gr.values))
         if gr.semiring == "min_plus":
@@ -649,3 +663,73 @@ def test_trace_recorder_matches_reference():
               "device_chunk", "converged"):
         assert n in names, n
     assert rtrace.validate_trace_events(sess.trace.to_json()) > 0
+
+
+# -- views that hold their pair tiles alone ------------------------------------
+
+
+PAIR_ONLY_BATCHES = [
+    [("ins", [7, 100], [8, 101], [0.5, 2.0])],                  # reweights
+    [("del", [10, 120], [11, 121])],                            # deletes
+    [("ins", [5, 40, 70], [200, 170, 250])],                    # new pairs
+    [("ins", [1, 2, 3], [100, 150, 220])],                      # overflow
+]
+
+
+@pytest.mark.parametrize("policy", ["fused", "host"])
+def test_stream_on_pair_only_views_matches_views_holding_ell(policy):
+    """Reweights, deletes, structurally-new pairs, an overlay overflow
+    (a compaction) and a forced compaction on a session whose views hold
+    their pair tiles alone (the kernel route's contract) give the state
+    of a session whose views hold their ELL tiles from the start: pair
+    tiles, overlay and job state bit for bit after every batch, and the
+    ELL tiles built afterwards from the pairs equal the other's edited
+    ones; no batch builds the pair-only views' ELL tiles; then both reach
+    the reference's fixpoint of the final graph."""
+    specs = (("SSSP", (("source", 0),)), ("PageRank", ()),
+             ("BFS", (("source", 3),)))
+    sess, hs = {}, {}
+    for held in (False, True):
+        s = tc.GraphSession(_csr("port", "chain"), VB, capacity=2,
+                            seed=0, overlay_capacity=2, device="cpu",
+                            use_pallas=True)
+        hs[held] = [s.submit(a) for a in _algs("port", specs)]
+        if held:
+            for g in s.view_groups():
+                g.graph.tiles
+        sess[held] = s
+    pol = POLICIES[policy]
+    compacted = 0
+    for ops in PAIR_ONLY_BATCHES + [None]:
+        for s in sess.values():
+            s.run(pol(), 6)
+            if ops is None:
+                s.compact()
+            else:
+                compacted += s.apply_updates(
+                    _batch("port", ops)).compacted_views
+        assert all(v["ell_bytes"] == 0 and v["ell_builds"] == 0
+                   for v in sess[False].view_bytes())
+        for ga, gb in zip(sess[False].view_groups(),
+                          sess[True].view_groups()):
+            _same_pairs(ga.pairs, sess[True]._pair_data(gb))
+            for f in ("src_u", "dst", "w", "mask"):
+                np.testing.assert_array_equal(getattr(ga.overlay, f).numpy(),
+                                              getattr(gb.overlay, f).numpy())
+            np.testing.assert_array_equal(ga.values.numpy(),
+                                          gb.values.numpy())
+            np.testing.assert_array_equal(ga.deltas.numpy(),
+                                          gb.deltas.numpy())
+        if ops == PAIR_ONLY_BATCHES[2]:
+            assert any(g.overlay.mask.sum() > 0
+                       for g in sess[False].view_groups())
+    assert compacted > 0
+    for ga, gb in zip(sess[False].view_groups(), sess[True].view_groups()):
+        np.testing.assert_array_equal(ga.graph.tiles.numpy(),
+                                      gb.graph.tiles.numpy())
+    ops = tuple((o[0],) + tuple(tuple(x) for x in o[1:])
+                for b in PAIR_ONLY_BATCHES for o in b)
+    want = _ref_fixpoint("chain", specs, ops=ops)
+    for held, s in sess.items():
+        assert s.run(pol(), 50000).converged
+        _check(specs, [s.result(h) for h in hs[held]], want)
